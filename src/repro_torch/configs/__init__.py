@@ -1,0 +1,32 @@
+"""Architecture config registry: resolve --arch <id> to a ModelConfig.
+
+The port's first slice trains the dense qwen1.5-0.5b only; the other
+architectures of the JAX package's registry come with their model families
+(ROADMAP.md Queue 1)."""
+from .base import INPUT_SHAPES, InputShape, ModelConfig  # noqa: F401
+
+_REGISTRY = {}
+
+
+def register(cfg: ModelConfig) -> ModelConfig:
+    _REGISTRY[cfg.name] = cfg
+    return cfg
+
+
+def get(name: str) -> ModelConfig:
+    if not _REGISTRY:
+        _load_all()
+    if name not in _REGISTRY:
+        raise KeyError(f"arch {name!r} is not ported yet (have "
+                       f"{sorted(_REGISTRY)}; see ROADMAP.md Queue 1)")
+    return _REGISTRY[name]
+
+
+def names() -> list:
+    if not _REGISTRY:
+        _load_all()
+    return sorted(_REGISTRY)
+
+
+def _load_all():
+    from . import qwen1_5_0_5b  # noqa: F401

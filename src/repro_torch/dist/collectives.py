@@ -1,0 +1,93 @@
+"""The node-stacked flat state and the fused multi-consensus.
+
+The JAX package flattens its stacked parameter pytree into one f32 (n, D)
+matrix around every fused mix (``flatten_stacked`` / ``unflatten_stacked``)
+and lets XLA fuse the copies away.  Done eagerly at full width that would
+cost ~15 GB of copies per mix, so the port keeps the state flat for the
+whole run: x, h and g_prev are each one (n, D) f32 tensor, and a node's
+parameters are views into its row (:class:`FlatLayout`).  ``gossip_mix``
+reads the flat tensor directly and mixes it in place; it treats every
+column alone, so the column order inside D is free, and the layout takes
+``jax.tree.leaves`` order so that the columns line up with the reference's.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+from .. import tree
+from ..core import algorithms as alg
+from ..kernels import ops
+
+
+class FlatLayout:
+    """Where each parameter leaf lives in a flat (D,) row: leaves in
+    ``jax.tree.leaves`` order, each contiguous, the layer-stacked leaves
+    (``params["units"]``) with their leading layer axis."""
+
+    def __init__(self, shapes: dict):
+        self.entries = []          # (path, shape, offset)
+        off = 0
+        for path, shape in tree.items(shapes):
+            self.entries.append((path, tuple(shape), off))
+            off += math.prod(shape)
+        self.size = off
+
+    def flatten(self, params: dict) -> torch.Tensor:
+        """The (D,) f32 row holding ``params`` (a tree of this layout)."""
+        leaves = dict(tree.items(params))
+        return torch.cat([leaves[path].reshape(-1).to(torch.float32)
+                          for path, _, _ in self.entries])
+
+    def views(self, row: torch.Tensor) -> dict:
+        """The parameter tree as views into ``row`` (no copy)."""
+        return tree.build((path, row[off:off + math.prod(shape)].view(shape))
+                          for path, shape, off in self.entries)
+
+    def grad_leaves(self, xrow: torch.Tensor, grow: torch.Tensor) -> dict:
+        """Parameters for one node's backward pass: every leaf a view into
+        ``xrow`` that requires grad, with its ``.grad`` preset to the same
+        slice of ``grow``, so ``backward()`` accumulates the node's gradient
+        straight into the flat buffer (autograd adds into a defined
+        ``.grad`` in place).  Layer-stacked leaves are split per layer and
+        ``params["units"]`` is the per-layer list the model's forward takes:
+        a leaf per layer keeps each layer's gradient in its own slice,
+        where indexing one stacked leaf would make every layer's backward
+        write a zero-filled gradient of the whole stack."""
+        def leaf(off, shape):
+            size = math.prod(shape)
+            p = xrow[off:off + size].view(shape).detach().requires_grad_()
+            p.grad = grow[off:off + size].view(shape)
+            return p
+
+        top, layers = [], None
+        for path, shape, off in self.entries:
+            if path[0] != "units":
+                top.append((path, leaf(off, shape)))
+                continue
+            if layers is None:
+                layers = [[] for _ in range(shape[0])]
+            size = math.prod(shape[1:])
+            for u, pairs in enumerate(layers):
+                pairs.append((path[2:], leaf(off + u * size, shape[1:])))
+        params = tree.build(top)
+        params["units"] = [tree.build(pairs) for pairs in layers or []]
+        return params
+
+
+def fused_multi_consensus(Ws: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
+    """Algorithm 2 through the Hopper ``gossip_mix`` kernel: one pass over
+    the flat (n, D) state applying all R matrices, in place.  No padding:
+    the kernel masks a ragged D itself."""
+    return ops.gossip_mix(Ws, mat, use_kernel=True, out=mat)
+
+
+def consensus_distance(x: torch.Tensor) -> float:
+    """||x - x̄||_F of the flat (n, D) state, reduced on the device one row
+    at a time: the temporaries are (D,) vectors, never a second (n, D)
+    state (7.4 GB at full width).  One scalar crosses to the host."""
+    xb = alg.node_mean(x)[0]
+    sq = sum(torch.linalg.vector_norm(row - xb) ** 2 for row in x)
+    return float(sq) ** 0.5

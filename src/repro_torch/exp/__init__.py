@@ -1,0 +1,41 @@
+"""repro_torch.exp — the declarative experiment front door of the port.
+
+The spec tree, its JSON and ``spec_hash`` are the JAX package's (a copy), so
+one spec file describes the same run in both packages; ``run(spec,
+device=...)`` trains it with the port on the given device.
+"""
+
+from .build import Built, Result, build, resolve_device, run  # noqa: F401
+from .registry import (  # noqa: F401
+    ALGORITHMS,
+    CHANNELS,
+    COMPRESSIONS,
+    GOSSIP_IMPLS,
+    LOCAL_OPTS,
+    MODEL_KINDS,
+    OBS_METRICS,
+    TOPOLOGIES,
+    build_topology,
+    register_topology,
+)
+from .spec import (  # noqa: F401
+    AlgorithmSpec,
+    ChannelSpec,
+    CompressionSpec,
+    DataSpec,
+    ExperimentSpec,
+    ModelRef,
+    ObsSpec,
+    RunSpec,
+    ServeSpec,
+    TopologySpec,
+    from_dict,
+    from_json,
+    load,
+    spec_hash,
+    sweep,
+    to_dict,
+    to_json,
+    with_field,
+    with_overrides,
+)

@@ -1,0 +1,175 @@
+"""String-keyed registries for every scenario vocabulary, the port of the
+JAX package's ``exp/registry.py``.
+
+The vocabularies are the reference's, word for word, so a spec JSON or a
+manifest means the same thing in both packages (``gossip_impl="pallas"``
+still selects the fused gossip kernel, here the Hopper one).  Entries whose
+machinery is not ported yet stay in the vocabulary and raise
+``NotImplementedError`` naming their ROADMAP.md item when built; none is
+silently ignored.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict
+
+import numpy as np
+
+from ..core import engine, gossip, topology as topo
+from .spec import TopologySpec
+
+# ---------------------------------------------------------------------------
+# Topologies: name -> builder(spec, n, *, horizon, seed) -> WeightSchedule
+# ---------------------------------------------------------------------------
+
+TOPOLOGIES: Dict[str, Callable] = {}
+
+
+def register_topology(name: str):
+    """Register a topology builder under ``name`` (a legal
+    ``TopologySpec.kind`` and a CLI ``--topology`` choice)."""
+    def deco(fn):
+        TOPOLOGIES[name] = fn
+        return fn
+    return deco
+
+
+@register_topology("sun")
+def _sun(s: TopologySpec, n: int, *, horizon=None, seed=0):
+    return gossip.theorem3_weight_schedule(n, s.beta)
+
+
+@register_topology("ring")
+def _ring(s: TopologySpec, n: int, *, horizon=None, seed=0):
+    return gossip.schedule_from_topology(topo.StaticSchedule(topo.ring_graph(n)))
+
+
+@register_topology("one-peer-exp")
+def _one_peer_exp(s: TopologySpec, n: int, *, horizon=None, seed=0):
+    return gossip.schedule_from_topology(topo.one_peer_exponential_schedule(n))
+
+
+@register_topology("static-exp")
+def _static_exp(s: TopologySpec, n: int, *, horizon=None, seed=0):
+    return gossip.schedule_from_topology(
+        topo.StaticSchedule(topo.static_exponential_graph(n)))
+
+
+@register_topology("federated")
+def _federated(s: TopologySpec, n: int, *, horizon=None, seed=0):
+    return gossip.schedule_from_topology(
+        topo.federated_schedule(n, s.local_steps))
+
+
+@register_topology("complete")
+def _complete(s: TopologySpec, n: int, *, horizon=None, seed=0):
+    return gossip.WeightSchedule((np.ones((n, n)) / n,),
+                                 (topo.RoundStructure("complete"),))
+
+
+@register_topology("random-matching")
+def _random_matching(s: TopologySpec, n: int, *, horizon=None, seed=0):
+    return gossip.schedule_from_topology(topo.random_matching_schedule(n))
+
+
+@register_topology("resampled-matching")
+def _resampled_matching(s: TopologySpec, n: int, *, horizon=None, seed=0):
+    return gossip.schedule_from_topology(
+        topo.resampled_matching_schedule(n, seed=seed), horizon=horizon)
+
+
+@register_topology("erdos-renyi")
+def _erdos_renyi(s: TopologySpec, n: int, *, horizon=None, seed=0):
+    return gossip.schedule_from_topology(
+        topo.erdos_renyi_schedule(n, s.er_p, seed=seed))
+
+
+def _not_ported(name: str, item: int):
+    def builder(s, n, *, horizon=None, seed=0):
+        raise NotImplementedError(f"topology {name!r} is not ported yet "
+                                  f"(ROADMAP.md Queue 1 item {item})")
+    return builder
+
+
+# mobility models live in sim/, the sampled-client family in sparse/
+for _name, _item in (("geometric-mobility", 5), ("waypoint-mobility", 5)):
+    register_topology(_name)(_not_ported(_name, _item))
+
+
+@register_topology("random-sun")
+def _random_sun(s: TopologySpec, n: int, *, horizon=None, seed=0):
+    """The §6 Figure 2 protocol: sun-shaped graphs whose |C| = ``centers``
+    center set is re-drawn randomly for each of ``resample_period`` rounds,
+    with the I - L/d_max Laplacian weights the paper's experiments use."""
+    rng = np.random.default_rng(seed)
+    mats, structs = [], []
+    for _ in range(s.resample_period):
+        center = rng.choice(n, size=s.centers, replace=False)
+        adj = topo.sun_shaped_graph(n, center)
+        mats.append(gossip.laplacian_rule(adj))
+        structs.append(topo.classify_adjacency(adj))
+    return gossip.WeightSchedule(tuple(mats), tuple(structs))
+
+
+@register_topology("hierarchical")
+def _hierarchical(s: TopologySpec, n: int, *, horizon=None, seed=0):
+    """Two-level pod schedule: ``local_steps`` rounds of intra-pod averaging
+    (W = I_m ⊗ J_p) followed by one inter-pod round where pods pair up
+    round-robin (W = B ⊗ J_p with B = ½I + ½P a matching over pod means).
+    ``pods`` is the pod size p (must divide n, pod-major node order)."""
+    p = s.pods
+    if p < 1 or n % p:
+        raise ValueError(f"hierarchical topology needs pods | nodes, got "
+                         f"pods={p}, nodes={n}")
+    m = n // p
+    Jp = np.ones((p, p)) / p
+    intra = np.kron(np.eye(m), Jp)
+    mats, structs = [], []
+    if m > 1 and not (m & (m - 1)):
+        # hypercube matchings over pods: log2(m) distinct pairings/period
+        pod_sched = topo.one_peer_exponential_schedule(m)
+        inters = [0.5 * np.eye(m) + 0.5 * pod_sched(t).astype(float)
+                  * ~np.eye(m, dtype=bool) for t in range(pod_sched.period)]
+    else:
+        # non-power-of-two pod count: one global pod average per period
+        inters = [np.ones((m, m)) / m]
+    for B in inters:
+        for _ in range(max(0, s.local_steps)):
+            mats.append(intra)
+            structs.append(topo.classify_adjacency(intra > 0))
+        mats.append(np.kron(B, Jp))
+        structs.append(topo.classify_adjacency(mats[-1] > 0))
+    return gossip.WeightSchedule(tuple(mats), tuple(structs))
+
+
+register_topology("random-sampled")(_not_ported("random-sampled", 8))
+
+MOBILITY_TOPOLOGIES = ("geometric-mobility", "waypoint-mobility")
+SPARSE_TOPOLOGIES = ("random-sampled",)
+
+
+def build_topology(s: TopologySpec, n: int, *, horizon: int | None = None,
+                   seed: int = 0) -> gossip.WeightSchedule:
+    """Realize a :class:`TopologySpec` into a ``WeightSchedule`` for ``n``
+    nodes."""
+    if s.kind not in TOPOLOGIES:
+        raise ValueError(f"unknown topology {s.kind!r} "
+                         f"(have {sorted(TOPOLOGIES)})")
+    return TOPOLOGIES[s.kind](s, n, horizon=horizon, seed=seed)
+
+
+# ---------------------------------------------------------------------------
+# The other vocabularies (the reference's, word for word)
+# ---------------------------------------------------------------------------
+
+CHANNELS = ("link_drop", "burst_loss", "churn", "straggler")
+ALGORITHMS = engine.ALGORITHMS
+LOCAL_OPTS = ("sgd", "momentum", "adam")
+GOSSIP_IMPLS = ("dense", "pallas", "auto")
+MODEL_KINDS = ("arch", "logreg")
+ROUTING_POLICIES = ("user-affinity", "round-robin")
+SERVE_DTYPES = ("bf16", "f32")
+COMPRESSIONS = ("none", "sign", "int8")
+OBS_METRICS = ("grad_norm", "consensus", "mix_residual", "tracker_residual")
+SINKS = ("jsonl", "memory")
+OBS_BOUNDS = ("paper", "centralized")
