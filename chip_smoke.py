@@ -5,11 +5,17 @@
 Run from the root of a checkout.  It builds the port's Hopper kernels from
 ``src/repro_torch/kernels/csrc`` with nvcc, holds each against its plain
 PyTorch version on the card, times it at the main path's shape beside its
-bound, the plain version and one PyTorch library call, and then drives the
-main path through the train CLI: MC-DSGT (R=2) on qwen1.5-0.5b at full width,
-4 nodes stacked on the card, 3 steps through the ``gossip_mix`` kernel.  The
-kernel's launch count over that run must be 2 per step.  It prints the
-card, one JSON line of per-kernel numbers, and last
+bound, the plain version and, where there is one, a PyTorch library call,
+and then drives the main paths through the train CLI, MC-DSGT (R=2) on
+qwen1.5-0.5b at full width, 4 nodes stacked on the card, 3 steps each:
+
+* slice 1, full-precision gossip through the ``gossip_mix`` kernel;
+* slice 2, error-feedback int8 gossip (``--compress int8``) through the
+  ``quantized_gossip_mix`` kernel.
+
+Each path's kernel must launch 2 times per step (the x and h windows); the
+counts are set to 0 just before a path and read just after it.  It prints
+the card, one JSON line of per-kernel numbers, and last
 ``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero; so does a
 machine without a CUDA device or a directory without the repository.
 """
@@ -33,7 +39,18 @@ STEPS = 3
 MAIN_ARGV = ["--arch", "qwen1.5-0.5b", "--preset", "full", "--nodes", "4",
              "--algo", "mc_dsgt", "--R", "2", "--gossip-impl", "pallas",
              "--steps", str(STEPS), "--device", "cuda"]
+COMPRESSED_ARGV = MAIN_ARGV + ["--compress", "int8"]
 TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # rtol = atol, see check_kernel
+# quantized_gossip_mix against its plain version: after round 1 the two sum
+# the mix in other orders, and a one-ulp difference can flip one entry's
+# int8 rounding (or the sign of a value at 0), which moves it by one
+# quantization step.  Up to this fraction of the entries may do so: in the
+# small cases (worst reading 3.2e-4, at n=16, R=4), and at the main shape
+# (reading 1.4e-6, 5,085 of 3.7e9 entries).  Flips cannot hide a fault:
+# see qcompare for what else holds every entry.
+MAX_FLIPS = 1e-3
+MAIN_MAX_FLIPS = 1e-5
+GROUP = 256                  # the default compression group
 
 
 def fail(msg: str):
@@ -144,6 +161,187 @@ def time_kernel(torch, gossip_matmul, ref, gossip) -> dict:
     return res
 
 
+def flips(got, want, rtol: float = 1e-5, atol: float = 1e-5) -> int:
+    """Entries of ``got`` beyond rtol/atol of ``want`` (row by row)."""
+    return sum(int(((g - w).abs() > atol + rtol * w.abs()).sum())
+               for g, w in zip(got, want))
+
+
+def qcompare(torch, what, x, res, got, want, R, scheme, group, ef):
+    """The kernel's (x, res) result ``got`` against the plain version's
+    ``want`` on the inputs ``x``, ``res`` (all (n, C), C a multiple of
+    ``group``).  Returns (entries beyond rtol = atol = 1e-5, largest
+    absolute error), and fails unless every entry is bounded:
+
+    * int8: each entry is within max(1, 2R - 3) quantization steps of its
+      group (plus 1e-5).  Round 1 is exact, a flip in a later round moves
+      one entry by one step, and each round after it can carry that on and
+      flip once more (two steps).  The step is bounded by (max|x| + R
+      max|res|) / 127 over the group's columns of all nodes: mixing with a
+      stochastic W takes convex combinations, and a round adds at most
+      max|res| (EF off) or half a step (EF on) to |x + res|.
+    * error feedback on: W is column-stochastic and deq + res = x + res in
+      every round, so the node sum of each column of x + res is kept
+      whatever flips; the kernel's is held to the input's at rtol = atol =
+      1e-5 (float64 sums)."""
+    n, C = x.shape
+    tol = 1e-5
+    if scheme == "int8":
+        def amax(t):
+            return t.abs().view(n, C // group, group).amax(dim=(0, 2))
+        steps = max(1, 2 * R - 3) * (amax(x) + R * amax(res)) / 127
+        limit = steps.repeat_interleave(group) + tol
+    bad, err = 0, 0.0
+    for g, w, name in zip(got, want, ("x", "res")):
+        d = (g - w).abs()
+        bad += int((d > tol + tol * w.abs()).sum())
+        err = max(err, float(d.max()))
+        if scheme == "int8" and bool((d > limit).any()):
+            over = float((d / limit).max())
+            fail(f"{what}: a {name} entry is off by {over:.3f} times its "
+                 "bound of max(1, 2R - 3) int8 steps")
+    if ef:
+        torch.testing.assert_close(
+            (got[0].double() + got[1].double()).sum(0),
+            (x.double() + res.double()).sum(0), rtol=tol, atol=tol,
+            msg=lambda m: f"{what}: node sums of x + res not kept: {m}")
+    return bad, err
+
+
+def check_qkernel(torch, quantized_gossip, ref, gossip):
+    """quantized_gossip_mix against its plain version over both schemes,
+    error feedback on and off, R 1/2/4, n 4 and 16 (the largest it takes:
+    16 uses the one-column path, 4 the 16-byte one), group 256 and 8, a D
+    whose last block is partial, out of place and in place.  Round 1 is
+    held tightly: int8's residual exactly (max, division, rint and the
+    product are exact), the mixed x and sign's scale (a sum in another
+    order) at rtol = atol = 1e-5.  From R = 2 on up to MAX_FLIPS of the
+    entries may flip.  Every case also passes qcompare's bounds.  In place
+    must give the same bits as out of place."""
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    cases, worst = 0, 0.0
+    for n in (4, 16):
+        for R in (1, 2, 4):
+            ws = torch.from_numpy(gossip.theorem3_weight_schedule(
+                n, 1 - 1 / n).stacked(0, R)).cuda()
+            for group, D in ((GROUP, 1_000_192), (8, 1_000_008)):
+                x = torch.randn(n, D, device="cuda", generator=gen)
+                res = 0.1 * torch.randn(n, D, device="cuda", generator=gen)
+                for scheme in ("sign", "int8"):
+                    for ef in (True, False):
+                        kw = dict(scheme=scheme, group=group,
+                                  error_feedback=ef)
+                        o, r = quantized_gossip.quantized_gossip_mix(
+                            ws, x, res, **kw)
+                        wo, wr = ref.quantized_gossip_mix_ref(ws, x, res,
+                                                              **kw)
+                        torch.cuda.synchronize()
+                        what = f"n={n} R={R} group={group} {scheme} ef={ef}"
+                        bad, _ = qcompare(torch, what, x, res, (o, r),
+                                          (wo, wr), R, scheme, group, ef)
+                        if R == 1:
+                            if scheme == "int8" or not ef:
+                                if not torch.equal(r, wr):
+                                    fail(f"{what}: residual not exact")
+                            else:
+                                torch.testing.assert_close(r, wr, rtol=1e-5,
+                                                           atol=1e-5)
+                            torch.testing.assert_close(o, wo, rtol=1e-5,
+                                                       atol=1e-5)
+                        else:
+                            worst = max(worst, bad / (2 * o.numel()))
+                            if bad > MAX_FLIPS * 2 * o.numel():
+                                fail(f"{what}: {bad} entries beyond rtol="
+                                     f"atol=1e-5")
+                        xi, ri = x.clone(), res.clone()
+                        quantized_gossip.quantized_gossip_mix(
+                            ws, xi, ri, out=xi, res_out=ri, **kw)
+                        torch.cuda.synchronize()
+                        if not (torch.equal(xi, o) and torch.equal(ri, r)):
+                            fail(f"{what}: in place differs from out of "
+                                 "place")
+                        cases += 1
+    print(f"kernel check: quantized_gossip_mix == plain on {cases} cases "
+          f"(sign/int8, EF on/off, n 4/16, R 1/2/4, group {GROUP}/8, D "
+          f"1,000,192/1,000,008; R=1 rtol=atol=1e-5, int8 residual exact; "
+          f"R>=2 flipped entries at most {MAX_FLIPS:.0e}, worst {worst:.2e}, "
+          f"int8 each within max(1, 2R-3) steps; EF on: node sums of x + res "
+          f"kept at rtol=atol=1e-5; in place == out of place bit for bit)",
+          flush=True)
+
+
+def time_qkernel(torch, quantized_gossip, ref, gossip) -> dict:
+    """quantized_gossip_mix at the main path's shape (int8, error feedback,
+    group 256): held to its plain version column chunk by column chunk (the
+    plain version is column-separable at group granularity, and whole it
+    would hold ~6 more (n, D) temporaries) with qcompare's bounds and at
+    most MAIN_MAX_FLIPS flipped entries, in place against out of place,
+    then timed beside its bound and the plain version (no single PyTorch
+    call computes this function, so there is no library time)."""
+    n, R, D = MAIN["n"], MAIN["R"], MAIN["D"]
+    kw = dict(scheme="int8", group=GROUP, error_feedback=True)
+    ws = torch.from_numpy(gossip.theorem3_weight_schedule(n, 0.75)
+                          .stacked(0, R)).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x = torch.randn(n, D, device="cuda", generator=gen)
+    res = 0.1 * torch.randn(n, D, device="cuda", generator=gen)
+    out, res_out = quantized_gossip.quantized_gossip_mix(ws, x, res, **kw)
+    torch.cuda.synchronize()
+    chunk = GROUP * 65_536
+    bad, err = 0, 0.0
+    for a in range(0, D, chunk):
+        cols = slice(a, a + chunk)
+        want = ref.quantized_gossip_mix_ref(ws, x[:, cols], res[:, cols],
+                                            **kw)
+        b, e = qcompare(torch, f"main shape, columns {a}+", x[:, cols],
+                        res[:, cols], (out[:, cols], res_out[:, cols]), want,
+                        R, kw["scheme"], GROUP, kw["error_feedback"])
+        bad, err = bad + b, max(err, e)
+    del want
+    if bad > MAIN_MAX_FLIPS * 2 * n * D:
+        fail(f"quantized_gossip_mix at the main shape: {bad} entries beyond "
+             "rtol=atol=1e-5")
+    xi, ri = x.clone(), res.clone()
+    quantized_gossip.quantized_gossip_mix(ws, xi, ri, out=xi, res_out=ri,
+                                          **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(xi, out) and torch.equal(ri, res_out)):
+        fail("quantized_gossip_mix at the main shape: in place differs from "
+             "out of place")
+    del xi, ri, out, res_out
+    torch.cuda.empty_cache()
+    rounds = {"ms": [], "plain_ms": []}
+    for _ in range(2):   # alternate, so a drift in clocks hits both
+        rounds["ms"].append(timed(
+            lambda: quantized_gossip.quantized_gossip_mix(
+                ws, x, res, out=x, res_out=res, **kw), 10))
+        rounds["plain_ms"].append(timed(
+            lambda: ref.quantized_gossip_mix_ref(ws, x, res, **kw), 3))
+    del x, res
+    torch.cuda.empty_cache()
+    # x and res each read once and written once, W once; per column and
+    # round 2n^2 flops of mixing and ~8n of quantization (add, abs, reduce,
+    # divide, round, clip, multiply, subtract)
+    nbytes = R * n * n * 4 + 4 * n * D * 4
+    flops = 2 * R * n * n * D + 8 * R * n * D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    res_ = {k: min(v) for k, v in rounds.items()}
+    res_.update(max_abs_err=err, flipped=bad, library_ms=None,
+                bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                shape=f"ws ({R},{n},{n}) f32, x and res ({n},{D}) f32, int8, "
+                      f"group {GROUP}, EF on")
+    print(f"quantized_gossip_mix at {res_['shape']}: == plain up to {bad} "
+          f"flipped of {2 * n * D} entries (limit {MAIN_MAX_FLIPS:.0e}), "
+          f"each within one int8 step of its group, max_abs_err {err:.3e}; "
+          "node sums of x + res kept; in place == out of place", flush=True)
+    print(f"quantized_gossip_mix at {res_['shape']}: kernel "
+          f"{res_['ms']:.4f} ms  plain {res_['plain_ms']:.4f} ms  library "
+          f"none  bound {res_['bound_ms']:.4f} ms ({res_['bound_by']})  "
+          f"rounds {rounds}", flush=True)
+    return res_
+
+
 def check_small_run(torch, exp):
     """A reduced run on the card two ways: the fused kernel path against
     the dense path (one plain matmul per round).  Same init, same data."""
@@ -165,16 +363,48 @@ def check_small_run(torch, exp):
           flush=True)
 
 
-def profile_step(torch, exp, steps):
+def check_small_compressed_run(torch, exp):
+    """A reduced compressed run on the card, both schemes: the fused
+    kernel path against the dense compressed path (quantize, then one
+    plain matmul per round).  Same init, same data; the states may differ
+    by flipped quantizations (MAX_FLIPS), the losses at rtol 1e-4."""
+    for scheme in ("sign", "int8"):
+        spec = exp.with_overrides(exp.ExperimentSpec(), {
+            "run.steps": 2, "run.nodes": 4, "algorithm.R": 2,
+            "compression.scheme": scheme})
+        fused = exp.run(exp.with_field(spec, "run.gossip_impl", "pallas"),
+                        device="cuda", quiet=True)
+        dense = exp.run(exp.with_field(spec, "run.gossip_impl", "dense"),
+                        device="cuda", quiet=True)
+        lf = [h["loss"] for h in fused.history]
+        ld = [h["loss"] for h in dense.history]
+        if not all(math.isfinite(v) for v in lf):
+            fail(f"reduced {scheme} run losses not finite: {lf}")
+        torch.testing.assert_close(torch.tensor(lf), torch.tensor(ld),
+                                   rtol=1e-4, atol=1e-5)
+        bad = sum(flips(a, b, rtol=1e-4) for a, b in (
+            (fused.state.x, dense.state.x),
+            (fused.state.res[0], dense.state.res[0]),
+            (fused.state.res[1], dense.state.res[1])))
+        if bad > MAX_FLIPS * 3 * fused.state.x.numel():
+            fail(f"reduced {scheme} run: {bad} state entries beyond "
+                 "rtol=1e-4 atol=1e-5")
+        print(f"reduced {scheme} run on the card: pallas losses {lf} == "
+              f"dense {ld}; x, res_x, res_h agree up to {bad} flipped "
+              "entries", flush=True)
+
+
+def profile_step(torch, exp, steps, scheme: str = "none"):
     """Where one full-width MC-DSGT step's device time goes: torch.profiler
-    over one step after a warm-up step; device time summed by kernel."""
+    over one step after a warm-up step; device time summed by kernel.
+    ``scheme`` 'int8' profiles the compressed step."""
     spec = exp.with_overrides(exp.ExperimentSpec(), {
         "model.preset": "full", "run.nodes": 4, "algorithm.R": 2,
-        "run.gossip_impl": "pallas"})
+        "run.gossip_impl": "pallas", "compression.scheme": scheme})
     built = exp.build(spec, device="cuda")
     init, warm, step = steps.make_train_step(
         built.model, built.cfg, algo="mc_dsgt", gamma=spec.algorithm.gamma,
-        R=2, gossip_impl="pallas")
+        R=2, gossip_impl="pallas", compression=built.rule.compression)
     gen = torch.Generator(device="cuda").manual_seed(0)
     state = warm(init(built.model.init(gen, torch.float32, "cuda"), 4),
                  built.stream.batch_at(0))
@@ -188,6 +418,8 @@ def profile_step(torch, exp, steps):
         state, out = step(state, built.stream.batch_at(2), W)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    del state, out
+    torch.cuda.empty_cache()
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA
@@ -195,11 +427,35 @@ def profile_step(torch, exp, steps):
     busy = sum(ms for _, ms, _ in kernels)
     mix = sum(ms for k, ms, _ in kernels if "gossip_mix" in k)
     top = sorted(kernels, key=lambda k: -k[1])[:8]
-    print(f"profile of one step: wall {wall_ms:.3f} ms  device busy "
-          f"{busy:.3f} ms (idle share {1 - busy / wall_ms:.4f})  gossip_mix "
-          f"{mix:.3f} ms  top kernels (ms, calls): "
+    print(f"profile of one step (compression {scheme}): wall {wall_ms:.3f} ms"
+          f"  device busy {busy:.3f} ms (idle share {1 - busy / wall_ms:.4f})"
+          f"  mix kernels {mix:.3f} ms  top kernels (ms, calls): "
           + "; ".join(f"{k[:60]} {ms:.3f} x{c}" for k, ms, c in top),
           flush=True)
+
+
+def main_path(torch, train, argv, counter, name: str) -> dict:
+    """Drive one main path through the train CLI with ``counter`` (a
+    kernel wrapper's launch count) set to 0 just before it and read just
+    after; fail unless it ran STEPS finite steps at 2 launches per step."""
+    counter.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    history = train.main(argv)
+    launches = counter.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = [h["loss"] for h in history]
+    if len(history) != STEPS or not all(
+            math.isfinite(h["loss"]) and math.isfinite(h["consensus"])
+            for h in history):
+        fail(f"{name} path history not {STEPS} finite steps: {history}")
+    if launches != 2 * STEPS:
+        fail(f"{name} launched {launches} times over {STEPS} MC-DSGT steps; "
+             "the x and h windows need 2 per step")
+    secs = [h["sec"] for h in history]
+    print(f"main path ({name}): {' '.join(argv)}", flush=True)
+    print(f"main path ({name}): losses {losses}  step s {secs}  peak device "
+          f"memory {peak_gb:.3f} GB  {name} launches {launches}", flush=True)
+    return {"launches": launches, "peak_gb": peak_gb}
 
 
 def main():
@@ -211,9 +467,9 @@ def main():
              "the root of a checkout")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch import exp
-    from repro_torch.core import gossip
+    from repro_torch.core import compress, gossip
     from repro_torch.dist import steps
-    from repro_torch.kernels import build, gossip_matmul, ref
+    from repro_torch.kernels import build, gossip_matmul, quantized_gossip, ref
     from repro_torch.launch import train
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -228,41 +484,53 @@ def main():
     t0 = time.perf_counter()
     build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s "
-          f"(nvcc per source: {build.BUILD_SECONDS})", flush=True)
+          f"(nvcc per source, in parallel: {build.BUILD_SECONDS})", flush=True)
 
     check_kernel(torch, gossip_matmul, ref, gossip)
     kern = time_kernel(torch, gossip_matmul, ref, gossip)
+    check_qkernel(torch, quantized_gossip, ref, gossip)
+    qkern = time_qkernel(torch, quantized_gossip, ref, gossip)
     check_small_run(torch, exp)
+    check_small_compressed_run(torch, exp)
 
-    # the main path: counts from 0 just before it, read just after
-    gossip_matmul.gossip_mix.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    history = train.main(MAIN_ARGV)
-    launches = gossip_matmul.gossip_mix.launches
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    losses = [h["loss"] for h in history]
-    if len(history) != STEPS or not all(
-            math.isfinite(h["loss"]) and math.isfinite(h["consensus"])
-            for h in history):
-        fail(f"main path history not {STEPS} finite steps: {history}")
-    if launches != 2 * STEPS:
-        fail(f"gossip_mix launched {launches} times over {STEPS} MC-DSGT "
-             f"steps; the x and h windows need 2 per step")
-    secs = [h["sec"] for h in history]
-    print(f"main path: {' '.join(MAIN_ARGV)}", flush=True)
-    print(f"main path: losses {losses}  step s {secs}  peak device memory "
-          f"{peak_gb:.3f} GB  gossip_mix launches {launches}", flush=True)
+    # the main paths: each kernel's count from 0 just before its path
+    plain = main_path(torch, train, MAIN_ARGV, gossip_matmul.gossip_mix,
+                      "gossip_mix")
     profile_step(torch, exp, steps)
+    gossip_matmul.gossip_mix.launches = 0
+    comp = main_path(torch, train, COMPRESSED_ARGV,
+                     quantized_gossip.quantized_gossip_mix,
+                     "quantized_gossip_mix")
+    if gossip_matmul.gossip_mix.launches:
+        fail("the compressed path (no warmup) launched gossip_mix")
+    D = MAIN["D"]
+    print(f"int8 payload per node and round: "
+          f"{compress.payload_bytes(D, 'int8', GROUP)} bytes against "
+          f"{compress.payload_bytes(D, 'none')} in f32 (the wire format's "
+          "price; one card moves no bytes between nodes)", flush=True)
+    profile_step(torch, exp, steps, scheme="int8")
 
-    row = {"name": "gossip_mix", "route": "cuda",
-           "source": "src/repro_torch/kernels/csrc/gossip_mix.cu",
-           "replaces": "src/repro/kernels/gossip_matmul.py:36",
-           "launches": launches, "launches_per_step": launches / STEPS,
-           "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
-           "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
-           "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],
-           "shape": kern["shape"]}
-    print(json.dumps({"kernels": [row]}), flush=True)
+    rows = [
+        {"name": "gossip_mix", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/gossip_mix.cu",
+         "replaces": "src/repro/kernels/gossip_matmul.py:36",
+         "launches": plain["launches"],
+         "launches_per_step": plain["launches"] / STEPS,
+         "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
+         "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
+         "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],
+         "shape": kern["shape"]},
+        {"name": "quantized_gossip_mix", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/quantized_gossip_mix.cu",
+         "replaces": "src/repro/kernels/quantized_gossip.py:62",
+         "launches": comp["launches"],
+         "launches_per_step": comp["launches"] / STEPS,
+         "max_abs_err": qkern["max_abs_err"], "ms": qkern["ms"],
+         "plain_ms": qkern["plain_ms"], "bound_ms": qkern["bound_ms"],
+         "bound_by": qkern["bound_by"], "library_ms": qkern["library_ms"],
+         "shape": qkern["shape"]},
+    ]
+    print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

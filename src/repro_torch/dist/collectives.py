@@ -9,6 +9,8 @@ parameters are views into its row (:class:`FlatLayout`).  ``gossip_mix``
 reads the flat tensor directly and mixes it in place; it treats every
 column alone, so the column order inside D is free, and the layout takes
 ``jax.tree.leaves`` order so that the columns line up with the reference's.
+With compression the layout also aligns every leaf to the quantization
+group, and ``quantized_gossip_mix`` mixes x and its residual in place.
 """
 
 from __future__ import annotations
@@ -25,21 +27,34 @@ from ..kernels import ops
 class FlatLayout:
     """Where each parameter leaf lives in a flat (D,) row: leaves in
     ``jax.tree.leaves`` order, each contiguous, the layer-stacked leaves
-    (``params["units"]``) with their leading layer axis."""
+    (``params["units"]``) with their leading layer axis.
 
-    def __init__(self, shapes: dict):
+    ``align`` (the compression group) starts every leaf at a multiple of
+    ``align`` and pads D to one, with zero columns that no parameter views:
+    the reference's ``compress.flatten_grouped`` layout, kept for the whole
+    run instead of built around every mix, so that a quantization group
+    never straddles two leaves.  The padding's gradient is zero, and zero
+    columns stay zero under mixing and quantization."""
+
+    def __init__(self, shapes: dict, align: int = 1):
+        if align < 1:
+            raise ValueError(f"align={align}: must be >= 1")
         self.entries = []          # (path, shape, offset)
         off = 0
         for path, shape in tree.items(shapes):
             self.entries.append((path, tuple(shape), off))
-            off += math.prod(shape)
+            off += -(-math.prod(shape) // align) * align
         self.size = off
 
     def flatten(self, params: dict) -> torch.Tensor:
-        """The (D,) f32 row holding ``params`` (a tree of this layout)."""
+        """The (D,) f32 row holding ``params`` (a tree of this layout), zero
+        in the padding columns."""
         leaves = dict(tree.items(params))
-        return torch.cat([leaves[path].reshape(-1).to(torch.float32)
-                          for path, _, _ in self.entries])
+        first = leaves[self.entries[0][0]]
+        row = torch.zeros(self.size, dtype=torch.float32, device=first.device)
+        for path, shape, off in self.entries:
+            row[off:off + math.prod(shape)] = leaves[path].reshape(-1)
+        return row
 
     def views(self, row: torch.Tensor) -> dict:
         """The parameter tree as views into ``row`` (no copy)."""
@@ -82,6 +97,22 @@ def fused_multi_consensus(Ws: torch.Tensor, mat: torch.Tensor) -> torch.Tensor:
     the flat (n, D) state applying all R matrices, in place.  No padding:
     the kernel masks a ragged D itself."""
     return ops.gossip_mix(Ws, mat, use_kernel=True, out=mat)
+
+
+def fused_quantized_consensus(Ws: torch.Tensor, mat: torch.Tensor,
+                              res: torch.Tensor, cfg, on: bool):
+    """Error-feedback compressed multi-consensus through the Hopper
+    ``quantized_gossip_mix`` kernel: quantize, mix and update the residual
+    for all R rounds in one pass over the flat (n, D) state, in place.
+    ``cfg`` is a :class:`repro_torch.core.compress.CompressionConfig`; the
+    layout is aligned to ``cfg.group``, so D needs no padding here.  ``on``
+    is the warmup gate, a host bool: False runs the plain ``gossip_mix``
+    kernel and leaves ``res`` untouched.  Returns (mat, res)."""
+    if not on:
+        return fused_multi_consensus(Ws, mat), res
+    return ops.quantized_gossip_mix(
+        Ws, mat, res, scheme=cfg.scheme, group=cfg.group,
+        error_feedback=cfg.error_feedback, out=mat, res_out=res)
 
 
 def consensus_distance(x: torch.Tensor) -> float:

@@ -20,6 +20,14 @@ accumulated sample is clipped to global norm ``clip`` (default 1.0) before
 it enters the tracker, as in the reference; ``clip=None`` is the pure
 update.  Mixing runs under ``torch.no_grad()``: it acts on parameters,
 outside autograd, so no backward kernel is needed.
+
+``compression`` (a :class:`repro_torch.core.compress.CompressionConfig`)
+quantizes every gossip payload with error feedback: ``'pallas'`` runs all R
+rounds of a window in one pass of the Hopper ``quantized_gossip_mix``
+kernel, ``'dense'`` wraps one matrix product per round in
+:func:`~repro_torch.core.compress.make_compressed_mixer`.  The flat layout
+is then aligned to the compression group, and the state carries the
+residuals ``res`` = (res_x, res_h).
 """
 
 from __future__ import annotations
@@ -28,7 +36,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from ..core import algorithms as alg, engine
+from ..core import algorithms as alg, compress, engine
 from . import collectives as coll
 
 GOSSIP_IMPLS = ("dense", "pallas")
@@ -39,11 +47,13 @@ class TrainState(NamedTuple):
     h: Optional[torch.Tensor]       # (n, D) gradient tracker (tracking rules)
     g_prev: Optional[torch.Tensor]  # (n, D) previous oracle sample
     step: int                       # round counter
+    res: Optional[tuple] = None     # EF residuals (res_x, res_h), compressing
 
 
 def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
                     R: int = 1, gossip_impl: str = "dense",
-                    clip: Optional[float] = 1.0):
+                    clip: Optional[float] = 1.0,
+                    compression: Optional[compress.CompressionConfig] = None):
     """Build (init_state, warm_start, step) for one decentralized algorithm.
 
     gossip_impl: ``'dense'`` (one matrix product per round) or
@@ -52,13 +62,14 @@ def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
     kernel path).  The JAX package's ``'sun'`` and ``'auto'`` lowerings are
     not ported yet."""
     del cfg
-    rule = engine.make_rule(algo, gamma=gamma, R=R)
+    rule = engine.make_rule(algo, gamma=gamma, R=R, compression=compression)
     if gossip_impl in ("sun", "auto"):
         raise NotImplementedError(f"gossip_impl={gossip_impl!r} is not "
                                   "ported yet (ROADMAP.md Queue 1 item 3)")
     if gossip_impl not in GOSSIP_IMPLS:
         raise ValueError(f"unknown gossip_impl {gossip_impl!r}")
-    layout = coll.FlatLayout(model.shapes)
+    layout = coll.FlatLayout(
+        model.shapes, align=compression.group if compression else 1)
 
     def _mix(Ws, mat):
         with torch.no_grad():
@@ -90,14 +101,26 @@ def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
             losses.append(loss / rule.R)
         return torch.stack(losses).mean(), g
 
+    def _cmix(gossip):
+        """The compressed window (the state never requires grad, so the
+        quantization needs no ``no_grad``)."""
+        if compression is None:
+            return None
+        if gossip_impl == "pallas":
+            return lambda off, r, mat, res, on: coll.fused_quantized_consensus(
+                gossip[off:off + r], mat, res, compression, on)
+        return compress.make_compressed_mixer(
+            lambda idx, mat: _mix(gossip[idx:idx + 1], mat), compression)
+
     def _ops(batch, gossip):
         return engine.EngineOps(
             mix=lambda off, r, mat: _mix(gossip[off:off + r], mat),
-            grad=lambda x, out=None: _grads(x, batch, out))
+            grad=lambda x, out=None: _grads(x, batch, out),
+            cmix=_cmix(gossip))
 
     def init_state(params: dict, n: int) -> TrainState:
         x = alg.broadcast_nodes(layout.flatten(params), n)
-        return TrainState(x=x, h=None, g_prev=None, step=0)
+        return _to_train(engine.init_state(rule, x))
 
     def warm_start(state: TrainState, batch) -> TrainState:
         es = engine.warm_start(rule, _to_engine(state), _ops(batch, None))
@@ -111,8 +134,8 @@ def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
 
 
 def _to_engine(s: TrainState) -> engine.EngineState:
-    return engine.EngineState(s.x, s.h, s.g_prev, s.step)
+    return engine.EngineState(s.x, s.h, s.g_prev, s.step, res=s.res)
 
 
 def _to_train(s: engine.EngineState) -> TrainState:
-    return TrainState(x=s.x, h=s.h, g_prev=s.g_prev, step=s.k)
+    return TrainState(x=s.x, h=s.h, g_prev=s.g_prev, step=s.k, res=s.res)

@@ -15,6 +15,7 @@ from .registry import (  # noqa: F401
     MODEL_KINDS,
     OBS_METRICS,
     TOPOLOGIES,
+    build_compression,
     build_topology,
     register_topology,
 )

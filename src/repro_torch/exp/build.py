@@ -79,6 +79,11 @@ def _validate(spec: ExperimentSpec) -> None:
         if value not in legal:
             raise ValueError(f"{field}={value!r}: unknown "
                              f"(have {sorted(legal)})")
+    c = spec.compression
+    if c.group < 1:
+        raise ValueError(f"compression.group={c.group}: must be >= 1")
+    if c.warmup < 0:
+        raise ValueError(f"compression.warmup={c.warmup}: must be >= 0")
 
 
 def _check_ported(spec: ExperimentSpec) -> None:
@@ -93,8 +98,6 @@ def _check_ported(spec: ExperimentSpec) -> None:
         (r.telemetry is not None, "run.telemetry", 5),
         (any(getattr(c, f) > 0 for f in registry.CHANNELS),
          "channel faults", 5),
-        (spec.compression.enabled,
-         f"compression.scheme={spec.compression.scheme!r}", 6),
         (a.delay != 0 or a.comm_interval != 1,
          "algorithm.delay / comm_interval", 7),
         (spec.data.hetero_alpha is not None, "data.hetero_alpha", 9),
@@ -116,7 +119,9 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Built:
     n = rs.nodes
     # R is mc_dsgt's knob; every other rule is defined at R=1
     R = al.R if al.name == "mc_dsgt" else 1
-    rule = engine.make_rule(al.name, gamma=al.gamma, R=R)
+    rule = engine.make_rule(al.name, gamma=al.gamma, R=R,
+                            compression=registry.build_compression(
+                                spec.compression))
     wps = rule.weights_per_step
     # horizon only matters for the non-periodic schedules (resampled matching)
     horizon = (rs.steps + 1) * wps * 4
@@ -145,7 +150,8 @@ def _run_arch(built: Built, *, quiet: bool = False) -> Result:
     spec, rs, dev = built.spec, built.spec.run, built.device
     init_state, warm_start, train_step = dsteps.make_train_step(
         built.model, built.cfg, algo=spec.algorithm.name,
-        gamma=spec.algorithm.gamma, R=built.rule.R, gossip_impl=rs.gossip_impl)
+        gamma=spec.algorithm.gamma, R=built.rule.R, gossip_impl=rs.gossip_impl,
+        compression=built.rule.compression)
     gen = torch.Generator(device=dev).manual_seed(rs.seed)
     state = init_state(built.model.init(gen, torch.float32, dev), rs.nodes)
     state, start_step = driver.restore_or_warm(

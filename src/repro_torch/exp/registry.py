@@ -15,8 +15,8 @@ from typing import Callable, Dict
 
 import numpy as np
 
-from ..core import engine, gossip, topology as topo
-from .spec import TopologySpec
+from ..core import compress, engine, gossip, topology as topo
+from .spec import CompressionSpec, TopologySpec
 
 # ---------------------------------------------------------------------------
 # Topologies: name -> builder(spec, n, *, horizon, seed) -> WeightSchedule
@@ -169,7 +169,22 @@ GOSSIP_IMPLS = ("dense", "pallas", "auto")
 MODEL_KINDS = ("arch", "logreg")
 ROUTING_POLICIES = ("user-affinity", "round-robin")
 SERVE_DTYPES = ("bf16", "f32")
-COMPRESSIONS = ("none", "sign", "int8")
+COMPRESSIONS = compress.SCHEMES       # core.compress owns the vocabulary
 OBS_METRICS = ("grad_norm", "consensus", "mix_residual", "tracker_residual")
 SINKS = ("jsonl", "memory")
 OBS_BOUNDS = ("paper", "centralized")
+
+
+def build_compression(s: CompressionSpec
+                      ) -> compress.CompressionConfig | None:
+    """Lower a :class:`CompressionSpec` to the runtime
+    :class:`repro_torch.core.compress.CompressionConfig` (None when the
+    scheme is 'none': the uncompressed path)."""
+    if s.scheme not in COMPRESSIONS:
+        raise ValueError(f"unknown compression scheme {s.scheme!r} "
+                         f"(have {sorted(COMPRESSIONS)})")
+    if s.scheme == "none":
+        return None
+    return compress.CompressionConfig(scheme=s.scheme,
+                                      error_feedback=s.error_feedback,
+                                      warmup=s.warmup, group=s.group)

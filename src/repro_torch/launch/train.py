@@ -13,9 +13,12 @@ naming their ROADMAP.md item when the run is built.
 ``--gossip-impl pallas`` keeps the reference's meaning, the fused gossip
 kernel: here all R rounds of Algorithm 2 run in one pass of the
 hand-written Hopper ``gossip_mix`` kernel (its plain PyTorch version on the
-CPU).
+CPU).  With ``--compress sign|int8`` the rounds quantize every payload with
+error feedback, and the fused window is the Hopper ``quantized_gossip_mix``
+kernel.
 
-Example (qwen1.5-0.5b at full width, 4 nodes stacked on one H100):
+Example (qwen1.5-0.5b at full width, 4 nodes stacked on one H100; add
+``--compress int8`` for int8 gossip):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
         --preset full --nodes 4 --algo mc_dsgt --R 2 --gossip-impl pallas \
         --steps 3
@@ -106,9 +109,10 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--gossip-impl", choices=list(exp.GOSSIP_IMPLS),
                     help="multi-consensus path: one matrix product per "
                          "round (dense), or all R rounds fused in the Hopper "
-                         "gossip_mix kernel (pallas, the reference's name "
-                         "for the fused kernel; its plain version on the "
-                         "CPU); auto is not ported yet")
+                         "gossip_mix kernel, or quantized_gossip_mix with "
+                         "--compress (pallas, the reference's name for the "
+                         "fused kernel; its plain version on the CPU); auto "
+                         "is not ported yet")
     ap.add_argument("--local-opt", choices=sorted(exp.LOCAL_OPTS),
                     help="local-optimizer transform applied to the descent "
                          "direction (repro.optim; sgd = the paper-pure "

@@ -2,7 +2,10 @@
 cover.  Its kernel check holds ``gossip_mix`` to its plain version at n
 4/16/64, R 1/2/4 and both dtypes; here are the largest W stack the kernel
 takes in one launch (n=64, R=8: 128 KB of shared memory, past the 48 KB
-default) and the inputs it refuses.
+default) and the inputs it refuses.  For ``quantized_gossip_mix`` (held to
+its plain version by ``chip_smoke.py`` at n 4/16, both schemes, EF on and
+off): its largest n and W stack, the one-column path that rows without
+16-byte alignment take, a rerun giving the same bits, and its refusals.
 
 These need an NVIDIA GPU and skip elsewhere; the file imports neither jax
 nor the JAX package, so it runs on a machine that has only torch:
@@ -16,7 +19,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from repro_torch.core import gossip  # noqa: E402
-from repro_torch.kernels import gossip_matmul, ref  # noqa: E402
+from repro_torch.kernels import gossip_matmul, quantized_gossip, ref  # noqa: E402
 
 
 @pytest.mark.cuda
@@ -50,3 +53,87 @@ def test_gossip_mix_kernel_refuses_what_it_cannot_take():
         gossip_matmul.gossip_mix(torch.eye(4, device="cuda")[None],
                                  torch.zeros(4, 8, device="cuda",
                                              dtype=torch.float16))
+
+
+def _qgm_inputs(n, R, D, offset=0):
+    """ws, x, res on the card; ``offset`` floats of slack before x and res
+    (1 = rows only 4-byte aligned: the kernel's one-column path)."""
+    rng = np.random.default_rng(n * 100 + R)
+    ws = torch.from_numpy(gossip.theorem3_weight_schedule(
+        n, 1 - 1 / n).stacked(0, R)).cuda()
+
+    def mat(scale):
+        a = torch.from_numpy((scale * rng.standard_normal(n * D + offset))
+                             .astype(np.float32)).cuda()
+        return a[offset:].view(n, D)
+    return ws, mat(1.0), mat(0.1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["sign", "int8"])
+@pytest.mark.parametrize("n,R,group,offset", [(16, 12, 256, 0),
+                                              (16, 3, 1, 0),
+                                              (4, 2, 64, 1)])
+def test_quantized_gossip_mix_kernel_matches_plain(scheme, n, R, group,
+                                                   offset):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    D = 3 * 4096 + group * 5            # the last block is partial
+    ws, x, res = _qgm_inputs(n, R, D, offset)
+    kw = dict(scheme=scheme, group=group)
+    before = quantized_gossip.quantized_gossip_mix.launches
+    o1, r1 = quantized_gossip.quantized_gossip_mix(ws, x, res, **kw)
+    o2, r2 = quantized_gossip.quantized_gossip_mix(ws, x, res, **kw)
+    torch.cuda.synchronize()
+    assert quantized_gossip.quantized_gossip_mix.launches == before + 2
+    # fixed-order reductions, no atomics: a rerun gives the same bits
+    assert torch.equal(o1, o2) and torch.equal(r1, r2)
+    want_o, want_r = ref.quantized_gossip_mix_ref(ws, x, res, **kw)
+    # f32 sums in another order (cuBLAS vs the kernel's FMA chain) move a
+    # value by ulps; past round 1 that can flip one quantization of an
+    # entry, so up to 1e-3 of the entries may differ by more.  A flip moves
+    # an int8 entry by one step of its group, and each later round can
+    # carry it on and flip once more: max(1, 2R - 3) steps, a step at most
+    # (max|x| + R max|res|) / 127 over the group's columns of all nodes
+    # (stochastic W mixes convex combinations; a round adds at most half a
+    # step to |x + res|).
+    tol = 1e-5
+
+    def group_max(t):
+        return t.abs().view(n, D // group, group).amax(dim=(0, 2))
+    limit = (max(1, 2 * R - 3) * (group_max(x) + R * group_max(res)) / 127
+             ).repeat_interleave(group) + tol
+    for got, want in ((o1, want_o), (r1, want_r)):
+        d = (got - want).abs()
+        bad = d > tol + tol * want.abs()
+        assert int(bad.sum()) <= 1e-3 * bad.numel(), int(bad.sum())
+        if scheme == "int8":
+            assert bool((d <= limit).all()), float((d / limit).max())
+    # error feedback: deq + res = x + res in every round and W is
+    # column-stochastic, so every column's node sum of x + res is kept
+    # whatever flips (float64 sums)
+    torch.testing.assert_close((o1.double() + r1.double()).sum(0),
+                               (x.double() + res.double()).sum(0),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_quantized_gossip_mix_kernel_refuses_what_it_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    qgm = quantized_gossip.quantized_gossip_mix
+    z = lambda n, D, **kw: torch.zeros(n, D, device="cuda", **kw)  # noqa: E731
+    eye = lambda n: torch.eye(n, device="cuda")[None]  # noqa: E731
+    with pytest.raises(ValueError, match="n <= 16"):
+        qgm(eye(17), z(17, 256), z(17, 256), scheme="sign")
+    with pytest.raises(ValueError, match="power of two <= 256"):
+        qgm(eye(4), z(4, 512), z(4, 512), scheme="int8", group=512)
+    with pytest.raises(ValueError, match="power of two <= 256"):
+        qgm(eye(4), z(4, 96), z(4, 96), scheme="int8", group=3)
+    with pytest.raises(ValueError, match="multiple of group"):
+        qgm(eye(4), z(4, 300), z(4, 300), scheme="sign", group=256)
+    with pytest.raises(TypeError, match="f32"):
+        qgm(eye(4), z(4, 256, dtype=torch.bfloat16),
+            z(4, 256, dtype=torch.bfloat16), scheme="sign")
+    with pytest.raises(ValueError, match="contiguous"):
+        qgm(eye(4), z(4, 512)[:, ::2], z(4, 256), scheme="sign")

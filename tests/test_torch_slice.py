@@ -1,7 +1,8 @@
-"""The port's first slice end to end against the JAX package: the MC-DSGT,
-DSGT and DSGD train steps with ``gossip_impl="pallas"`` (the JAX side runs
-its Pallas ``gossip_mix`` in interpret mode), the spec front door, and the
-train CLI with its ``--device`` rule."""
+"""The port's slices end to end against the JAX package: the MC-DSGT, DSGT
+and DSGD train steps with ``gossip_impl="pallas"`` (the JAX side runs its
+Pallas ``gossip_mix`` in interpret mode), the same with error-feedback
+compression through ``quantized_gossip_mix`` (slice 2), the spec front
+door, and the train CLI with its ``--device`` rule."""
 
 import json
 
@@ -15,12 +16,13 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro import configs as jconfigs  # noqa: E402
 from repro import exp as jexp  # noqa: E402
+from repro.core import compress as jcompress  # noqa: E402
 from repro.dist import steps as jsteps  # noqa: E402
 from repro.launch import train as jtrain  # noqa: E402
 from repro.models import build as jbuild  # noqa: E402
 from repro.sim import telemetry as jtelemetry  # noqa: E402
 from repro_torch import configs, exp  # noqa: E402
-from repro_torch.core import gossip  # noqa: E402
+from repro_torch.core import compress, gossip  # noqa: E402
 from repro_torch.dist import collectives as coll, steps  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import build, params_from_jax  # noqa: E402
@@ -31,6 +33,16 @@ RTOL, ATOL = 1e-4, 1e-5
 CUT = dict(layers=2, d_model=64, d_ff=128, vocab=128)
 N, B, S, GAMMA = 4, 2, 16, 0.05
 BLOCK_D = 16_384   # D = 90,816 -> 6 grid steps of the interpreted kernel
+# Compression group: the CUT model's leaves then take 832 padding columns
+# (D = 91,648), which every state tensor must keep at zero.
+GROUP = 256
+# Entries of a compressed state allowed past RTOL/ATOL (a fraction of all).
+# The two oracles' gradients differ by a few ulps, enough to flip an int8
+# rounding, or the sign of a value near 0, in the tracker's window, which
+# moves that entry (and its residual) by one quantization step; 160 of
+# 363,264 res_h entries (4.4e-4) in the int8 MC-DSGT case on this test's
+# inputs.  A fault in the quantization would move nearly every entry.
+MAX_FLIPS = 2e-3
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -39,6 +51,15 @@ def _few_threads():
     torch.set_num_threads(2)
     yield
     torch.set_num_threads(n)
+
+
+def _close_up_to_flips(got, want, *, rtol, atol, what=""):
+    """``got`` equals ``want`` within rtol/atol but for at most MAX_FLIPS
+    of the entries (quantization flips)."""
+    bad = np.abs(got - want) > atol + rtol * np.abs(want)
+    assert bad.sum() <= MAX_FLIPS * bad.size, (
+        f"{what}: {int(bad.sum())} of {bad.size} entries beyond rtol={rtol} "
+        f"atol={atol}")
 
 
 def _leafwise(port_mat, jtree, layout, what):
@@ -52,20 +73,37 @@ def _leafwise(port_mat, jtree, layout, what):
             err_msg=f"{what}: {'/'.join(path)}")
 
 
-@pytest.mark.parametrize("algo,R", [("mc_dsgt", 2), ("dsgt", 1),
-                                    ("dsgd", 1)])
-def test_pallas_train_steps_match_reference(algo, R):
+def _in_layout(jtree, layout):
+    """A JAX state tree as the port's (N, D) matrix, zero in the padding."""
+    want = {tuple(k.key for k in p): np.asarray(l) for p, l
+            in jax.tree_util.tree_leaves_with_path(jtree)}
+    mat = np.zeros((N, layout.size), np.float32)
+    for path, shape, off in layout.entries:
+        size = int(np.prod(shape))
+        mat[:, off:off + size] = want[path].reshape(N, size)
+    return mat
+
+
+def _two_steps(algo, R, scheme=None):
+    """Warm start + 2 steps of ``algo`` in both packages from the same
+    parameters and tokens (losses held to each other on the way); returns
+    (port state, JAX state, the port's layout)."""
+    jcomp = comp = None
+    if scheme is not None:
+        jcomp = jcompress.CompressionConfig(scheme=scheme, group=GROUP)
+        comp = compress.CompressionConfig(scheme=scheme, group=GROUP)
     jcfg = jconfigs.get("qwen1.5-0.5b").reduced(**CUT)
     jmodel = jbuild(jcfg)
     jinit, jwarm, jstep = jsteps.make_train_step(
         jmodel, jcfg, algo=algo, gamma=GAMMA, R=R, gossip_impl="pallas",
-        pallas_interpret=True, pallas_block_d=BLOCK_D)
+        pallas_interpret=True, pallas_block_d=BLOCK_D, compression=jcomp)
     jstep = jax.jit(jstep)
     model = build(configs.get("qwen1.5-0.5b").reduced(**CUT))
     init, warm, step = steps.make_train_step(model, None, algo=algo,
                                              gamma=GAMMA, R=R,
-                                             gossip_impl="pallas")
-    layout = coll.FlatLayout(model.shapes)
+                                             gossip_impl="pallas",
+                                             compression=comp)
+    layout = coll.FlatLayout(model.shapes, align=GROUP if comp else 1)
 
     js = jinit(jax.random.key(0), N, jnp.float32)
     ts = init(params_from_jax(jax.device_get(
@@ -87,6 +125,13 @@ def test_pallas_train_steps_match_reference(algo, R):
         np.testing.assert_allclose(float(tout["loss"]), float(jout["loss"]),
                                    rtol=RTOL)
     assert ts.step == int(js.step) == 2
+    return ts, js, layout
+
+
+@pytest.mark.parametrize("algo,R", [("mc_dsgt", 2), ("dsgt", 1),
+                                    ("dsgd", 1)])
+def test_pallas_train_steps_match_reference(algo, R):
+    ts, js, layout = _two_steps(algo, R)
     _leafwise(ts.x, js.x, layout, "x")
     # x - x̄ cancels most digits: its norm carries the states' absolute error
     np.testing.assert_allclose(coll.consensus_distance(ts.x),
@@ -96,6 +141,41 @@ def test_pallas_train_steps_match_reference(algo, R):
     else:
         _leafwise(ts.h, js.h, layout, "h")
         _leafwise(ts.g_prev, js.g_prev, layout, "g_prev")
+
+
+@pytest.mark.parametrize("scheme", ["sign", "int8"])
+@pytest.mark.parametrize("algo,R", [("mc_dsgt", 2), ("dsgd", 1)])
+def test_compressed_pallas_train_steps_match_reference(algo, R, scheme):
+    """Error-feedback compressed steps against the JAX fused path (its
+    Pallas ``quantized_gossip_mix`` interpreted): x, h, g_prev and both
+    residuals within RTOL/ATOL up to MAX_FLIPS flipped entries.  A flip
+    moves mass between a payload and its residual but keeps their node sum
+    (W is column-stochastic and deq + res = buf), so the node sums of
+    x + res_x and h + res_h are held tightly, with no entry excused."""
+    ts, js, layout = _two_steps(algo, R, scheme)
+    pad = np.ones(layout.size, bool)
+    for _, shape, off in layout.entries:
+        pad[off:off + int(np.prod(shape))] = False
+    assert pad.sum() == 832
+    streams = [("x", ts.x, js.x), ("res_x", ts.res[0], js.res[0])]
+    if algo == "dsgd":
+        assert ts.h is None and ts.res[1] is None
+    else:
+        streams += [("h", ts.h, js.h), ("g_prev", ts.g_prev, js.g_prev),
+                    ("res_h", ts.res[1], js.res[1])]
+    want = {}
+    for what, got, jtree in streams:
+        want[what] = _in_layout(jtree, layout)
+        np.testing.assert_array_equal(got.numpy()[:, pad], 0.0,
+                                      err_msg=f"{what}: padding")
+        _close_up_to_flips(got.numpy(), want[what], rtol=RTOL, atol=ATOL,
+                           what=what)
+    for a, b in (("x", "res_x"), ("h", "res_h")):
+        if a in want:
+            got = (getattr(ts, a) + ts.res[a != "x"]).sum(0).numpy()
+            np.testing.assert_allclose(got, (want[a] + want[b]).sum(0),
+                                       rtol=RTOL, atol=ATOL,
+                                       err_msg=f"node sum of {a} + {b}")
 
 
 def _run(argv, device="cpu"):
@@ -113,6 +193,22 @@ def test_pallas_and_dense_paths_agree():
     np.testing.assert_allclose([h["loss"] for h in a.history],
                                [h["loss"] for h in b.history], rtol=1e-6)
     torch.testing.assert_close(a.state.x, b.state.x, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("scheme", ["sign", "int8"])
+def test_compressed_pallas_and_dense_paths_agree(scheme):
+    """The fused window (the kernel's plain version on the CPU) against the
+    dense compressed mixer, one matmul per round; both plain torch here,
+    so the mix is the only difference (see MAX_FLIPS)."""
+    over = {"compression.scheme": scheme, "run.steps": 2, "run.nodes": 4,
+            "algorithm.R": 2}
+    a = _run({**over, "run.gossip_impl": "pallas"})
+    b = _run({**over, "run.gossip_impl": "dense"})
+    np.testing.assert_allclose([h["loss"] for h in a.history],
+                               [h["loss"] for h in b.history], rtol=1e-5)
+    for got, want in ((a.state.x, b.state.x), (a.state.res[0], b.state.res[0]),
+                      (a.state.res[1], b.state.res[1])):
+        _close_up_to_flips(got.numpy(), want.numpy(), rtol=1e-5, atol=1e-6)
 
 
 SPECS = [{}, {"algorithm.name": "dsgd", "run.nodes": 8},
@@ -157,6 +253,19 @@ def test_cli_runs_reduced_steps_on_cpu(capsys):
     assert "step     1" in capsys.readouterr().out
 
 
+def test_cli_compression_flags_reach_the_run():
+    argv = ["--preset", "reduced", "--nodes", "2", "--beta", "0.5",
+            "--steps", "1", "--batch", "1", "--seq", "16", "--gossip-impl",
+            "pallas", "--compress", "int8", "--compress-group", "64",
+            "--compress-warmup", "3", "--no-error-feedback", "--device", "cpu"]
+    spec = train.spec_from_args(train.build_parser().parse_args(argv))
+    assert exp.build(spec, device="cpu").rule.compression == \
+        compress.CompressionConfig(scheme="int8", group=64, warmup=3,
+                                   error_feedback=False)
+    history = train.main(argv)
+    assert len(history) == 1 and np.isfinite(history[0]["loss"])
+
+
 def test_default_device_raises_without_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -166,7 +275,7 @@ def test_default_device_raises_without_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--algo", "d2"], ["--gossip-impl", "auto"],
-                                   ["--compress", "int8"],
+                                   ["--hetero-alpha", "0.1"],
                                    ["--arch", "logreg"],
                                    ["--local-opt", "adam"],
                                    ["--link-drop", "0.1"], ["--delay", "1"],
