@@ -6,22 +6,33 @@ Run from the root of a checkout.  It builds the port's Hopper kernels from
 ``src/repro_torch/kernels/csrc`` with nvcc, holds each against its plain
 PyTorch version on the card, times it at the main path's shape beside its
 bound, the plain version and, where there is one, a PyTorch library call,
-and then drives the main paths through the train CLI, MC-DSGT (R=2) on
-qwen1.5-0.5b at full width, 4 nodes stacked on the card, 3 steps each:
+and then drives the main paths through the train CLI's own functions:
 
-* slice 1, full-precision gossip through the ``gossip_mix`` kernel;
-* slice 2, error-feedback int8 gossip (``--compress int8``) through the
-  ``quantized_gossip_mix`` kernel.
+* slice 1, MC-DSGT (R=2) on qwen1.5-0.5b at full width, 4 nodes stacked on
+  the card, 3 steps, full-precision gossip through the ``gossip_mix``
+  kernel;
+* slice 2, the same with error-feedback int8 gossip (``--compress int8``)
+  through the ``quantized_gossip_mix`` kernel;
+* slice 3, sampled-client MC-DSGT (R=2) on the paper's logistic regression
+  at MNIST width (d = 784): 256 of 100,000 clients per round on a unit-disk
+  graph with link drop and churn, 5 steps, the whole fleet's data and state
+  on the card.  Path A takes the JAX package's route, the edge plan's
+  scatter mixer (0 kernel launches); path B runs the same built scenario
+  through ``run_algorithm`` with a plan whose mixer asks for the
+  ``sparse_segment_mix`` kernel (``use_pallas=True``), and its evals must
+  equal path A's.
 
-Each path's kernel must launch 2 times per step (the x and h windows); the
-counts are set to 0 just before a path and read just after it.  It prints
-the card, one JSON line of per-kernel numbers, and last
-``{"ok": true, "device": {...}}``.  Any failed phase exits non-zero; so does a
-machine without a CUDA device or a directory without the repository.
+Slices 1 and 2 launch their kernel 2 times per step (the x and h windows),
+path B 4 times (one per round); the counts are set to 0 just before a path
+and read just after it.  It prints the card, one JSON line of per-kernel
+numbers, and last ``{"ok": true, "device": {...}}``.  Any failed phase exits
+non-zero; so does a machine without a CUDA device or a directory without the
+repository.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -51,6 +62,22 @@ TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # rtol = atol, see check_kernel
 MAX_FLIPS = 1e-3
 MAIN_MAX_FLIPS = 1e-5
 GROUP = 256                  # the default compression group
+# Slice 3: examples/sampled_clients.py's scenario at the paper's MNIST width
+# (configs/logreg_paper.py), through the train CLI.
+SAMPLED_STEPS = 5
+SAMPLED_ARGV = ["--arch", "logreg", "--logreg-d", "784", "--logreg-m", "8",
+                "--batch", "4", "--topology", "random-sampled", "--nodes",
+                "100000", "--sample-k", "256", "--radius", "0.45",
+                "--link-drop", "0.2", "--churn", "0.02", "--algo", "mc_dsgt",
+                "--R", "2", "--gamma", "0.3", "--gossip-impl", "auto",
+                "--steps", str(SAMPLED_STEPS), "--device", "cuda"]
+# sparse_segment_mix against its plain version: the same f32 products, each
+# segment summed in the kernel's edge order (FMA) against index_add_'s
+# atomics.  The inputs are gossip rounds: a receiver's weights sum to less
+# than 1 (Metropolis), so partial sums stay of the order of x and the two
+# orders differ by a few ulps of that.  (With weights U(0, 1), 513 edges
+# into one segment drift to partial sums of ~10 and differed by 1.1e-5.)
+STOL = 1e-5
 
 
 def fail(msg: str):
@@ -434,6 +461,268 @@ def profile_step(torch, exp, steps, scheme: str = "none"):
           flush=True)
 
 
+def scompare(torch, what, got, want):
+    """delta of the kernel against the plain version at rtol = atol =
+    STOL; returns the largest absolute error."""
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=STOL, atol=STOL,
+                               msg=lambda m: f"{what}: {m}")
+    return float((got - want).abs().max()) if got.numel() else 0.0
+
+
+def round_weights(torch, seg, S, gen):
+    """Edge weights as a gossip round has them: nonnegative, each segment's
+    (receiver's) sum below 1, like Metropolis weights."""
+    w = torch.rand(seg.numel(), device=seg.device, generator=gen)
+    sums = torch.zeros(S + 1, device=seg.device).index_add_(0, seg, w)
+    return w / (sums[seg] + torch.rand((), device=seg.device,
+                                       generator=gen) + 0.01)
+
+
+def check_skernel(torch, sparse_gossip, ref, ops):
+    """sparse_segment_mix against its plain version over E 0/1/511/513/27,000
+    edges, D 1/7/128/784/1000 (odd widths take the one-column path), S
+    1/7/256 segments, f32 and bf16 x, with repeated src, dst and seg (drawn
+    from small ranges) and padded edges (seg = S: in no segment); a rerun
+    gives the same bits.  Weights are a gossip round's: w >= 0 with each
+    segment's sum in (0, 1).  Then whole padded rounds, laid out as the plan
+    stages them (pad edges w = 0, src = dst = seg = 0; pad slots = n),
+    through ops.sparse_gossip_mix's kernel and plain routes."""
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    n, cases, err = 3000, 0, 0.0
+    for E in (0, 1, 511, 513, 27_000):
+        for D in (1, 7, 128, 784, 1000):
+            for S in (1, 7, 256):
+                for dtype in (torch.float32, torch.bfloat16):
+                    x = torch.randn(n, D, device="cuda", generator=gen
+                                    ).to(dtype)
+                    src = torch.randint(0, n, (E,), device="cuda",
+                                        generator=gen)
+                    dst = torch.randint(0, 64, (E,), device="cuda",
+                                        generator=gen)
+                    seg = torch.randint(0, S + 1, (E,), device="cuda",
+                                        generator=gen)   # S = padding
+                    w = round_weights(torch, seg, S, gen)
+                    keep = seg < S
+                    want = ref.sparse_gossip_mix_ref(
+                        seg[keep], w[keep], x[src[keep]], x[dst[keep]], S)
+                    layout = sparse_gossip.segment_layout(src, dst, w, seg, S)
+                    got = sparse_gossip.sparse_segment_mix(x, *layout)
+                    what = f"E={E} D={D} S={S} {dtype}"
+                    err = max(err, scompare(torch, what, got, want))
+                    if not torch.equal(
+                            got, sparse_gossip.sparse_segment_mix(x, *layout)):
+                        fail(f"sparse_segment_mix {what}: a rerun differs")
+                    cases += 1
+    for S_real, E_real, D in ((1, 1, 784), (200, 20_000, 784), (7, 0, 5)):
+        smax, emax = 256, 27_000
+        x = torch.randn(n, D, device="cuda", generator=gen)
+        src = torch.zeros(emax, dtype=torch.int64, device="cuda")
+        dst, seg = src.clone(), src.clone()
+        w = torch.zeros(emax, device="cuda")
+        slots = torch.full((smax,), n, dtype=torch.int64, device="cuda")
+        slots[:S_real] = torch.randperm(n, device="cuda", generator=gen
+                                        )[:S_real].sort().values
+        seg[:E_real] = torch.randint(0, S_real, (E_real,), device="cuda",
+                                     generator=gen)
+        src[:E_real] = torch.randint(0, n, (E_real,), device="cuda",
+                                     generator=gen)
+        dst[:E_real] = slots[seg[:E_real]]
+        w[:E_real] = round_weights(torch, seg[:E_real], S_real, gen)
+        args = (src, dst, w, seg, slots)
+        got = ops.sparse_gossip_mix(x.clone(), *args, use_pallas=True)
+        want = ops.sparse_gossip_mix(x.clone(), *args, use_pallas=False)
+        err = max(err, scompare(torch, f"padded round S={S_real} "
+                                f"E={E_real} D={D}", got, want))
+        cases += 1
+    print(f"kernel check: sparse_segment_mix == plain on {cases} cases (E "
+          f"0/1/511/513/27,000, D 1/7/128/784/1000, S 1/7/256, f32 and bf16, "
+          f"repeated ids, padded edges; 3 padded rounds through "
+          f"ops.sparse_gossip_mix, pad slots = n; rtol=atol={STOL}; reruns "
+          f"bit-equal) max_abs_err {err:.3e}", flush=True)
+
+
+def round_arrays(torch, plan, tensors, r):
+    """Round ``r`` of a staged edge plan cut to its realized edges and
+    receivers, int64 indices on the card: (src, dst, w, seg, S)."""
+    import numpy as np
+    e = int(plan.edges_per_round[r])
+    S = int(np.unique(plan.round(r).dst).size)
+    return (tensors["esrc"][r, :e].long(), tensors["edst"][r, :e].long(),
+            tensors["ew"][r, :e], tensors["seg"][r, :e].long(), S)
+
+
+def time_skernel(torch, sparse_gossip, ref, driver, plan, x, rounds) -> dict:
+    """sparse_segment_mix at the main path's shape: each of the ``rounds``
+    rounds path A ran, on its final state ``x`` (100,000 x 784 f32), held to
+    the plain version at rtol = atol = STOL, then timed per round beside the
+    plain version (gathers + index_add_) and torch.sparse.mm of the round's
+    (S, n) CSR matrix (+w at (seg, src), -w at (seg, dst)), built outside
+    the timed region.  The bound counts this round's data: the distinct rows
+    of x read, delta written, the edge arrays; and 3·E·D f32 operations."""
+    tensors = driver.stage_plan(plan, device="cuda")
+    n, D = x.shape
+    per = {"ms": [], "plain_ms": [], "library_ms": [], "bound_ms": []}
+    err, t_b, t_o, edges, longest = 0.0, 0.0, 0.0, [], []
+    for r in rounds:
+        src, dst, w, seg, S = round_arrays(torch, plan, tensors, r)
+        layout = sparse_gossip.segment_layout(src, dst, w, seg, S)
+        longest.append(int(layout[3].diff().max()))
+        want = ref.sparse_gossip_mix_ref(seg, w, x[src], x[dst], S)
+        err = max(err, scompare(torch, f"main shape, round {r}",
+                                sparse_gossip.sparse_segment_mix(x, *layout),
+                                want))
+        E = src.numel()
+        idx = torch.stack([torch.cat([seg, seg]), torch.cat([src, dst])])
+        A = torch.sparse_coo_tensor(idx, torch.cat([w, -w]), (S, n),
+                                    check_invariants=False
+                                    ).coalesce().to_sparse_csr()
+        lib = torch.sparse.mm(A, x)
+        err_lib = float((lib - want).abs().max())
+        per["ms"].append(timed(
+            lambda: sparse_gossip.sparse_segment_mix(x, *layout), 50))
+        per["plain_ms"].append(timed(
+            lambda: ref.sparse_gossip_mix_ref(seg, w, x[src], x[dst], S), 20))
+        per["library_ms"].append(timed(lambda: torch.sparse.mm(A, x), 20))
+        rows = int(torch.unique(torch.cat([src, dst])).numel())
+        nbytes = rows * D * 4 + S * D * 4 + E * (8 + 8 + 4) + (S + 1) * 8
+        tb, to = nbytes / HBM_BYTES_PER_S, 3 * E * D / FP32_FLOPS_PER_S
+        per["bound_ms"].append(max(tb, to) * 1e3)
+        t_b, t_o = t_b + tb, t_o + to
+        edges.append(E)
+    res = {k: sum(v) / len(v) for k, v in per.items()}
+    res.update(max_abs_err=err, bound_by="bytes" if t_b >= t_o
+               else "operations",
+               shape=f"x ({n},{D}) f32, {len(edges)} rounds of "
+                     f"{min(edges)}-{max(edges)} edges (mean "
+                     f"{sum(edges) / len(edges):.0f})")
+    print(f"sparse_segment_mix at {res['shape']}: == plain on every round "
+          f"(rtol=atol={STOL}), max_abs_err {err:.3e}; torch.sparse.mm "
+          f"max |diff| {err_lib:.3e} on the last", flush=True)
+    print(f"sparse_segment_mix per round (mean of {len(edges)}): kernel "
+          f"{res['ms']:.5f} ms  plain {res['plain_ms']:.5f} ms  "
+          f"torch.sparse.mm {res['library_ms']:.5f} ms  bound "
+          f"{res['bound_ms']:.6f} ms ({res['bound_by']}); per round kernel "
+          f"{[round(v, 5) for v in per['ms']]}; edges of the longest "
+          f"segment (a block walks them in order) {longest}", flush=True)
+    return res
+
+
+def sampled_paths(torch, train, exp, alg, driver, sparse, counters):
+    """Slice 3's main path twice on one built scenario.  A: the train CLI's
+    spec through exp.run (the scatter mixer, the JAX package's route): 5
+    finite steps and evals, 0 sparse_segment_mix launches.  B: the same
+    Result.built through run_algorithm with a plan whose mixer asks for the
+    kernel: 4 launches per step, evals equal to A's within rtol 1e-4.  The
+    oracle's generator is reseeded with run.seed for B, so both draw the
+    same minibatch indices in the same order."""
+    import numpy as np
+    spec = train.spec_from_args(train.build_parser().parse_args(SAMPLED_ARGV))
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = exp.run(spec, device="cuda", quiet=True)
+    wall = time.perf_counter() - t0
+    launches_a = {k: c.launches for k, c in counters.items()}
+    peak_a = torch.cuda.max_memory_allocated() / 1e9
+    built, tl = res.built, res.telemetry.history
+    evals = [v for _, v in res.history]
+    if len(tl) != SAMPLED_STEPS or len(evals) != SAMPLED_STEPS or not all(
+            math.isfinite(v) for v in evals + [h["consensus"] for h in tl]):
+        fail(f"sampled path A not {SAMPLED_STEPS} finite steps: {tl} "
+             f"{res.history}")
+    if not bool(res.state.x.isfinite().all()):
+        fail("sampled path A: state not finite")
+    if any(launches_a.values()):
+        fail(f"sampled path A (scatter mixer) launched kernels: {launches_a}")
+    t0 = time.perf_counter()
+    driver.stage_plan(built.plan, device="cuda")
+    torch.cuda.synchronize()
+    stage_s = time.perf_counter() - t0
+    real = built.realized
+    print(f"sampled path A: {' '.join(SAMPLED_ARGV)}", flush=True)
+    print(f"sampled path A: host staging s: schedule (realize + faults) "
+          f"{built.seconds['schedule']:.3f}  plan {built.seconds['plan']:.3f}"
+          f"  stage to card {stage_s:.3f}  dataset "
+          f"{built.seconds['data']:.3f}; run {wall:.3f} s in all", flush=True)
+    print(f"sampled path A: step s {[h['sec'] for h in tl]}  grad_norm2 "
+          f"{evals}  consensus {[h['consensus'] for h in tl]}  spectral gap "
+          f"{[h['spectral_gap'] for h in tl]}  edges/round "
+          f"{real['edges_per_round']}  senders/round "
+          f"{real['senders_per_round']}  period {real['period']}  peak device "
+          f"memory {peak_a:.3f} GB  launches {launches_a}", flush=True)
+
+    class KernelPlan(sparse.SparseGossipPlan):
+        """The built plan; its mixer asks for the segment-sum kernel."""
+
+        def make_mixer(self, **kw):
+            return super().make_mixer(**kw, use_pallas=True)
+
+    plan = KernelPlan(**{f.name: getattr(built.plan, f.name)
+                         for f in dataclasses.fields(built.plan)})
+    rec = sparse.SparseTelemetryRecorder(built.schedule, wps=built.wps)
+    gen = torch.Generator(device="cuda").manual_seed(spec.run.seed)
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    state_b, hist_b = driver.run_algorithm(
+        alg.from_rule(built.rule), built.x0, built.grad_fn, built.schedule,
+        spec.run.steps, gen, eval_fn=built.eval_fn,
+        eval_every=spec.run.eval_every, gossip_impl="auto", plan=plan,
+        telemetry=rec)
+    launches_b = {k: c.launches for k, c in counters.items()}
+    peak_b = torch.cuda.max_memory_allocated() / 1e9
+    evals_b = [v for _, v in hist_b]
+    if launches_b["sparse_segment_mix"] != 4 * SAMPLED_STEPS or sum(
+            launches_b.values()) != launches_b["sparse_segment_mix"]:
+        fail(f"sampled path B launched {launches_b} over {SAMPLED_STEPS} "
+             "MC-DSGT steps; its 4 rounds per step need 4 sparse_segment_mix")
+    if not all(math.isfinite(v) for v in evals_b):
+        fail(f"sampled path B evals not finite: {evals_b}")
+    torch.testing.assert_close(torch.tensor(evals_b), torch.tensor(evals),
+                               rtol=1e-4, atol=0.0)
+    print(f"sampled path B (sparse_segment_mix): step s "
+          f"{[h['sec'] for h in rec.history]}  grad_norm2 {evals_b} == path "
+          f"A's at rtol 1e-4 (generator reseeded with run.seed, same draws)"
+          f"  consensus {[h['consensus'] for h in rec.history]}  peak device "
+          f"memory {peak_b:.3f} GB  launches {launches_b}", flush=True)
+    del state_b
+    profile_sampled(torch, alg, driver, built, plan, spec)
+    rounds = range(built.wps * SAMPLED_STEPS)   # the rounds the runs mixed
+    return res, plan, rounds, {"launches": launches_b["sparse_segment_mix"],
+                               "peak_gb": peak_b}
+
+
+def profile_sampled(torch, alg, driver, built, plan, spec):
+    """Where path B's device time goes: torch.profiler over a whole run
+    (warm start, 5 steps, an eval and the telemetry's host work after
+    each), device time summed by kernel."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    gen = torch.Generator(device="cuda").manual_seed(spec.run.seed)
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        driver.run_algorithm(
+            alg.from_rule(built.rule), built.x0, built.grad_fn,
+            built.schedule, spec.run.steps, gen, eval_fn=built.eval_fn,
+            gossip_impl="auto", plan=plan)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    busy = sum(ms for _, ms, _ in kernels)
+    top = sorted(kernels, key=lambda k: -k[1])[:10]
+    print(f"profile of sampled path B ({spec.run.steps} steps, warm start "
+          f"and evals): wall {wall_ms:.3f} ms  device busy {busy:.3f} ms "
+          f"(idle share {1 - busy / wall_ms:.4f})  kernels "
+          f"{sum(c for _, _, c in kernels)}  top kernels (ms, calls): "
+          + "; ".join(f"{k[:60]} {ms:.3f} x{c}" for k, ms, c in top),
+          flush=True)
+
+
 def main_path(torch, train, argv, counter, name: str) -> dict:
     """Drive one main path through the train CLI with ``counter`` (a
     kernel wrapper's launch count) set to 0 just before it and read just
@@ -466,10 +755,11 @@ def main():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "the root of a checkout")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import exp
-    from repro_torch.core import compress, gossip
+    from repro_torch import exp, sparse
+    from repro_torch.core import algorithms as alg, compress, driver, gossip
     from repro_torch.dist import steps
-    from repro_torch.kernels import build, gossip_matmul, quantized_gossip, ref
+    from repro_torch.kernels import (build, gossip_matmul, ops,
+                                     quantized_gossip, ref, sparse_gossip)
     from repro_torch.launch import train
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -490,6 +780,7 @@ def main():
     kern = time_kernel(torch, gossip_matmul, ref, gossip)
     check_qkernel(torch, quantized_gossip, ref, gossip)
     qkern = time_qkernel(torch, quantized_gossip, ref, gossip)
+    check_skernel(torch, sparse_gossip, ref, ops)
     check_small_run(torch, exp)
     check_small_compressed_run(torch, exp)
 
@@ -510,6 +801,14 @@ def main():
           "price; one card moves no bytes between nodes)", flush=True)
     profile_step(torch, exp, steps, scheme="int8")
 
+    counters = {"gossip_mix": gossip_matmul.gossip_mix,
+                "quantized_gossip_mix": quantized_gossip.quantized_gossip_mix,
+                "sparse_segment_mix": sparse_gossip.sparse_segment_mix}
+    res_a, plan, rounds, sampled = sampled_paths(torch, train, exp, alg,
+                                                 driver, sparse, counters)
+    skern = time_skernel(torch, sparse_gossip, ref, driver, plan,
+                         res_a.state.x, rounds)
+
     rows = [
         {"name": "gossip_mix", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/gossip_mix.cu",
@@ -529,6 +828,16 @@ def main():
          "plain_ms": qkern["plain_ms"], "bound_ms": qkern["bound_ms"],
          "bound_by": qkern["bound_by"], "library_ms": qkern["library_ms"],
          "shape": qkern["shape"]},
+        {"name": "sparse_segment_mix", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/sparse_segment_mix.cu",
+         "replaces": "src/repro/kernels/sparse_gossip.py:51",
+         "launches": sampled["launches"],
+         "launches_per_step": sampled["launches"] / SAMPLED_STEPS,
+         "max_abs_err": skern["max_abs_err"], "ms": skern["ms"],
+         "plain_ms": skern["plain_ms"], "bound_ms": skern["bound_ms"],
+         "bound_by": skern["bound_by"], "library_ms": skern["library_ms"],
+         "shape": skern["shape"], "timed": "per round, mean over the rounds "
+         "of path A; library = torch.sparse.mm"},
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

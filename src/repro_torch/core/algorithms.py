@@ -1,14 +1,32 @@
-"""Gossip primitives on node-stacked (n, D) matrices, the port of the dense
-mixers of the JAX package's ``core/algorithms.py``.
+"""Gossip primitives and the host runtime's algorithm layer, the port of the
+JAX package's ``core/algorithms.py``.
 
-These are the ``gossip_impl="dense"`` path: one matrix product per round.
-The ``"pallas"`` path fuses all R rounds into the Hopper ``gossip_mix``
-kernel (:func:`repro_torch.dist.collectives.fused_multi_consensus`).
+The dense mixers (:func:`mix`, :func:`multi_consensus`) are the
+``gossip_impl="dense"`` path: one matrix product per round.  The arch
+trainer's ``"pallas"`` path fuses all R rounds into the Hopper
+``gossip_mix`` kernel (:func:`repro_torch.dist.collectives.fused_multi_consensus`).
+:func:`sparse_mix` is one edge-list round (Laplacian form), the scatter
+route of a :class:`repro_torch.sparse.SparseGossipPlan`.
+
+:func:`from_rule` and :func:`plan_step` bind an engine
+:class:`~repro_torch.core.engine.UpdateRule` to the host runtime (the
+paper's logistic regression, :func:`repro_torch.core.driver.run_algorithm`):
+a ``grad_fn(x, gen)`` oracle, which draws its samples from the
+``torch.Generator`` ``gen``, and the step's dense weight window or a staged
+edge plan.
 """
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Callable, Optional
+
+import numpy as np
 import torch
+
+from . import engine
+
+GradFn = Callable[[torch.Tensor, torch.Generator], torch.Tensor]
 
 
 def mix(W: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -31,3 +49,132 @@ def node_mean(x: torch.Tensor) -> torch.Tensor:
 def broadcast_nodes(flat: torch.Tensor, n: int) -> torch.Tensor:
     """n identical copies of a flat (D,) model as an (n, D) matrix."""
     return flat[None].expand(n, -1).clone()
+
+
+def sparse_mix(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
+               x: torch.Tensor) -> torch.Tensor:
+    """Edge-list gossip in Laplacian form (see :mod:`repro_torch.sparse.plan`):
+    ``x[dst] += w * (x[src] - x[dst])`` over the round's edges, one gather
+    and one scatter-add of O(edges) rows.  The contributions are taken from
+    the round's input before any is added, as in the JAX package's
+    out-of-place scatter, but the add updates ``x`` IN PLACE (returned): a
+    copy would read and write all n rows for the few a round touches.
+    Padded edges with ``w = 0`` add exactly zero."""
+    wx = w.to(x.dtype).reshape((-1,) + (1,) * (x.dim() - 1))
+    contrib = wx * (x.index_select(0, src) - x.index_select(0, dst))
+    return x.index_add_(0, dst, contrib)
+
+
+# ---------------------------------------------------------------------------
+# The host runtime's algorithm layer (thin adapters over the engine)
+# ---------------------------------------------------------------------------
+
+# The host layer's state is the engine's: x, h, g_prev, k and the
+# compression residuals.  The JAX package's AlgoState also carries the local
+# optimizer's state and the delay queues, which come with ROADMAP.md Queue 1
+# items 2 and 7.
+AlgoState = engine.EngineState
+
+
+def state_from_arrays(x, h=None, g_prev=None, k: int = 0, *,
+                      device="cpu") -> AlgoState:
+    """The port's state from the JAX package's logreg ``AlgoState`` fields as
+    numpy arrays (x, h, g_prev: (n, d); k the round counter), copied to
+    ``device`` in f32, so both packages can continue from one mid-run
+    state."""
+    def t(a):
+        return None if a is None else torch.tensor(
+            np.asarray(a, np.float32), device=device)
+    return AlgoState(x=t(x), h=t(h), g_prev=t(g_prev), k=int(k))
+
+
+def _accumulate(grad_fn: GradFn, x: torch.Tensor, gen: torch.Generator,
+                R: int, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gradient accumulation (1/R) sum_r O(x; zeta_r) (eq. 19): R oracle
+    samples, each drawing from ``gen``, summed in the reference's order and
+    written into ``out`` when given."""
+    g = grad_fn(x, gen)
+    acc = g if out is None else out.copy_(g)
+    for _ in range(R - 1):
+        acc.add_(grad_fn(x, gen))
+    return acc if R == 1 else acc.div_(R)
+
+
+@dataclasses.dataclass(frozen=True)
+class DecentralizedAlgorithm:
+    """A decentralized optimizer on the host runtime: ``step(state,
+    grad_fn, weights, gen)`` with ``weights`` the (weights_per_step, n, n)
+    stack of gossip matrices the step consumes.  Built from an engine
+    :class:`~repro_torch.core.engine.UpdateRule` by :func:`from_rule`; the
+    update arithmetic lives in the engine."""
+
+    name: str
+    weights_per_step: int
+    init: Callable[[torch.Tensor], AlgoState]
+    step: Callable[..., AlgoState]
+    warm: Callable[..., AlgoState] = None
+    rule: "engine.UpdateRule" = None
+
+
+def _grad_op(rule: engine.UpdateRule, grad_fn: GradFn,
+             gen: torch.Generator):
+    return lambda x, out=None: (None, _accumulate(grad_fn, x, gen, rule.R,
+                                                  out))
+
+
+def from_rule(rule: engine.UpdateRule) -> DecentralizedAlgorithm:
+    """Bind an UpdateRule to the host runtime: the dense multi-consensus
+    mixer over the step's weight window and a ``grad_fn(x, gen)`` oracle.
+    ``init(x0)`` copies ``x0``: the engine updates its state in place, and
+    the caller's tensor must survive the run.  (The reference's local
+    optimizer hook comes with ROADMAP.md Queue 1 item 2.)"""
+    if rule.compression is not None:
+        raise NotImplementedError("compression on the host runtime is not "
+                                  "ported yet (ROADMAP.md Queue 1 item 1)")
+
+    def _ops(grad_fn, weights, gen):
+        return engine.EngineOps(
+            mix=lambda off, r, x: multi_consensus(weights[off:off + r], x),
+            grad=_grad_op(rule, grad_fn, gen))
+
+    def init(x0: torch.Tensor) -> AlgoState:
+        return engine.init_state(rule, x0.clone())
+
+    def step(state: AlgoState, grad_fn: GradFn, weights: torch.Tensor,
+             gen: torch.Generator) -> AlgoState:
+        return engine.step(rule, state, _ops(grad_fn, weights, gen))[0]
+
+    def warm(state: AlgoState, grad_fn: GradFn,
+             gen: torch.Generator) -> AlgoState:
+        return engine.warm_start(rule, state, _ops(grad_fn, None, gen))
+
+    return DecentralizedAlgorithm(rule.name, rule.weights_per_step, init,
+                                  step, warm, rule)
+
+
+def plan_step(algo: DecentralizedAlgorithm, plan):
+    """Bind ``algo``'s update rule to a staged edge plan (a
+    :class:`repro_torch.sparse.SparseGossipPlan`, or anything with its
+    ``make_mixer``).  Returns ``step(state, grad_fn, tensors, t, gen)``
+    where ``tensors`` is the plan staged on the device once
+    (:func:`repro_torch.core.driver.stage_plan`) and ``t`` the host start
+    round.  A dense :class:`repro_torch.core.gossip.GossipPlan` raises: its
+    staging and structured mixers are not ported yet."""
+    rule = algo.rule
+    if rule is None:
+        raise ValueError("plan_step requires an engine-rule algorithm "
+                         "(built via from_rule)")
+    if not hasattr(plan, "make_mixer"):
+        raise NotImplementedError("dense GossipPlan mixing (gossip_impl="
+                                  "'auto' off the edge-list topologies) is "
+                                  "not ported yet (ROADMAP.md Queue 1 item 3)")
+    mixer = plan.make_mixer()
+
+    def pstep(state: AlgoState, grad_fn: GradFn, tensors, t: int,
+              gen: torch.Generator) -> AlgoState:
+        ops = engine.EngineOps(
+            mix=lambda off, r, x: mixer(tensors, t + off, r, x),
+            grad=_grad_op(rule, grad_fn, gen))
+        return engine.step(rule, state, ops)[0]
+
+    return pstep

@@ -1,10 +1,12 @@
 """Training driver: stages the gossip window on the device once, gathers
 each step's window by index, warm-starts, and runs the loop — the port of
-the dense path of the JAX package's ``core/driver.py``.
+the JAX package's ``core/driver.py`` for dense windows and edge-list plans.
 
-The staging contract is the reference's: one period of dense matrices
-crosses to the device once, and step k gathers rounds
-``(t + arange(wps)) % period`` with t advancing by ``wps`` per step.
+The staging contract is the reference's: one period of dense matrices (or
+an edge plan's tensors) crosses to the device once, and step k gathers
+rounds ``(t + arange(wps)) % period`` with t advancing by ``wps`` per step.
+:func:`run_algorithm` drives the host runtime (the paper's logistic
+regression) on it.
 """
 
 from __future__ import annotations
@@ -26,11 +28,22 @@ class StagedGossip:
     wps: int
 
 
-def stage(schedule, *, wps: int, device="cpu") -> StagedGossip:
-    """Stage one full period of ``schedule`` on ``device``."""
+def stage(schedule, *, wps: int, device="cpu",
+          total: Optional[int] = None) -> StagedGossip:
+    """Stage one full period of ``schedule`` on ``device``; ``total`` caps
+    the window (a host run stages ``min(period, total)`` rounds)."""
     period = schedule.period
+    if total is not None:
+        period = min(period, total)
     arrays = torch.from_numpy(schedule.stacked(0, period)).to(device)
     return StagedGossip(arrays, period, wps)
+
+
+def stage_plan(plan, device="cpu") -> dict:
+    """Upload an edge plan's :meth:`tensors` to ``device`` once; the step's
+    mixer indexes the returned dict by round."""
+    return {k: torch.from_numpy(v).to(device)
+            for k, v in plan.tensors().items()}
 
 
 def bind_step(staged: StagedGossip, core_step):
@@ -77,3 +90,60 @@ def run_loop(step, state, *, steps: int, wps: int, period: int,
             if rec is not None:
                 history.append(rec)
     return state, history
+
+
+def run_algorithm(algo, x0: torch.Tensor, grad_fn, weight_schedule,
+                  num_steps: int, gen: torch.Generator, eval_fn=None,
+                  eval_every: int = 1, gossip_impl: str = "dense", plan=None,
+                  telemetry=None):
+    """Drive a host :class:`repro_torch.core.algorithms.
+    DecentralizedAlgorithm` from ``x0`` (n, d) over a weight schedule.
+
+    ``gossip_impl='dense'`` stages one window of dense matrices; ``'auto'``
+    lowers the schedule to its edge plan (``plan`` overrides the default
+    one-period plan) and mixes through
+    :func:`repro_torch.core.algorithms.plan_step`.  ``gen`` is the
+    ``torch.Generator`` every oracle sample draws from (warm start first,
+    then each step in order), on ``x0``'s device; the JAX package's
+    ``jax.random`` key cannot be replayed in torch.  ``telemetry`` is
+    anything with the ``record(k, t, state, out, dt)`` hook, called every
+    step.
+
+    Returns (final_state, history): ``eval_fn`` of the node-mean model x̄
+    every ``eval_every`` steps (plus the final step) as ``(T, value)``
+    pairs, T the gossip/oracle budget consumed so far (the paper's Figure 2
+    x-axis).  Step times end in ``torch.cuda.synchronize`` on a CUDA
+    device."""
+    state = algo.init(x0)
+    state = algo.warm(state, grad_fn, gen)
+    wps = algo.weights_per_step
+    if gossip_impl == "auto":
+        from . import algorithms as alg  # deferred, as in the reference
+        if plan is None:
+            plan = weight_schedule.plan(0, weight_schedule.period)
+        pstep = alg.plan_step(algo, plan)
+        tensors = stage_plan(plan, device=x0.device)
+        period = plan.period
+
+        def step(state, extra, t):
+            return pstep(state, grad_fn, tensors, t, gen), None
+    else:
+        staged = stage(weight_schedule, wps=wps, device=x0.device,
+                       total=max(1, num_steps * wps))
+        period = staged.period
+        step = bind_step(staged, lambda state, extra, Ws, t: (
+            algo.step(state, grad_fn, Ws, gen), None))
+
+    def record(k, t, state, out, dt):
+        if telemetry is not None:
+            telemetry.record(k, t, state, out, dt)
+        if eval_fn is None:
+            return None
+        if k % eval_every == 0 or k == num_steps - 1:
+            return (t, float(eval_fn(state.x.mean(dim=0))))
+        return None
+
+    sync = ((lambda: torch.cuda.synchronize(x0.device))
+            if x0.device.type == "cuda" else (lambda: None))
+    return run_loop(step, state, steps=num_steps, wps=wps, period=period,
+                    record=record, sync=sync)

@@ -1,1 +1,2 @@
-from .synthetic import TokenStream, token_stream_for  # noqa: F401
+from .synthetic import (TokenStream, logreg_dataset,  # noqa: F401
+                        logreg_loss_and_grad, token_stream_for)

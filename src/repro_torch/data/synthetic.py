@@ -1,4 +1,5 @@
-"""Synthetic LM token batches for the decentralized trainer.
+"""Synthetic data: LM token batches for the decentralized trainer, and the
+paper's §6 logistic-regression data and oracles.
 
 ``TokenStream`` gives (n_nodes, R, batch, seq) batches, so each node's R
 gradient-accumulation rounds see distinct microbatches (Assumption 2's
@@ -6,6 +7,12 @@ independent oracle queries), like the JAX package's ``data/synthetic.py``.
 Its tokens come from a ``torch.Generator`` seeded by (seed, step); the JAX
 package's ``jax.random`` stream cannot be replayed in torch, so tests that
 compare the two packages hand both the same numpy batches.
+
+:func:`logreg_dataset` makes the JAX package's numpy data bit for bit and
+moves it to the device; :func:`logreg_loss_and_grad` gives the §6
+objective's gradients in closed form.  Its stochastic oracle draws minibatch
+indices from a ``torch.Generator`` on the data's device, which the JAX
+package's ``jax.random.randint`` stream cannot replay.
 """
 
 from __future__ import annotations
@@ -44,3 +51,94 @@ def token_stream_for(cfg, n_nodes: int, rounds: int, batch: int, seq: int,
     return TokenStream(vocab_size=cfg.vocab_size, n_nodes=n_nodes,
                        rounds=rounds, batch=batch, seq=seq, seed=seed,
                        active_vocab=active_vocab, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Paper §6: heterogeneous logistic-regression data
+# ---------------------------------------------------------------------------
+
+def logreg_dataset(n_nodes: int, m: int, d: int, *, positive_frac: float = 0.8,
+                   margin: float = 1.0, seed: int = 0, device="cpu"):
+    """Synthetic linearly-separable-ish binary data, partitioned so that the
+    first half of the nodes hold ``positive_frac`` positive datapoints and
+    the second half the mirror (the paper's 80/20 protocol).  The numpy
+    draws are the JAX package's, bit for bit.
+
+    Returns (H, y) on ``device``: H (n_nodes, m, d) f32 features, y
+    (n_nodes, m) f32 in {-1, +1}.
+    """
+    rng = np.random.default_rng(seed)
+    w_star = rng.normal(size=d) / np.sqrt(d)
+    feats = np.zeros((n_nodes, m, d), np.float32)
+    labels = np.zeros((n_nodes, m), np.float32)
+    for i in range(n_nodes):
+        frac = positive_frac if i < n_nodes // 2 else 1.0 - positive_frac
+        n_pos = int(round(frac * m))
+        y = np.concatenate([np.ones(n_pos), -np.ones(m - n_pos)])
+        rng.shuffle(y)
+        base = rng.normal(size=(m, d)).astype(np.float32)
+        # push features to the correct side of the separator + noise
+        proj = base @ w_star
+        base += np.outer((margin * y - proj) * 0.9, w_star) / (w_star @ w_star)
+        feats[i] = base
+        labels[i] = y
+    return (torch.from_numpy(feats).to(device),
+            torch.from_numpy(labels).to(device))
+
+
+def logreg_loss_and_grad(rho: float):
+    """Loss/gradient factory for the §6 objective:
+    f_i(x) = mean_j ln(1 + exp(-y_ij <h_ij, x>)) + rho * sum_k x_k^2/(1+x_k^2).
+
+    Returns (loss_i, full_grad, stochastic_grad, global_loss,
+    global_grad_norm_sq), the JAX package's five.  Gradients are closed
+    form: (1/b) sum_j -y_j sigmoid(z_j) h_j + rho * 2x/(1+x^2)^2 with
+    z = -y <h, x>, batched over nodes with ``bmm``.
+    """
+
+    def reg_grad(x):
+        return rho * 2.0 * x / (1.0 + x ** 2) ** 2
+
+    def loss_i(x, H_i, y_i):
+        z = -y_i * (H_i @ x)
+        data = torch.logaddexp(torch.zeros_like(z), z).mean()
+        return data + rho * (x ** 2 / (1.0 + x ** 2)).sum()
+
+    def node_grads(xs, H, y):
+        """xs (n, d); H (n, b, d); y (n, b) -> per-node gradients (n, d)."""
+        z = -y * torch.bmm(H, xs.unsqueeze(-1)).squeeze(-1)
+        coef = -y * torch.sigmoid(z) / H.shape[1]
+        return torch.bmm(coef.unsqueeze(1), H).squeeze(1) + reg_grad(xs)
+
+    def full_grad(xs, H, y):
+        """xs: (n, d) stacked models -> per-node full-batch gradients."""
+        return node_grads(xs, H, y)
+
+    def stochastic_grad(xs, H, y, gen, batch: int):
+        """Minibatch oracle: ``batch`` indices per node drawn from the
+        ``torch.Generator`` ``gen`` (on H's device)."""
+        n, m, _ = H.shape
+        idx = torch.randint(0, m, (n, batch), generator=gen, device=H.device)
+        # index rows by (node, sample) pairs: an index broadcast over d would
+        # be an (n, batch, d) int64 tensor, twice the minibatch's own size
+        rows = torch.arange(n, device=H.device)[:, None]
+        return node_grads(xs, H[rows, idx], y[rows, idx])
+
+    def global_loss(x, H, y):
+        z = -y * (H @ x)
+        data = torch.logaddexp(torch.zeros_like(z), z).mean()
+        return data + rho * (x ** 2 / (1.0 + x ** 2)).sum()
+
+    def global_grad_norm_sq(x, H, y):
+        """||grad of the mean of the n local objectives at x||^2 over all
+        n·m samples; the data enter once, as one (n·m, d) product each
+        way."""
+        n, m, d = H.shape
+        flat = H.reshape(n * m, d)
+        yf = y.reshape(n * m)
+        coef = -yf * torch.sigmoid(-yf * (flat @ x)) / (n * m)
+        g = coef @ flat + reg_grad(x)
+        return (g ** 2).sum()
+
+    return loss_i, full_grad, stochastic_grad, global_loss, global_grad_norm_sq
+

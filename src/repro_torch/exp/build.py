@@ -1,25 +1,35 @@
 """Lowering: realize an :class:`ExperimentSpec` into runnable pieces, and
 ``run(spec)`` — the one entry point, the port of the JAX package's
-``exp/build.py`` for the ``arch`` runtime.
+``exp/build.py``.
 
 ``build(spec, device=...)`` resolves the spec's string-keyed fields through
-:mod:`repro_torch.exp.registry` and materializes the weight schedule, the
-update rule, the model and the token stream.  ``run`` trains.  The device
-is a runtime argument, not a spec field, so a spec hashes the same in both
-packages.  It defaults to ``"cuda"``; without a GPU that raises unless the
-caller asked for the CPU.
+:mod:`repro_torch.exp.registry` and materializes the realized scenario (the
+post-fault weight schedule, the update rule, the edge plan and its
+telemetry recorder) and the pieces of the runtime ``model.kind`` selects:
+
+* ``arch``   — a registered architecture trained by
+  :func:`repro_torch.dist.steps.make_train_step` on the driver's loop (what
+  ``launch/train.py`` runs);
+* ``logreg`` — the host runtime: the paper's §6 non-convex logistic
+  regression driven by :func:`repro_torch.core.driver.run_algorithm`, so
+  far on the sampled-client ``random-sampled`` family only.
+
+``run`` trains.  The device is a runtime argument, not a spec field, so a
+spec hashes the same in both packages.  It defaults to ``"cuda"``; without
+a GPU that raises unless the caller asked for the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, NamedTuple
+import time
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from .. import configs
-from ..core import driver, engine
-from ..data import token_stream_for
+from ..core import algorithms as alg, compress, driver, engine
+from ..data import logreg_dataset, logreg_loss_and_grad, token_stream_for
 from ..dist import collectives as coll, steps as dsteps
 from ..models import build as build_model
 from . import registry
@@ -27,26 +37,75 @@ from .spec import ExperimentSpec
 
 
 class Result(NamedTuple):
-    """``history``: one dict per logged step (loss, consensus, sec)."""
+    """``history``: one dict per logged step (loss, consensus, sec) for
+    ``arch``; ``(T, eval)`` pairs for ``logreg``.  ``built`` is the realized
+    scenario; ``telemetry`` the mixing-telemetry recorder when the scenario
+    has one (the edge-list families)."""
 
     state: Any
     history: list
     spec: ExperimentSpec
     built: "Built" = None
+    telemetry: Any = None
 
 
 @dataclasses.dataclass
 class Built:
-    """Everything ``build(spec)`` realized."""
+    """Everything ``build(spec)`` realized.  Scenario pieces (rule, schedule,
+    plan, faults, telemetry) for every model kind; ``cfg``/``model``/
+    ``stream`` only for ``arch``; ``grad_fn``/``eval_fn``/``x0`` only for
+    ``logreg``.  ``seconds`` times the host's realization phases."""
 
     spec: ExperimentSpec
     rule: engine.UpdateRule
     wps: int
-    schedule: Any                 # realized WeightSchedule
+    schedule: Any                 # realized WeightSchedule (post-fault)
     device: torch.device
+    horizon: int = 0
+    plan: Any = None              # edge plan (gossip_impl == auto) | None
+    telemetry: Any = None
     cfg: Any = None
     model: Any = None
     stream: Any = None
+    grad_fn: Any = None
+    eval_fn: Any = None
+    x0: Any = None
+    state_dim: Optional[int] = None   # per-node state entries (when known)
+    seconds: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def realized(self) -> dict:
+        """The manifest's ``realized`` section (the JAX package's):
+        quantities a reader cannot derive from the spec alone."""
+        out = {
+            "period": int(self.schedule.period),
+            "weights_per_step": int(self.wps),
+            "horizon": int(self.horizon),
+            "seed": int(self.spec.run.seed),
+            "plan_kinds": (None if self.plan is None
+                           else sorted(set(self.plan.kinds))),
+        }
+        c = self.spec.compression
+        comp = {"scheme": c.scheme, "state_dim": self.state_dim}
+        if c.enabled:
+            comp.update(error_feedback=c.error_feedback, warmup=c.warmup,
+                        group=c.group)
+        if self.state_dim is not None:
+            comp["bytes_per_round"] = compress.payload_bytes(
+                self.state_dim, c.scheme, c.group)
+            comp["baseline_bytes_per_round"] = compress.payload_bytes(
+                self.state_dim, "none")
+        out["compression"] = comp
+        if getattr(self.schedule, "is_sparse", False):
+            e = self.schedule.edges_per_round
+            snd = self.schedule.senders_per_round
+            out["edges_per_round"] = {
+                "min": int(e.min()), "max": int(e.max()),
+                "mean": round(float(e.mean()), 1)}
+            out["senders_per_round"] = {
+                "min": int(snd.min()), "max": int(snd.max()),
+                "mean": round(float(snd.mean()), 1)}
+        return out
 
 
 def resolve_device(device) -> torch.device:
@@ -62,7 +121,8 @@ def resolve_device(device) -> torch.device:
 
 def _validate(spec: ExperimentSpec) -> None:
     """Every string-keyed field must name a registered entry (the
-    reference's vocabulary, so the errors match)."""
+    reference's vocabulary, so the errors match), and the reference's
+    checks of the sampled-client family and the logreg runtime hold."""
     vocab = [("topology.kind", spec.topology.kind, registry.TOPOLOGIES),
              ("algorithm.name", spec.algorithm.name, registry.ALGORITHMS),
              ("algorithm.local_opt", spec.algorithm.local_opt,
@@ -79,6 +139,35 @@ def _validate(spec: ExperimentSpec) -> None:
         if value not in legal:
             raise ValueError(f"{field}={value!r}: unknown "
                              f"(have {sorted(legal)})")
+    t, a, r, m = spec.topology, spec.algorithm, spec.run, spec.model
+    if t.kind in registry.SPARSE_TOPOLOGIES:
+        if not 2 <= t.sample_k <= r.nodes:
+            raise ValueError(f"topology.sample_k={t.sample_k}: the "
+                             f"{t.kind!r} family samples a per-round "
+                             f"cohort and needs 2 <= sample_k <= "
+                             f"run.nodes={r.nodes}")
+        if m.kind != "logreg":
+            raise ValueError(f"topology.kind={t.kind!r} runs the host "
+                             "reference runtime: model.kind must be "
+                             "'logreg'")
+        if a.name == "personalized":
+            raise ValueError(
+                f"algorithm.name='personalized' stages per-node dense "
+                f"weight rows, which the edge-form {t.kind!r} family "
+                "never materializes — use a dense topology")
+        from ..sparse import DENSE_GUARD
+        if r.nodes > DENSE_GUARD and r.gossip_impl != "auto":
+            raise ValueError(
+                f"run.nodes={r.nodes} exceeds the {DENSE_GUARD}-node dense "
+                "guard: the dense host path would materialize (n, n) "
+                "matrices — set run.gossip_impl='auto'")
+    if m.kind == "logreg":
+        if r.gossip_impl == "pallas":
+            raise ValueError("model.kind='logreg' runs the host runtime: "
+                             "gossip_impl must be 'dense' or 'auto'")
+        if r.checkpoint or r.restore:
+            raise ValueError("model.kind='logreg' does not support "
+                             "checkpoint/restore (use the 'arch' runtime)")
     c = spec.compression
     if c.group < 1:
         raise ValueError(f"compression.group={c.group}: must be >= 1")
@@ -88,19 +177,29 @@ def _validate(spec: ExperimentSpec) -> None:
 
 def _check_ported(spec: ExperimentSpec) -> None:
     """Raise NotImplementedError, naming its ROADMAP.md Queue 1 item, for
-    the first scenario axis the spec uses that the port does not run yet."""
+    the first scenario axis the spec uses that the port does not run yet.
+    The logreg runtime, ``gossip_impl='auto'`` and channel faults run on
+    the sampled-client (edge-list) family only."""
     a, r, c = spec.algorithm, spec.run, spec.channel
+    sampled = spec.topology.kind in registry.SPARSE_TOPOLOGIES
+    logreg = spec.model.kind == "logreg"
     unported = [
-        (spec.model.kind == "logreg", "model.kind='logreg'", 1),
+        (logreg and not sampled,
+         "model.kind='logreg' off the random-sampled topology", 1),
         (a.local_opt != "sgd", f"algorithm.local_opt={a.local_opt!r}", 2),
-        (r.gossip_impl == "auto", "run.gossip_impl='auto'", 3),
+        (r.gossip_impl == "auto" and not sampled,
+         "run.gossip_impl='auto' off the random-sampled topology", 3),
         (spec.obs.enabled, "obs (metrics / profile_dir)", 4),
-        (r.telemetry is not None, "run.telemetry", 5),
-        (any(getattr(c, f) > 0 for f in registry.CHANNELS),
-         "channel faults", 5),
+        (r.telemetry is not None,
+         "run.telemetry (the telemetry file and its manifest)", 1),
+        (any(getattr(c, f) > 0 for f in registry.CHANNELS) and not sampled,
+         "channel faults off the random-sampled topology", 5),
+        (logreg and spec.compression.enabled,
+         "compression on the logreg host runtime", 1),
         (a.delay != 0 or a.comm_interval != 1,
          "algorithm.delay / comm_interval", 7),
-        (spec.data.hetero_alpha is not None, "data.hetero_alpha", 9),
+        (spec.data.hetero_alpha is not None,
+         "data.hetero_alpha", 1 if logreg else 9),
         (bool(r.checkpoint or r.restore), "run.checkpoint / restore", 10),
         (spec.serve.enabled, "serve", 11),
     ]
@@ -111,7 +210,9 @@ def _check_ported(spec: ExperimentSpec) -> None:
 
 
 def build(spec: ExperimentSpec, *, device="cuda") -> Built:
-    """Realize ``spec`` for the ``arch`` runtime on ``device``."""
+    """Realize ``spec`` on ``device``: the (possibly fault-degraded) weight
+    schedule, the edge plan, the telemetry recorder and the runtime's
+    model and data."""
     _validate(spec)
     _check_ported(spec)
     dev = resolve_device(device)
@@ -119,23 +220,58 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Built:
     n = rs.nodes
     # R is mc_dsgt's knob; every other rule is defined at R=1
     R = al.R if al.name == "mc_dsgt" else 1
-    rule = engine.make_rule(al.name, gamma=al.gamma, R=R,
-                            compression=registry.build_compression(
-                                spec.compression))
+    comp = registry.build_compression(spec.compression)
+    rule = engine.make_rule(al.name, gamma=al.gamma, R=R, compression=comp)
     wps = rule.weights_per_step
-    # horizon only matters for the non-periodic schedules (resampled matching)
+    seconds = {}
+    t0 = time.perf_counter()
+    # horizon only matters for the non-periodic schedules (resampled
+    # matching, sampled clients) and realized fault windows; the x4 cushion
+    # is the reference's
     horizon = (rs.steps + 1) * wps * 4
     sched = registry.build_topology(spec.topology, n, horizon=horizon,
                                     seed=rs.seed)
-    cfg = configs.get(spec.model.arch)
-    if spec.model.preset == "reduced":
-        cfg = cfg.reduced()
-    model = build_model(cfg)
-    stream = token_stream_for(cfg, n, R, spec.data.batch, spec.data.seq,
-                              seed=rs.seed, active_vocab=spec.data.active_vocab,
-                              device=dev)
-    return Built(spec=spec, rule=rule, wps=wps, schedule=sched, device=dev,
-                 cfg=cfg, model=model, stream=stream)
+    fault_models = registry.build_channel_models(spec.channel, rs.seed)
+    is_sparse = getattr(sched, "is_sparse", False)
+    if fault_models:
+        # ideal schedule -> channel degradation -> repair, edge list by
+        # edge list (per-edge hash streams, never densified); the gates
+        # allow faults on the edge-list family only
+        from .. import sparse
+        sched = sparse.realize_sparse_schedule(sched, fault_models)
+    seconds["schedule"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    plan = (sched.plan(0, sched.period) if rs.gossip_impl == "auto"
+            else None)
+    seconds["plan"] = time.perf_counter() - t0
+    telem = None
+    if is_sparse:
+        from ..sparse import SparseTelemetryRecorder
+        telem = SparseTelemetryRecorder(sched, wps=wps, every=rs.log_every,
+                                        compression=comp)
+    built = Built(spec=spec, rule=rule, wps=wps, schedule=sched, device=dev,
+                  horizon=horizon, plan=plan, telemetry=telem,
+                  seconds=seconds)
+    t0 = time.perf_counter()
+    if spec.model.kind == "arch":
+        cfg = configs.get(spec.model.arch)
+        if spec.model.preset == "reduced":
+            cfg = cfg.reduced()
+        built.cfg, built.model = cfg, build_model(cfg)
+        built.stream = token_stream_for(
+            cfg, n, R, spec.data.batch, spec.data.seq, seed=rs.seed,
+            active_vocab=spec.data.active_vocab, device=dev)
+    else:
+        mr = spec.model
+        H, y = logreg_dataset(n, mr.m, mr.d, seed=rs.seed, device=dev)
+        _, _, stoch, _, gnorm2 = logreg_loss_and_grad(rho=mr.rho)
+        batch = spec.data.batch
+        built.grad_fn = lambda xs, gen: stoch(xs, H, y, gen, batch)
+        built.eval_fn = lambda xb: gnorm2(xb, H, y)
+        built.x0 = torch.zeros((n, mr.d), device=dev)
+        built.state_dim = mr.d
+    seconds["data"] = time.perf_counter() - t0
+    return built
 
 
 def run(spec: ExperimentSpec, *, device="cuda", quiet: bool = False) -> Result:
@@ -143,7 +279,35 @@ def run(spec: ExperimentSpec, *, device="cuda", quiet: bool = False) -> Result:
     products run in full f32 (TF32 off), as the reference's numerics need."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return _run_arch(build(spec, device=device), quiet=quiet)
+    built = build(spec, device=device)
+    if spec.model.kind == "arch":
+        return _run_arch(built, quiet=quiet)
+    return _run_logreg(built, quiet=quiet)
+
+
+def _run_logreg(built: Built, *, quiet: bool = False) -> Result:
+    """The host runtime: the engine rule bound to the dense window or the
+    edge plan's mixer, driven by :func:`repro_torch.core.driver.
+    run_algorithm`.  The oracle's generator is seeded by ``run.seed`` on
+    the device."""
+    spec, rs = built.spec, built.spec.run
+    gen = torch.Generator(device=built.device).manual_seed(rs.seed)
+    state, history = driver.run_algorithm(
+        alg.from_rule(built.rule), built.x0, built.grad_fn, built.schedule,
+        rs.steps, gen, eval_fn=built.eval_fn, eval_every=rs.eval_every,
+        gossip_impl=rs.gossip_impl, plan=built.plan,
+        telemetry=built.telemetry)
+    if not quiet:
+        for tl in (built.telemetry.history if built.telemetry else []):
+            gap = tl["spectral_gap"]
+            print(f"step {tl['step']:5d}  T={tl['t']:6d}  consensus "
+                  f"{tl['consensus']:.3e}  gap "
+                  f"{gap if gap is not None else float('nan'):.3f}  "
+                  f"{tl['sec']:.3f}s", flush=True)
+        for t, val in history:
+            print(f"T={t:6d}  grad_norm2 {val:.6e}", flush=True)
+    return Result(state=state, history=history, spec=spec, built=built,
+                  telemetry=built.telemetry)
 
 
 def _run_arch(built: Built, *, quiet: bool = False) -> Result:

@@ -16,7 +16,8 @@ from typing import Callable, Dict
 import numpy as np
 
 from ..core import compress, engine, gossip, topology as topo
-from .spec import CompressionSpec, TopologySpec
+from ..sim import channel as sim_channel, faults as sim_faults
+from .spec import ChannelSpec, CompressionSpec, TopologySpec
 
 # ---------------------------------------------------------------------------
 # Topologies: name -> builder(spec, n, *, horizon, seed) -> WeightSchedule
@@ -91,9 +92,9 @@ def _not_ported(name: str, item: int):
     return builder
 
 
-# mobility models live in sim/, the sampled-client family in sparse/
-for _name, _item in (("geometric-mobility", 5), ("waypoint-mobility", 5)):
-    register_topology(_name)(_not_ported(_name, _item))
+# the mobility models of sim/ are not ported yet
+for _name in ("geometric-mobility", "waypoint-mobility"):
+    register_topology(_name)(_not_ported(_name, 5))
 
 
 @register_topology("random-sun")
@@ -142,9 +143,27 @@ def _hierarchical(s: TopologySpec, n: int, *, horizon=None, seed=0):
     return gossip.WeightSchedule(tuple(mats), tuple(structs))
 
 
-register_topology("random-sampled")(_not_ported("random-sampled", 8))
+@register_topology("random-sampled")
+def _random_sampled(s: TopologySpec, n: int, *, horizon=None, seed=0):
+    """Client sampling at scale: each round draws ``sample_k`` of the ``n``
+    nodes, places them by hashed waypoint mobility, and gossips over the
+    unit-disk graph among the sampled cohort with Metropolis weights.  The
+    schedule is an edge-list :class:`repro_torch.sparse.SparseWeightSchedule`
+    (never a dense matrix), so ``n`` can reach 10^5..10^6: per-round cost is
+    O(sample_k^2) to realize and O(edges) to mix."""
+    from .. import sparse
+    if horizon is None:
+        raise ValueError("random-sampled topology needs a horizon")
+    return sparse.sampled_weight_schedule(n, s.sample_k, radius=s.radius,
+                                          seed=seed, horizon=horizon)
+
 
 MOBILITY_TOPOLOGIES = ("geometric-mobility", "waypoint-mobility")
+
+# Families whose builder returns an edge-list SparseWeightSchedule
+# (is_sparse = True): faults realize via repro_torch.sparse.
+# realize_sparse_schedule and telemetry via SparseTelemetryRecorder, never
+# densifying.
 SPARSE_TOPOLOGIES = ("random-sampled",)
 
 
@@ -162,7 +181,19 @@ def build_topology(s: TopologySpec, n: int, *, horizon: int | None = None,
 # The other vocabularies (the reference's, word for word)
 # ---------------------------------------------------------------------------
 
-CHANNELS = ("link_drop", "burst_loss", "churn", "straggler")
+# ChannelSpec field -> factory(rate, seed).  Per-stream seed offsets keep
+# one seed moving every stream together without correlating them (the
+# reference's constants, so both packages realize the same faults).
+CHANNEL_MODELS: Dict[str, Callable] = {
+    "link_drop": lambda p, seed: sim_channel.BernoulliDropChannel(
+        p, seed=seed + 101),
+    "burst_loss": lambda p, seed: sim_channel.GilbertElliottChannel(
+        p, seed=seed + 202),
+    "churn": lambda p, seed: sim_faults.NodeChurn(p, seed=seed + 303),
+    "straggler": lambda p, seed: sim_faults.StragglerInjection(
+        p, seed=seed + 404),
+}
+CHANNELS = tuple(CHANNEL_MODELS)
 ALGORITHMS = engine.ALGORITHMS
 LOCAL_OPTS = ("sgd", "momentum", "adam")
 GOSSIP_IMPLS = ("dense", "pallas", "auto")
@@ -188,3 +219,11 @@ def build_compression(s: CompressionSpec
     return compress.CompressionConfig(scheme=s.scheme,
                                       error_feedback=s.error_feedback,
                                       warmup=s.warmup, group=s.group)
+
+
+def build_channel_models(s: ChannelSpec, seed: int = 0) -> list:
+    """Fault-model instances for every non-zero rate in ``s`` (empty list =
+    ideal channel), in deterministic field order."""
+    return [CHANNEL_MODELS[name](rate, seed) for name in CHANNELS
+            if (rate := getattr(s, name)) > 0]
+

@@ -6,8 +6,11 @@ routes through the kernel wrapper (the Hopper kernel on a CUDA tensor, its
 plain version on a CPU tensor), False through the plain version directly.
 ``quantized_gossip_mix`` is the kernel wrapper itself: error-feedback
 compressed multi-consensus on an (n, D) state matrix, the kernel or its
-plain version by the tensors' device.  Of the JAX package's six kernels ``gossip_mix`` and ``quantized_gossip_mix`` are ported; ROADMAP.md
-Queue 2 lists the rest.
+plain version by the tensors' device.  ``sparse_gossip_mix`` is one
+edge-list gossip round; its ``use_pallas`` keeps the JAX API's name and
+selects the ``sparse_segment_mix`` wrapper for the segment sum.  Of the JAX
+package's six kernels ``gossip_mix``, ``quantized_gossip_mix`` and
+``sparse_segment_mix`` are ported; ROADMAP.md Queue 2 lists the rest.
 """
 
 from __future__ import annotations
@@ -19,6 +22,7 @@ import torch
 from . import ref
 from .gossip_matmul import gossip_mix as _gossip
 from .quantized_gossip import quantized_gossip_mix  # noqa: F401
+from .sparse_gossip import segment_layout, sparse_segment_mix
 
 
 def gossip_mix(ws: torch.Tensor, x: torch.Tensor, *, use_kernel: bool = False,
@@ -29,4 +33,42 @@ def gossip_mix(ws: torch.Tensor, x: torch.Tensor, *, use_kernel: bool = False,
         return _gossip(ws, x, out=out)
     res = ref.gossip_mix_ref(ws, x)
     return res if out is None else out.copy_(res)
+
+
+def sparse_gossip_mix(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
+                      w: torch.Tensor, seg: Optional[torch.Tensor],
+                      slots: torch.Tensor, *, use_pallas: bool = False,
+                      offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One edge-list gossip round on an (n, ...) state:
+    x[slots[s]] += delta[s], delta[s] = sum over e with seg[e] == s of
+    w[e]·(x[src[e]] − x[dst[e]]) (Laplacian form, see
+    :mod:`repro_torch.sparse.plan`).
+
+    ``slots`` (S,) holds the distinct receiver ids, padded with the
+    out-of-range id n, and ``seg[e]`` indexes ``dst[e]`` within it, the
+    layout of :meth:`repro_torch.sparse.plan.SparseGossipPlan.tensors`.
+    ``use_pallas`` False takes the plain segment sum, True the
+    ``sparse_segment_mix`` wrapper, whose edges must be grouped by segment:
+    pass ``offsets`` (S + 1,) for edges already grouped (the mixer groups
+    them once per staged plan; ``seg`` is then unused), or leave it None and
+    they are grouped here.
+
+    Unlike the JAX op, x is updated IN PLACE and returned: the caller owns
+    the state, and a copy would read and write all n rows for the few
+    receivers a round has.  Padded slot ids get a zero row added to row 0
+    (``index_add_`` refuses the id n, which the JAX scatter drops), so no
+    boolean mask has to stop the host."""
+    n = x.shape[0]
+    flat = x.view(n, -1)
+    S = slots.shape[0]
+    if not use_pallas:
+        delta = ref.sparse_gossip_mix_ref(seg, w, flat[src], flat[dst], S)
+    else:
+        if offsets is None:
+            src, dst, w, offsets = segment_layout(src, dst, w, seg, S)
+        delta = sparse_segment_mix(flat, src, dst, w, offsets)
+    valid = slots < n
+    delta = torch.where(valid[:, None], delta, 0.0)
+    flat.index_add_(0, torch.where(valid, slots, 0), delta.to(x.dtype))
+    return x
 

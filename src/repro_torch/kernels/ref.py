@@ -72,3 +72,19 @@ def quantized_gossip_mix_ref(ws: torch.Tensor, x: torch.Tensor,
             rs = err
         out = ws[r].to(torch.float32) @ deq
     return out.to(x.dtype), rs.to(res.dtype)
+
+
+def sparse_gossip_mix_ref(seg: torch.Tensor, w: torch.Tensor,
+                          xs: torch.Tensor, xd: torch.Tensor,
+                          num_segments: int) -> torch.Tensor:
+    """Segment sum of weighted edge differences (the JAX package's
+    ``sparse_gossip_mix_ref``): delta[s] = sum over e with seg[e] == s of
+    w[e]·(xs[e] − xd[e]), in f32.  seg, w: (E,); xs, xd: (E, D) gathered
+    endpoint states.  Padded edges carry w = 0 and add nothing.  Returns
+    (num_segments, D) f32; ``index_add_`` takes the place of
+    ``jax.ops.segment_sum``."""
+    contrib = w[:, None].to(torch.float32) * (
+        xs.to(torch.float32) - xd.to(torch.float32))
+    out = torch.zeros((num_segments, xs.shape[1]), dtype=torch.float32,
+                      device=xs.device)
+    return out.index_add_(0, seg, contrib)

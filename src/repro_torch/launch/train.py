@@ -17,11 +17,23 @@ CPU).  With ``--compress sign|int8`` the rounds quantize every payload with
 error feedback, and the fused window is the Hopper ``quantized_gossip_mix``
 kernel.
 
+``--arch logreg --topology random-sampled`` runs the paper's logistic
+regression on the host runtime: a sampled cohort of a large fleet gossips
+over an edge-list plan each round (``--gossip-impl auto``), the whole fleet's
+data and state on the device.
+
 Example (qwen1.5-0.5b at full width, 4 nodes stacked on one H100; add
 ``--compress int8`` for int8 gossip):
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
         --preset full --nodes 4 --algo mc_dsgt --R 2 --gossip-impl pallas \
         --steps 3
+
+Example (256 of 100,000 clients per round, the paper's MNIST width):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch logreg \
+        --logreg-d 784 --logreg-m 8 --batch 4 --topology random-sampled \
+        --nodes 100000 --sample-k 256 --radius 0.45 --link-drop 0.2 \
+        --churn 0.02 --algo mc_dsgt --R 2 --gamma 0.3 --gossip-impl auto \
+        --steps 5
 """
 
 from __future__ import annotations
@@ -111,8 +123,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "round (dense), or all R rounds fused in the Hopper "
                          "gossip_mix kernel, or quantized_gossip_mix with "
                          "--compress (pallas, the reference's name for the "
-                         "fused kernel; its plain version on the CPU); auto "
-                         "is not ported yet")
+                         "fused kernel; its plain version on the CPU), or the "
+                         "edge plan's scatter mixer (auto, the sampled-client "
+                         "family's path with --arch logreg; auto is not "
+                         "ported for the other topologies yet)")
     ap.add_argument("--local-opt", choices=sorted(exp.LOCAL_OPTS),
                     help="local-optimizer transform applied to the descent "
                          "direction (repro.optim; sgd = the paper-pure "

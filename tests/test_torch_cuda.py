@@ -5,7 +5,11 @@ takes in one launch (n=64, R=8: 128 KB of shared memory, past the 48 KB
 default) and the inputs it refuses.  For ``quantized_gossip_mix`` (held to
 its plain version by ``chip_smoke.py`` at n 4/16, both schemes, EF on and
 off): its largest n and W stack, the one-column path that rows without
-16-byte alignment take, a rerun giving the same bits, and its refusals.
+16-byte alignment take, a rerun giving the same bits, and its refusals.  For
+``sparse_segment_mix`` (held to its plain version by ``chip_smoke.py`` over
+E, D, S, padding, bf16 and a window of the sampled-client path): a state
+whose rows are not 16-byte aligned, a rerun giving the same bits, and its
+refusals.
 
 These need an NVIDIA GPU and skip elsewhere; the file imports neither jax
 nor the JAX package, so it runs on a machine that has only torch:
@@ -20,6 +24,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import gossip  # noqa: E402
 from repro_torch.kernels import gossip_matmul, quantized_gossip, ref  # noqa: E402
+from repro_torch.kernels import sparse_gossip  # noqa: E402
 
 
 @pytest.mark.cuda
@@ -137,3 +142,40 @@ def test_quantized_gossip_mix_kernel_refuses_what_it_cannot_take():
             z(4, 256, dtype=torch.bfloat16), scheme="sign")
     with pytest.raises(ValueError, match="contiguous"):
         qgm(eye(4), z(4, 512)[:, ::2], z(4, 256), scheme="sign")
+
+
+@pytest.mark.cuda
+def test_sparse_segment_mix_kernel_unaligned_rerun_and_refusals():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    rng = np.random.default_rng(3)
+    n, D, E, S = 5_000, 784, 20_000, 256
+    # one float of slack: rows only 4-byte aligned, the one-column path
+    flat = torch.from_numpy(rng.standard_normal(n * D + 1).astype(
+        np.float32)).cuda()
+    x = flat[1:].view(n, D)
+    src = torch.from_numpy(rng.integers(0, n, E)).cuda()
+    dst = torch.from_numpy(rng.integers(0, n, E)).cuda()
+    seg = torch.from_numpy(rng.integers(0, S, E)).cuda()
+    # a gossip round's weights: each receiver's sum below 1 (Metropolis), so
+    # partial sums stay of the order of x
+    w = torch.from_numpy(rng.random(E).astype(np.float32)).cuda()
+    w = w / (torch.zeros(S, device="cuda").index_add_(0, seg, w)[seg] + 0.5)
+    layout = sparse_gossip.segment_layout(src, dst, w, seg, S)
+    before = sparse_gossip.sparse_segment_mix.launches
+    a = sparse_gossip.sparse_segment_mix(x, *layout)
+    b = sparse_gossip.sparse_segment_mix(x, *layout)
+    torch.cuda.synchronize()
+    assert sparse_gossip.sparse_segment_mix.launches == before + 2
+    assert torch.equal(a, b)    # each segment summed in one fixed order
+    # f32 products summed in another order than index_add_'s atomics
+    torch.testing.assert_close(
+        a, ref.sparse_gossip_mix_ref(seg, w, x[src], x[dst], S),
+        rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="int64"):
+        sparse_gossip.sparse_segment_mix(x, layout[0].int(), *layout[1:])
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        sparse_gossip.sparse_segment_mix(x.half(), *layout)
+    with pytest.raises(ValueError, match="contiguous x"):
+        sparse_gossip.sparse_segment_mix(x[:, ::2], *layout)
+

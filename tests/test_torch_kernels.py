@@ -103,6 +103,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
+    port = REPO / "src" / "repro_torch"
+    for module in ("sim/hashrand.py", "sim/channel.py", "sim/faults.py",
+                   "sim/telemetry.py", "sparse/plan.py", "sparse/schedule.py",
+                   "sparse/sampled.py", "sparse/realize.py", "sparse/smoke.py",
+                   "sparse/telemetry.py", "kernels/sparse_gossip.py"):
+        assert port / module in files, module
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]

@@ -71,7 +71,7 @@ def test_registry_schedules_bit_identical(kind):
     assert np.array_equal(a.stacked(0, a.period), b.stacked(0, b.period))
 
 
-@pytest.mark.parametrize("kind", ["geometric-mobility", "random-sampled"])
+@pytest.mark.parametrize("kind", ["geometric-mobility", "waypoint-mobility"])
 def test_unported_topologies_raise(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         tregistry.build_topology(tspec.TopologySpec(kind=kind), 8, horizon=8)
