@@ -20,19 +20,28 @@ and then drives the main paths through the train CLI's own functions:
   scatter mixer (0 kernel launches); path B runs the same built scenario
   through ``run_algorithm`` with a plan whose mixer asks for the
   ``sparse_segment_mix`` kernel (``use_pallas=True``), and its evals must
-  equal path A's.
+  equal path A's;
+* slice 4, continuously-batched serving of a falcon-mamba-7b fleet at its
+  published widths and full depth (4 members of 7.0B parameters in bf16,
+  random from seeds) through ``repro_torch.serve.serve_fleet``: 8 requests
+  of a 2048-token prompt and 32 new tokens on 4 slots, every mamba layer of
+  every prefill through the ``linear_recurrence`` kernel
+  (``use_pallas=True``); two of the requests are served again one at a
+  time and must give the same tokens.
 
 Slices 1 and 2 launch their kernel 2 times per step (the x and h windows),
-path B 4 times (one per round); the counts are set to 0 just before a path
-and read just after it.  It prints the card, one JSON line of per-kernel
-numbers, and last ``{"ok": true, "device": {...}}``.  Any failed phase exits
-non-zero; so does a machine without a CUDA device or a directory without the
-repository.
+path B 4 times (one per round), the serve path 64 times per prefill (one
+per layer; decode feeds one token and takes no kernel); the counts are set
+to 0 just before a path and read just after it.  It prints the card, one
+JSON line of per-kernel numbers, and last ``{"ok": true, "device": {...}}``.
+Any failed phase exits non-zero; so does a machine without a CUDA device or
+a directory without the repository.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -78,6 +87,13 @@ SAMPLED_ARGV = ["--arch", "logreg", "--logreg-d", "784", "--logreg-m", "8",
 # orders differ by a few ulps of that.  (With weights U(0, 1), 513 edges
 # into one segment drift to partial sums of ~10 and differed by 1.1e-5.)
 STOL = 1e-5
+# Slice 4: falcon-mamba-7b (configs/falcon_mamba_7b.py, hf:tiiuae/falcon-mamba-7b)
+# served from a fleet of 4; the prompt meets the kernel's tiling condition.
+SERVE = dict(requests=8, batch=4, prompt_len=2048, max_new=32, fleet=4,
+             routing="user-affinity", dtype="bf16", seed=0)
+FALCON_PARAMS = 7_006_326_784            # per member, from the config's shapes
+LINREC_MAIN = (1, 2048, 8192 * 16)       # (B, S, d_inner·N) of one prefill
+SEQUENTIAL_RIDS = (0, 7)                 # served again one at a time
 
 
 def fail(msg: str):
@@ -723,6 +739,238 @@ def profile_sampled(torch, alg, driver, built, plan, spec):
           flush=True)
 
 
+def lequal(torch, what, got, want) -> float:
+    """The kernel's (h_all, h_last) bit-equal to the plain version's;
+    returns the largest absolute difference (0.0)."""
+    torch.cuda.synchronize()
+    err = 0.0
+    for g, w, name in zip(got, want, ("h_all", "h_last")):
+        err = max(err, float((g - w).abs().max())) if g.numel() else err
+        if not torch.equal(g, w):
+            fail(f"linear_recurrence {what}: {name} differs from the plain "
+                 f"version by up to {err:.3e}")
+    return err
+
+
+def check_lkernel(torch, linear_recurrence, ref):
+    """linear_recurrence against its plain version over S 1/7/128/300 (7
+    and 300 leave a tail after the kernel's 8-step load batches), C
+    1/5/512/4099 (odd widths take the one-channel path), B 1/3, f32 and
+    bf16 inputs, a in (0, 1) as mamba's exp(dt·A) is: bit-equal, and a
+    rerun gives the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    cases = 0
+    for B in (1, 3):
+        for S in (1, 7, 128, 300):
+            for C in (1, 5, 512, 4099):
+                for dtype in (torch.float32, torch.bfloat16):
+                    a = torch.rand(B, S, C, device="cuda",
+                                   generator=gen).to(dtype)
+                    b = torch.randn(B, S, C, device="cuda",
+                                    generator=gen).to(dtype)
+                    got = linear_recurrence.linear_recurrence(a, b)
+                    what = f"B={B} S={S} C={C} {dtype}"
+                    lequal(torch, what, got, ref.linear_recurrence_ref(a, b))
+                    lequal(torch, what + " rerun",
+                           linear_recurrence.linear_recurrence(a, b), got)
+                    cases += 1
+    print(f"kernel check: linear_recurrence bit-equal to plain on {cases} "
+          "cases (B 1/3, S 1/7/128/300, C 1/5/512/4099, f32 and bf16, a in "
+          "(0, 1)); reruns bit-equal", flush=True)
+
+
+def time_lkernel(torch, linear_recurrence, ref) -> dict:
+    """linear_recurrence at one falcon-mamba prefill's shape (1, 2048,
+    131072) f32: bit-equal to the plain version and on a rerun, then timed
+    beside its bound and the plain version.  No single PyTorch call
+    computes a linear recurrence, so there is no library time."""
+    B, S, C = LINREC_MAIN
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    a = torch.rand(B, S, C, device="cuda", generator=gen)
+    b = torch.randn(B, S, C, device="cuda", generator=gen)
+    got = linear_recurrence.linear_recurrence(a, b)
+    err = lequal(torch, "main shape", got, ref.linear_recurrence_ref(a, b))
+    lequal(torch, "main shape rerun", linear_recurrence.linear_recurrence(
+        a, b), got)
+    del got
+    torch.cuda.empty_cache()
+    rounds = {"ms": [], "plain_ms": []}
+    for _ in range(2):   # alternate, so a drift in clocks hits both
+        rounds["ms"].append(timed(
+            lambda: linear_recurrence.linear_recurrence(a, b), 20))
+        rounds["plain_ms"].append(timed(
+            lambda: ref.linear_recurrence_ref(a, b), 3))
+    del a, b
+    torch.cuda.empty_cache()
+    # a and b read once, h_all and h_last written once; a multiply and an
+    # add per element
+    nbytes = 3 * B * S * C * 4 + B * C * 4
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * B * S * C / FP32_FLOPS_PER_S
+    res = {k: min(v) for k, v in rounds.items()}
+    res.update(max_abs_err=err, library_ms=None,
+               bound_ms=max(t_bytes, t_ops) * 1e3,
+               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               shape=f"a, b ({B},{S},{C}) f32 -> h_all f32, h_last ({B},{C})")
+    print(f"linear_recurrence at {res['shape']}: bit-equal to plain, rerun "
+          "bit-equal", flush=True)
+    print(f"linear_recurrence at {res['shape']}: kernel {res['ms']:.4f} ms  "
+          f"plain {res['plain_ms']:.4f} ms  library none  bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']})  rounds {rounds}",
+          flush=True)
+    return res
+
+
+def falcon_fleet(torch, models, configs, tree):
+    """falcon-mamba-7b with use_pallas on, and a fleet of 4 members drawn
+    from seeds 0-3 layer by layer straight into one bf16 tensor per leaf
+    with a leading fleet axis (A_log f32, as the init makes it)."""
+    cfg = dataclasses.replace(configs.get("falcon-mamba-7b"), use_pallas=True)
+    model = models.build(cfg)
+    t0 = time.perf_counter()
+    fleet = model.empty(torch.bfloat16, "cuda", lead=(SERVE["fleet"],))
+    for i in range(SERVE["fleet"]):
+        model.init(torch.Generator(device="cuda").manual_seed(i),
+                   torch.bfloat16, "cuda",
+                   out=tree.map(lambda t: t[i], fleet))
+    torch.cuda.synchronize()
+    count = sum(t[0].numel() for _, t in tree.items(fleet))
+    if count != FALCON_PARAMS:
+        fail(f"falcon-mamba-7b has {count} parameters, not {FALCON_PARAMS}")
+    gb = sum(t.nbytes for _, t in tree.items(fleet)) / 1e9
+    print(f"falcon-mamba-7b fleet: {SERVE['fleet']} x {count} parameters, "
+          f"{gb:.3f} GB on the card, drawn in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    return model, fleet
+
+
+def serve_path(torch, exp, serve, ops, linear_recurrence, ref, model, fleet,
+               counters) -> dict:
+    """Slice 4's main path: serve_fleet over the falcon-mamba fleet with
+    every kernel's count from 0.  It must complete 8 requests of 32 tokens
+    with 64 linear_recurrence launches per prefill and no other kernel.  The
+    (a, b) the first prefill feeds its first layer's kernel are kept (the
+    tensors themselves, 2.1 GB at the full size, held through the run) and
+    the kernel is held bit-equal to its plain version on them afterwards."""
+    spec = exp.ServeSpec(**SERVE)
+    captured = []
+    real = ops.linear_recurrence
+
+    def capture(a, b, **kw):
+        if not captured:
+            captured.append((a, b))
+        return real(a, b, **kw)
+
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ops.linear_recurrence = capture
+    try:
+        res = serve.serve_fleet(model, fleet, spec)
+    finally:
+        ops.linear_recurrence = real
+    launches = {k: c.launches for k, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    want = model.cfg.num_layers * SERVE["requests"]
+    if launches["linear_recurrence"] != want or sum(launches.values()) != want:
+        fail(f"serve path launched {launches}; {SERVE['requests']} prefills "
+             f"of {model.cfg.num_layers} mamba layers need {want} "
+             "linear_recurrence and nothing else")
+    done = res.completed
+    vocab = model.cfg.vocab_size
+    if [c["rid"] for c in done] != list(range(SERVE["requests"])) or any(
+            len(c["tokens"]) != SERVE["max_new"]
+            or not all(0 <= t < vocab for t in c["tokens"]) for c in done):
+        fail(f"serve path did not complete {SERVE['requests']} requests of "
+             f"{SERVE['max_new']} tokens: {done}")
+    a, b = captured[0]
+    held_gb = (a.nbytes + b.nbytes) / 1e9
+    got = linear_recurrence.linear_recurrence(a, b)
+    lequal(torch, "on the serve path's first layer inputs", got,
+           ref.linear_recurrence_ref(a, b))
+    shape = tuple(a.shape)
+    del captured, a, b, got
+    torch.cuda.empty_cache()
+    print(f"serve path: falcon-mamba-7b, {spec}", flush=True)
+    print(f"serve path: throughput {res.throughput}  peak device memory "
+          f"{peak_gb:.3f} GB (with the {held_gb:.3f} GB of captured kernel "
+          f"inputs)  "
+          f"launches {launches}  nodes {[c['node'] for c in done]}  tokens of "
+          f"rid 0 {done[0]['tokens']}", flush=True)
+    print(f"kernel check: linear_recurrence bit-equal to plain on the serve "
+          f"path's first layer inputs {shape}", flush=True)
+    return {"launches": launches["linear_recurrence"], "peak_gb": peak_gb,
+            "completed": done}
+
+
+def serve_alone(torch, model, fleet, tree, req, max_new):
+    """One request served alone, batch 1: prefill, then one token at a
+    time, each the argmax of the last logits."""
+    params = tree.map(lambda t: t[req.node], fleet)
+    cache = model.init_cache(1, len(req.prompt) + max_new, torch.bfloat16,
+                             "cuda")
+    prompt = torch.as_tensor(req.prompt, device="cuda").long()[None]
+    logits, cache = model.prefill(params, {"tokens": prompt}, cache)
+    toks = [int(torch.argmax(logits[0, -1]))]
+    while len(toks) < max_new:
+        cur = torch.full((1, 1), toks[-1], dtype=torch.long, device="cuda")
+        logits, cache = model.decode_step(params, cur, cache,
+                                          len(req.prompt) + len(toks) - 1)
+        toks.append(int(torch.argmax(logits[0, -1])))
+    return toks
+
+
+def check_sequential(torch, exp, serve, model, fleet, tree, completed):
+    """Continuous batching == one request at a time, token for token, for
+    SEQUENTIAL_RIDS (a first-wave and a second-wave request).  The serve
+    dtype is bf16, so the fleet's bf16 leaves are what serve_fleet used;
+    A_log is cast as it does."""
+    reqs = serve.synth_requests(exp.ServeSpec(**SERVE), fleet=SERVE["fleet"],
+                                vocab=model.cfg.vocab_size)
+    cast = tree.map(lambda t: t.to(torch.bfloat16), fleet)
+    for rid in SEQUENTIAL_RIDS:
+        alone = serve_alone(torch, model, cast, tree, reqs[rid],
+                            SERVE["max_new"])
+        if alone != completed[rid]["tokens"]:
+            fail(f"rid {rid}: continuous batching gave "
+                 f"{completed[rid]['tokens']}, alone {alone}")
+    print(f"continuous batching == one at a time, token for token, for rids "
+          f"{SEQUENTIAL_RIDS}", flush=True)
+
+
+def profile_serve(torch, model, fleet, tree):
+    """Where one prefill's and one decode step's device time goes:
+    torch.profiler over each (after the main path warmed everything),
+    device time summed by kernel."""
+    params = tree.map(lambda t: t[0].to(torch.bfloat16), fleet)
+    S = SERVE["prompt_len"]
+    cache = model.init_cache(1, S + 1, torch.bfloat16, "cuda")
+    prompt = torch.randint(0, model.cfg.vocab_size, (1, S), device="cuda")
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for what in ("prefill", "decode step"):
+        with torch.profiler.profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            if what == "prefill":
+                logits, _ = model.prefill(params, {"tokens": prompt}, cache)
+            else:
+                logits, _ = model.decode_step(params, prompt[:, :1], cache, S)
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and e.self_device_time_total > 0]
+        busy = sum(ms for _, ms, _ in kernels)
+        lin = sum(ms for k, ms, _ in kernels if "linear_recurrence" in k)
+        top = sorted(kernels, key=lambda k: -k[1])[:10]
+        print(f"profile of one {what} (falcon-mamba-7b, bf16, prompt {S}): "
+              f"wall {wall_ms:.3f} ms  device busy {busy:.3f} ms (idle share "
+              f"{1 - busy / wall_ms:.4f})  linear_recurrence {lin:.3f} ms  "
+              f"kernels {sum(c for _, _, c in kernels)}  top kernels (ms, "
+              "calls): " + "; ".join(f"{k[:60]} {ms:.3f} x{c}"
+                                     for k, ms, c in top), flush=True)
+
+
 def main_path(torch, train, argv, counter, name: str) -> dict:
     """Drive one main path through the train CLI with ``counter`` (a
     kernel wrapper's launch count) set to 0 just before it and read just
@@ -755,11 +1003,12 @@ def main():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "the root of a checkout")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import exp, sparse
+    from repro_torch import configs, exp, models, serve, sparse, tree
     from repro_torch.core import algorithms as alg, compress, driver, gossip
     from repro_torch.dist import steps
-    from repro_torch.kernels import (build, gossip_matmul, ops,
-                                     quantized_gossip, ref, sparse_gossip)
+    from repro_torch.kernels import (build, gossip_matmul, linear_recurrence,
+                                     ops, quantized_gossip, ref,
+                                     sparse_gossip)
     from repro_torch.launch import train
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -781,6 +1030,8 @@ def main():
     check_qkernel(torch, quantized_gossip, ref, gossip)
     qkern = time_qkernel(torch, quantized_gossip, ref, gossip)
     check_skernel(torch, sparse_gossip, ref, ops)
+    check_lkernel(torch, linear_recurrence, ref)
+    lkern = time_lkernel(torch, linear_recurrence, ref)
     check_small_run(torch, exp)
     check_small_compressed_run(torch, exp)
 
@@ -803,11 +1054,23 @@ def main():
 
     counters = {"gossip_mix": gossip_matmul.gossip_mix,
                 "quantized_gossip_mix": quantized_gossip.quantized_gossip_mix,
-                "sparse_segment_mix": sparse_gossip.sparse_segment_mix}
+                "sparse_segment_mix": sparse_gossip.sparse_segment_mix,
+                "linear_recurrence": linear_recurrence.linear_recurrence}
     res_a, plan, rounds, sampled = sampled_paths(torch, train, exp, alg,
                                                  driver, sparse, counters)
     skern = time_skernel(torch, sparse_gossip, ref, driver, plan,
                          res_a.state.x, rounds)
+    del res_a, plan
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, fleet = falcon_fleet(torch, models, configs, tree)
+    served = serve_path(torch, exp, serve, ops, linear_recurrence, ref, model,
+                        fleet, counters)
+    check_sequential(torch, exp, serve, model, fleet, tree,
+                     served["completed"])
+    profile_serve(torch, model, fleet, tree)
+    del fleet
 
     rows = [
         {"name": "gossip_mix", "route": "cuda",
@@ -838,6 +1101,15 @@ def main():
          "bound_by": skern["bound_by"], "library_ms": skern["library_ms"],
          "shape": skern["shape"], "timed": "per round, mean over the rounds "
          "of path A; library = torch.sparse.mm"},
+        {"name": "linear_recurrence", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/linear_recurrence.cu",
+         "replaces": "src/repro/kernels/linear_recurrence.py:50",
+         "launches": served["launches"],
+         "launches_per_prefill": served["launches"] / SERVE["requests"],
+         "max_abs_err": lkern["max_abs_err"], "ms": lkern["ms"],
+         "plain_ms": lkern["plain_ms"], "bound_ms": lkern["bound_ms"],
+         "bound_by": lkern["bound_by"], "library_ms": lkern["library_ms"],
+         "shape": lkern["shape"]},
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

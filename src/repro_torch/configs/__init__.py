@@ -1,8 +1,8 @@
 """Architecture config registry: resolve --arch <id> to a ModelConfig.
 
-The port's first slice trains the dense qwen1.5-0.5b only; the other
-architectures of the JAX package's registry come with their model families
-(ROADMAP.md Queue 1)."""
+The port trains the dense qwen1.5-0.5b and serves the mamba falcon-mamba-7b;
+the other architectures of the JAX package's registry come with their model
+families (ROADMAP.md Queue 1)."""
 from .base import INPUT_SHAPES, InputShape, ModelConfig  # noqa: F401
 
 _REGISTRY = {}
@@ -29,4 +29,4 @@ def names() -> list:
 
 
 def _load_all():
-    from . import qwen1_5_0_5b  # noqa: F401
+    from . import falcon_mamba_7b, qwen1_5_0_5b  # noqa: F401

@@ -183,7 +183,12 @@ def _check_ported(spec: ExperimentSpec) -> None:
     a, r, c = spec.algorithm, spec.run, spec.channel
     sampled = spec.topology.kind in registry.SPARSE_TOPOLOGIES
     logreg = spec.model.kind == "logreg"
+    arch_pattern = (configs.get(spec.model.arch).pattern
+                    if spec.model.kind == "arch" else ("attn",))
     unported = [
+        (arch_pattern != ("attn",),
+         f"training model.arch={spec.model.arch!r} (the arch trainer runs "
+         "the dense ('attn',) pattern)", 9),
         (logreg and not sampled,
          "model.kind='logreg' off the random-sampled topology", 1),
         (a.local_opt != "sgd", f"algorithm.local_opt={a.local_opt!r}", 2),

@@ -22,7 +22,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
-SOURCES = ("gossip_mix", "quantized_gossip_mix", "sparse_segment_mix")
+SOURCES = ("gossip_mix", "quantized_gossip_mix", "sparse_segment_mix",
+           "linear_recurrence")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

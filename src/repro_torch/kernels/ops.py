@@ -8,9 +8,11 @@ plain version on a CPU tensor), False through the plain version directly.
 compressed multi-consensus on an (n, D) state matrix, the kernel or its
 plain version by the tensors' device.  ``sparse_gossip_mix`` is one
 edge-list gossip round; its ``use_pallas`` keeps the JAX API's name and
-selects the ``sparse_segment_mix`` wrapper for the segment sum.  Of the JAX
-package's six kernels ``gossip_mix``, ``quantized_gossip_mix`` and
-``sparse_segment_mix`` are ported; ROADMAP.md Queue 2 lists the rest.
+selects the ``sparse_segment_mix`` wrapper for the segment sum.
+``linear_recurrence`` is the kernel wrapper itself, the route the model takes
+when ``cfg.use_pallas`` is on.  Of the JAX package's six kernels
+``gossip_mix``, ``quantized_gossip_mix``, ``sparse_segment_mix`` and
+``linear_recurrence`` are ported; ROADMAP.md Queue 2 lists the rest.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ import torch
 
 from . import ref
 from .gossip_matmul import gossip_mix as _gossip
+from .linear_recurrence import linear_recurrence  # noqa: F401
 from .quantized_gossip import quantized_gossip_mix  # noqa: F401
 from .sparse_gossip import segment_layout, sparse_segment_mix
 

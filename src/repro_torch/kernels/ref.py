@@ -88,3 +88,19 @@ def sparse_gossip_mix_ref(seg: torch.Tensor, w: torch.Tensor,
     out = torch.zeros((num_segments, xs.shape[1]), dtype=torch.float32,
                       device=xs.device)
     return out.index_add_(0, seg, contrib)
+
+
+def linear_recurrence_ref(a: torch.Tensor, b: torch.Tensor):
+    """h_t = a_t·h_{t−1} + b_t along axis 1, h_{−1} = 0 (the JAX package's
+    ``linear_recurrence_ref``).  a, b: (B, S, C), any float dtype, each step
+    read as f32.  Returns (h_all (B, S, C) f32, h_last (B, C) f32).
+
+    The product and the sum are two elementwise ops, each rounded to f32:
+    the Hopper kernel rounds them the same way and is bit-equal to this."""
+    B, S = a.shape[:2]
+    h_all = torch.empty(a.shape, dtype=torch.float32, device=a.device)
+    h = torch.zeros((B,) + a.shape[2:], dtype=torch.float32, device=a.device)
+    for t in range(S):
+        h = a[:, t].to(torch.float32) * h + b[:, t].to(torch.float32)
+        h_all[:, t] = h
+    return h_all, h

@@ -1,7 +1,10 @@
-"""Unified model API: ``build(cfg)`` returns the functions the trainer and
-the tests share, and ``params_from_jax`` carries a JAX parameter tree across.
+"""Unified model API: ``build(cfg)`` returns the functions the trainer, the
+server and the tests share, and ``params_from_jax`` carries a JAX parameter
+tree (or serve cache) across.
 
-The first slice of the port runs the dense decoder (qwen1.5-0.5b's family);
+The port runs the dense decoder (qwen1.5-0.5b's family) in train mode and
+the mamba stack (falcon-mamba-7b's family) in every mode, the latter with
+``use_pallas`` routing its recurrence to the Hopper ``linear_recurrence``;
 every other configuration raises ``NotImplementedError`` naming the
 ROADMAP.md item that ports it.
 """
@@ -20,42 +23,71 @@ from . import transformer
 class Model(NamedTuple):
     cfg: Any
     shapes: dict              # parameter leaf shapes (the JAX layout)
-    init: Callable            # (generator, dtype, device) -> params
+    init: Callable            # (generator, dtype, device, out=None) -> params
+    empty: Callable           # (dtype, device, lead=()) -> uninitialised tree
     train_loss: Callable      # (params, batch) -> scalar
+    prefill: Callable         # (params, batch, cache) -> (logits, cache)
+    decode_step: Callable     # (params, token, cache, pos) -> (logits, cache)
+    init_cache: Callable      # (batch, max_len, dtype, device) -> cache
+
+
+# The families the port runs: (arch_type, pattern) -> may use_pallas be on.
+# The dense decoder's use_pallas reaches flash_attention (Queue 2 item 3).
+PORTED = {("dense", ("attn",)): False, ("ssm", ("mamba",)): True}
 
 
 def _check_supported(cfg) -> None:
+    family = (cfg.arch_type, tuple(cfg.pattern))
+    if family not in PORTED:
+        raise NotImplementedError(
+            f"{cfg.name}: arch_type={cfg.arch_type!r} with pattern="
+            f"{cfg.pattern!r} is not ported yet (the port runs "
+            f"{sorted(PORTED)}; ROADMAP.md Queue 1 item 9)")
     unsupported = {
-        "arch_type": (cfg.arch_type, "dense"),
-        "pattern": (cfg.pattern, ("attn",)),
         "window": (cfg.window, 0),
         "logit_softcap": (cfg.logit_softcap, 0.0),
         "mlp_act": (cfg.mlp_act, "swiglu"),
         "norm": (cfg.norm, "rmsnorm"),
         "tie_embeddings": (cfg.tie_embeddings, True),
         "frontend": (cfg.frontend, ""),
-        "use_pallas": (cfg.use_pallas, False),
     }
     for field, (have, ported) in unsupported.items():
         if have != ported:
             raise NotImplementedError(
                 f"{cfg.name}: {field}={have!r} is not ported yet (the port "
                 f"runs {field}={ported!r}; ROADMAP.md Queue 1 item 9)")
+    if cfg.use_pallas and not PORTED[family]:
+        raise NotImplementedError(
+            f"{cfg.name}: use_pallas=True routes attention to flash_attention"
+            ", which is not ported yet (ROADMAP.md Queue 2 item 3)")
 
 
 def build(cfg) -> Model:
     _check_supported(cfg)
+
+    def _prefill(p, b, c):
+        return transformer.prefill(p, cfg, b["tokens"], c,
+                                   last_only=cfg.prefill_last_only)
+
     return Model(
         cfg=cfg,
         shapes=transformer.param_shapes(cfg),
-        init=lambda gen, dtype=torch.float32, device="cpu":
-            transformer.init_params(gen, cfg, dtype, device),
+        init=lambda gen, dtype=torch.float32, device="cpu", out=None:
+            transformer.init_params(gen, cfg, dtype, device, out),
+        empty=lambda dtype=torch.float32, device="cpu", lead=():
+            transformer.empty_params(cfg, dtype, device, lead),
         train_loss=lambda p, b: transformer.train_loss(p, cfg, b),
+        prefill=_prefill,
+        decode_step=lambda p, t, c, pos:
+            transformer.decode_step(p, cfg, t, c, pos),
+        init_cache=lambda batch, max_len, dtype=torch.bfloat16, device="cpu":
+            transformer.init_cache(cfg, batch, max_len, dtype, device),
     )
 
 
 def params_from_jax(params) -> dict:
-    """The JAX package's parameter tree (nested dicts of arrays, e.g. after
-    ``jax.device_get``) as the port's parameters: the same tree and leaf
-    layouts, as CPU tensors.  A copy, no transpose."""
+    """The JAX package's parameter tree or serve cache (nested dicts of
+    arrays, e.g. after ``jax.device_get``) as the port's: the same tree,
+    leaf layouts and dtypes (mamba's A_log stays f32), as CPU tensors.  A
+    copy, no transpose."""
     return tree.map(lambda a: torch.from_numpy(np.array(a)), params)

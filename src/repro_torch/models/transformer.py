@@ -1,13 +1,21 @@
-"""Decoder-only transformer for the dense ``("attn",)`` pattern: init,
-train-mode forward and the next-token loss, the port of the JAX package's
-``models/transformer.py`` train path.
+"""Decoder-only transformer: init, the train-mode forward and loss, and the
+serve steps (prefill, decode), the port of the JAX package's
+``models/transformer.py``.
 
-Parameters keep the JAX layout: ``params["units"]["0_attn"]`` holds every
-layer's leaves stacked on a leading layer axis.  The forward also takes
-``params["units"]`` as a list of per-layer dicts; the trainer passes that
-form, whose leaves are separate tensors, so each layer's gradient lands in
-its own slice of the flat gradient buffer (see
-:func:`repro_torch.dist.collectives.FlatLayout.grad_leaves`).
+Layers are grouped into pattern units (``cfg.pattern``): the dense decoder's
+unit is one ``"attn"`` layer, falcon-mamba's one ``"mamba"`` layer.
+Parameters keep the JAX layout: ``params["units"]["0_attn"]`` (or
+``"0_mamba"``) holds every unit's leaves stacked on a leading layer axis, and
+the serve cache ``cache["units"]["0_mamba"]`` likewise.  The forward also
+takes ``params["units"]`` as a list of per-layer dicts of a one-layer
+pattern; the trainer passes that form, whose leaves are separate tensors, so
+each layer's gradient lands in its own slice of the flat gradient buffer
+(see :func:`repro_torch.dist.collectives.FlatLayout.grad_leaves`).
+
+The port serves the mamba kind only: an ``"attn"`` layer in prefill or
+decode mode raises (ROADMAP.md Queue 1 item 11).  Unlike the reference,
+prefill and decode write the new cache into the ``cache`` they are given and
+return it.
 """
 
 from __future__ import annotations
@@ -16,47 +24,90 @@ import torch
 
 from .. import tree
 from . import attention as attn
-from . import layers
-
-UNIT = "0_attn"   # the one layer of the dense pattern unit
+from . import layers, ssm
 
 
-def _init_one_layer(gen, cfg, dtype, device) -> dict:
-    return {"ln1": layers.init_norm(cfg, dtype, device),
-            "attn": attn.init_attention(gen, cfg, dtype, device),
-            "ln2": layers.init_norm(cfg, dtype, device),
-            "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype, device)}
+def unit_names(cfg) -> list:
+    return [f"{i}_{kind}" for i, kind in enumerate(cfg.pattern)]
 
 
-def init_params(gen, cfg, dtype=torch.float32, device="cpu") -> dict:
+def _init_one_layer(gen, cfg, kind, dtype, device) -> dict:
+    if kind == "attn":
+        return {"ln1": layers.init_norm(cfg, dtype, device),
+                "attn": attn.init_attention(gen, cfg, dtype, device),
+                "ln2": layers.init_norm(cfg, dtype, device),
+                "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                                       device)}
+    if kind == "mamba":
+        return {"ln1": layers.init_norm(cfg, dtype, device),
+                "mamba": ssm.init_mamba(gen, cfg, dtype, device)}
+    raise ValueError(f"unknown layer kind {kind!r}")
+
+
+def _init_unit(gen, cfg, dtype, device) -> dict:
+    return {name: _init_one_layer(gen, cfg, kind, dtype, device)
+            for name, kind in zip(unit_names(cfg), cfg.pattern)}
+
+
+def empty_params(cfg, dtype, device, lead: tuple = ()) -> dict:
+    """An uninitialised parameter tree, each leaf in the dtype the init
+    gives it (mamba's A_log is f32 whatever ``dtype``), with extra leading
+    axes ``lead`` (e.g. a fleet axis)."""
+    units = cfg.units_and_rem[0]
+    unit = _init_unit(None, cfg, dtype, "meta")
+    top = {"embed": layers.init_embed(None, cfg.vocab_size, cfg.d_model,
+                                      dtype, "meta"),
+           "final_norm": layers.init_norm(cfg, dtype, "meta")}
+
+    def alloc(t, *axes):
+        return torch.empty(tuple(lead) + axes + tuple(t.shape),
+                           dtype=t.dtype, device=device)
+
+    params = tree.map(alloc, top)
+    params["units"] = tree.map(lambda t: alloc(t, units), unit)
+    return params
+
+
+def init_params(gen, cfg, dtype=torch.float32, device="cpu",
+                out: dict | None = None) -> dict:
     """Random parameters from ``gen`` (a torch.Generator on ``device``; may
-    be None on the meta device).  The JAX package's ``jax.random`` init draws
-    other numbers; :func:`repro_torch.models.params_from_jax` carries those
-    across instead."""
-    per_layer = [_init_one_layer(gen, cfg, dtype, device)
-                 for _ in range(cfg.num_layers)]
-    return {"embed": layers.init_embed(gen, cfg.vocab_size, cfg.d_model,
-                                       dtype, device),
-            "final_norm": layers.init_norm(cfg, dtype, device),
-            "units": {UNIT: tree.map(lambda *xs: torch.stack(xs), *per_layer)}}
+    be None on the meta device), drawn layer by layer into the stacked
+    leaves of ``out`` (a tree from :func:`empty_params`, e.g. one fleet
+    member's views) or of a new tree.  At most one layer's leaves exist
+    beside the result, so a model is built in its own dtype without an f32
+    copy of it.  The JAX package's ``jax.random`` init draws other numbers;
+    :func:`repro_torch.models.params_from_jax` carries those across
+    instead."""
+    if out is None:
+        out = empty_params(cfg, dtype, device)
+    for u in range(cfg.units_and_rem[0]):
+        tree.map(lambda dst, src: dst[u].copy_(src), out["units"],
+                 _init_unit(gen, cfg, dtype, device))
+    tree.map(lambda dst, src: dst.copy_(src), out["embed"],
+             layers.init_embed(gen, cfg.vocab_size, cfg.d_model, dtype,
+                               device))
+    tree.map(lambda dst, src: dst.copy_(src), out["final_norm"],
+             layers.init_norm(cfg, dtype, device))
+    return out
 
 
 def param_shapes(cfg) -> dict:
-    """The parameter tree's leaf shapes, from an init on the meta device
-    (no memory)."""
+    """The parameter tree's leaf shapes (no memory)."""
     return tree.map(lambda t: tuple(t.shape),
-                    init_params(None, cfg, torch.float32, "meta"))
+                    empty_params(cfg, torch.float32, "meta"))
 
 
 def unit_params(units, cfg) -> list:
-    """Per-layer parameter dicts from either the stacked or the list form."""
+    """Per-unit {name: layer params} from either the stacked or the list
+    form (one dict per layer of a one-layer pattern)."""
     if isinstance(units, list):
-        return units
-    return [tree.map(lambda t: t[u], units[UNIT])
-            for u in range(cfg.num_layers)]
+        (name,) = unit_names(cfg)
+        return [{name: p} for p in units]
+    return [tree.map(lambda t: t[u], units)
+            for u in range(cfg.units_and_rem[0])]
 
 
-def _apply_layer(p, x, cfg, rope, positions):
+def _apply_attn_layer(p, x, cfg, rope, positions):
     h = layers.apply_norm(p["ln1"], x)
     q = attn.project_q(p["attn"], h, cfg)
     k, v = attn.project_kv(p["attn"], h)
@@ -73,13 +124,73 @@ def _apply_layer(p, x, cfg, rope, positions):
     return x + layers.apply_mlp(p["mlp"], h)
 
 
-def forward(params, cfg, tokens: torch.Tensor) -> torch.Tensor:
-    """tokens: (B, S) int -> logits (B, S, V)."""
+def _apply_layer(p, x, cfg, kind, rope, positions, mode, cache):
+    """One layer; in prefill and decode mode the layer's new cache is
+    written into ``cache`` (views of the stacked cache)."""
+    if kind == "attn":
+        if mode != "train":
+            raise NotImplementedError(
+                f"{mode} of an 'attn' layer (its KV cache and the attention "
+                "kernels) is not ported yet (ROADMAP.md Queue 1 item 11)")
+        return _apply_attn_layer(p, x, cfg, rope, positions)
+    if kind == "mamba":
+        h = layers.apply_norm(p["ln1"], x)
+        y, new = ssm.mamba_forward(
+            p["mamba"], h, cfg, state=cache if mode != "train" else None,
+            chunk=cfg.scan_chunk)
+        if mode != "train":
+            tree.map(lambda dst, src: dst.copy_(src), cache, new)
+        return x + y
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# Cache structure
+# ---------------------------------------------------------------------------
+
+def _init_layer_cache(cfg, kind, batch, dtype, device):
+    if kind == "mamba":
+        return ssm.init_mamba_cache(cfg, batch, dtype, device)
+    raise NotImplementedError(
+        f"a serve cache for {kind!r} layers is not ported yet (ROADMAP.md "
+        "Queue 1 item 11)")
+
+
+def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cpu") -> dict:
+    """Zero serve cache, the reference's tree: ``{"units": {name: leaves
+    stacked on the layer axis}, "rem": {}}``.  A mamba layer's cache does
+    not grow with ``max_len``."""
+    units = cfg.units_and_rem[0]
+    stacked = {
+        name: tree.map(lambda t: t[None].repeat((units,) + (1,) * t.dim()),
+                       _init_layer_cache(cfg, kind, batch, dtype, device))
+        for name, kind in zip(unit_names(cfg), cfg.pattern)}
+    return {"units": stacked, "rem": {}}
+
+
+# ---------------------------------------------------------------------------
+# Forward passes
+# ---------------------------------------------------------------------------
+
+def forward(params, cfg, tokens: torch.Tensor, *, mode: str = "train",
+            cache: dict | None = None,
+            last_only: bool = False) -> torch.Tensor:
+    """tokens: (B, S) int -> logits (B, S, V) (B, 1, V with
+    ``last_only``).  ``mode`` is 'train', 'prefill' or 'decode'; the latter
+    two update ``cache`` in place."""
     x = layers.embed_tokens(params["embed"], tokens)
-    positions = torch.arange(x.shape[1], device=x.device)
-    rope = layers.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
-    for p in unit_params(params["units"], cfg):
-        x = _apply_layer(p, x, cfg, rope, positions)
+    positions = rope = None
+    if cfg.num_heads:         # attention layers, which run in train mode only
+        positions = torch.arange(x.shape[1], device=x.device)
+        rope = layers.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    for u, up in enumerate(unit_params(params["units"], cfg)):
+        for name, kind in zip(unit_names(cfg), cfg.pattern):
+            c = (tree.map(lambda t: t[u], cache["units"][name])
+                 if cache is not None else None)
+            x = _apply_layer(up[name], x, cfg, kind, rope, positions, mode, c)
+    if last_only:
+        x = x[:, -1:]
     x = layers.apply_norm(params["final_norm"], x)
     return layers.unembed(params["embed"], x)
 
@@ -93,3 +204,20 @@ def train_loss(params, cfg, batch: dict) -> torch.Tensor:
     tgt = tokens[:, 1:]
     nll = -torch.gather(lp, -1, tgt[..., None])[..., 0]
     return nll.mean()
+
+
+def prefill(params, cfg, tokens, cache, *, last_only: bool = False):
+    """The prompt into ``cache`` (updated in place): (logits of the last
+    position (B, 1, V), cache)."""
+    logits = forward(params, cfg, tokens, mode="prefill", cache=cache,
+                     last_only=last_only)
+    return logits[:, -1:], cache
+
+
+def decode_step(params, cfg, token, cache, pos):
+    """token: (B, 1) int; pos: its absolute position, which an attention
+    cache will need (a mamba layer's state does not).  (logits (B, 1, V),
+    cache updated in place)."""
+    del pos
+    logits = forward(params, cfg, token, mode="decode", cache=cache)
+    return logits, cache

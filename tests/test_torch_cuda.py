@@ -9,7 +9,11 @@ off): its largest n and W stack, the one-column path that rows without
 ``sparse_segment_mix`` (held to its plain version by ``chip_smoke.py`` over
 E, D, S, padding, bf16 and a window of the sampled-client path): a state
 whose rows are not 16-byte aligned, a rerun giving the same bits, and its
-refusals.
+refusals.  For ``linear_recurrence`` (held bit-equal to its plain version
+by ``chip_smoke.py`` at small and ragged shapes, the main shape and the
+serve path's own inputs): a large B·C whose S is not a multiple of the
+kernel's 8-step load batch, in f32 and bf16, inputs that are not 16-byte
+aligned, and its refusals.
 
 These need an NVIDIA GPU and skip elsewhere; the file imports neither jax
 nor the JAX package, so it runs on a machine that has only torch:
@@ -24,7 +28,7 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.core import gossip  # noqa: E402
 from repro_torch.kernels import gossip_matmul, quantized_gossip, ref  # noqa: E402
-from repro_torch.kernels import sparse_gossip  # noqa: E402
+from repro_torch.kernels import linear_recurrence, sparse_gossip  # noqa: E402
 
 
 @pytest.mark.cuda
@@ -179,3 +183,43 @@ def test_sparse_segment_mix_kernel_unaligned_rerun_and_refusals():
     with pytest.raises(ValueError, match="contiguous x"):
         sparse_gossip.sparse_segment_mix(x[:, ::2], *layout)
 
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_linear_recurrence_kernel_is_bit_equal_to_plain(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    B, S, C = 3, 37, 131_076    # 37 = 4 batches of 8 steps and 5 left over
+    a = torch.rand(B, S, C, device="cuda", generator=gen).to(dtype)
+    b = torch.randn(B, S, C, device="cuda", generator=gen).to(dtype)
+    before = linear_recurrence.linear_recurrence.launches
+    h_all, h_last = linear_recurrence.linear_recurrence(a, b)
+    want_all, want_last = ref.linear_recurrence_ref(a, b)
+    # rows only 4-byte aligned: the one-channel path, the same bits
+    flat_a = torch.empty(B * S * C + 1, device="cuda", dtype=dtype)
+    flat_b = torch.empty_like(flat_a)
+    ua = flat_a[1:].view(B, S, C).copy_(a)
+    ub = flat_b[1:].view(B, S, C).copy_(b)
+    u_all, u_last = linear_recurrence.linear_recurrence(ua, ub)
+    torch.cuda.synchronize()
+    assert linear_recurrence.linear_recurrence.launches == before + 2
+    # the product and the sum rounded separately in both: bit-equal
+    for got in ((h_all, h_last), (u_all, u_last)):
+        assert torch.equal(got[0], want_all) and torch.equal(got[1], want_last)
+
+
+@pytest.mark.cuda
+def test_linear_recurrence_kernel_refuses_what_it_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    a = torch.rand(2, 8, 64, device="cuda")
+    with pytest.raises(TypeError, match="f32 or"):
+        linear_recurrence.linear_recurrence(a.half(), a.half())
+    with pytest.raises(TypeError, match="f32 or"):
+        linear_recurrence.linear_recurrence(a, a.bfloat16())
+    with pytest.raises(ValueError, match="contiguous"):
+        linear_recurrence.linear_recurrence(a[:, :, ::2], a[:, :, ::2])
+    with pytest.raises(ValueError, match="on"):
+        linear_recurrence.linear_recurrence(a, a.cpu())

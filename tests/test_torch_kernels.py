@@ -1,8 +1,9 @@
-"""The port's gossip_mix against the JAX package's: the plain version and the
-CPU path of the wrapper held to the Pallas kernel (interpret mode) and its
-jnp oracle, the launch counter, and the rule that the port imports neither
-jax nor the JAX package.  The CUDA kernel itself is held to its plain
-version on the card (``tests/test_torch_cuda.py`` and ``chip_smoke.py``)."""
+"""The port's gossip_mix and linear_recurrence against the JAX package's: the
+plain versions and the CPU paths of the wrappers held to the Pallas kernels
+(interpret mode) and their jnp oracles, the launch counters, and the rule
+that the port imports neither jax nor the JAX package.  The CUDA kernels
+themselves are held to their plain versions on the card
+(``tests/test_torch_cuda.py`` and ``chip_smoke.py``)."""
 
 import ast
 from pathlib import Path
@@ -16,7 +17,9 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.core import gossip as jgossip  # noqa: E402
 from repro.kernels import gossip_matmul as jgm, ref as jref  # noqa: E402
-from repro_torch.kernels import gossip_matmul, ops, ref  # noqa: E402
+from repro.kernels import linear_recurrence as jlr  # noqa: E402
+from repro_torch.kernels import (gossip_matmul, linear_recurrence,  # noqa: E402
+                                 ops, ref)
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -107,10 +110,71 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     for module in ("sim/hashrand.py", "sim/channel.py", "sim/faults.py",
                    "sim/telemetry.py", "sparse/plan.py", "sparse/schedule.py",
                    "sparse/sampled.py", "sparse/realize.py", "sparse/smoke.py",
-                   "sparse/telemetry.py", "kernels/sparse_gossip.py"):
+                   "sparse/telemetry.py", "kernels/sparse_gossip.py",
+                   "kernels/linear_recurrence.py", "models/ssm.py",
+                   "serve/engine.py", "serve/traffic.py"):
         assert port / module in files, module
     for path in files:
         for name in _imports(path):
             root = name.split(".")[0]
             assert root not in ("jax", "jaxlib", "repro", "flax", "optax"), \
                 f"{path.relative_to(REPO)} imports {name}"
+
+
+def _recurrence_inputs(B, S, C, seed):
+    """a in (0, 1) as mamba's exp(dt·A) is, b standard normal."""
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0.0, 1.0, (B, S, C)).astype(np.float32),
+            rng.standard_normal((B, S, C)).astype(np.float32))
+
+
+# (B, S, C): the first three tile as the Pallas kernel needs (S % min(128, S)
+# and C % min(512, C) == 0, so it runs in interpret mode too), the others are
+# ragged and held to the jnp oracle only.
+@pytest.mark.parametrize("B,S,C", [(1, 128, 512), (2, 256, 1024),
+                                   (3, 16, 1536), (3, 7, 5), (1, 1, 1),
+                                   (2, 300, 4099)])
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+def test_linear_recurrence_matches_pallas_kernel(B, S, C, dtype):
+    a, b = _recurrence_inputs(B, S, C, seed=B * S + C)
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    ja, jb = jnp.asarray(a, jdt), jnp.asarray(b, jdt)
+    wants = [jref.linear_recurrence_ref(ja, jb)]
+    if S % min(128, S) == 0 and C % min(512, C) == 0:
+        wants.append(jlr.linear_recurrence(ja, jb, block_t=min(128, S),
+                                           block_c=min(512, C),
+                                           interpret=True))
+    ta = _t(np.asarray(ja, np.float32), dtype)
+    tb = _t(np.asarray(jb, np.float32), dtype)
+    before = linear_recurrence.linear_recurrence.launches
+    for h_all, h_last in (ref.linear_recurrence_ref(ta, tb),
+                          ops.linear_recurrence(ta, tb)):
+        assert h_all.dtype == h_last.dtype == torch.float32
+        assert h_all.shape == (B, S, C) and h_last.shape == (B, C)
+        for want_all, want_last in wants:
+            # the same f32 products and sums in the same order: only the
+            # compilers' contraction into FMAs may move the last bits
+            np.testing.assert_allclose(h_all.numpy(), np.asarray(want_all),
+                                       rtol=1e-5, atol=1e-5)
+            np.testing.assert_allclose(h_last.numpy(), np.asarray(want_last),
+                                       rtol=1e-5, atol=1e-5)
+    assert linear_recurrence.linear_recurrence.launches == before
+
+
+def test_linear_recurrence_empty_time_axis_is_the_zero_state():
+    a, b = torch.zeros(2, 0, 3), torch.zeros(2, 0, 3)
+    h_all, h_last = linear_recurrence.linear_recurrence(a, b)
+    assert h_all.shape == (2, 0, 3)
+    assert torch.equal(h_last, torch.zeros(2, 3))
+
+
+def test_linear_recurrence_wrapper_rejects_what_it_cannot_take():
+    a, b = (torch.from_numpy(t) for t in _recurrence_inputs(2, 8, 16, 0))
+    with pytest.raises(ValueError, match="one shape"):
+        linear_recurrence.linear_recurrence(a, b[:, :4])
+    with pytest.raises(ValueError, match="one shape"):
+        linear_recurrence.linear_recurrence(a[0], b[0])
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        linear_recurrence.linear_recurrence(a.to("meta"), b.to("meta"))
+    with pytest.raises(ValueError, match="meta"):
+        linear_recurrence.linear_recurrence(a, b.to("meta"))
