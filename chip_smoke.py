@@ -27,13 +27,21 @@ and then drives the main paths through the train CLI's own functions:
   of a 2048-token prompt and 32 new tokens on 4 slots, every mamba layer of
   every prefill through the ``linear_recurrence`` kernel
   (``use_pallas=True``); two of the requests are served again one at a
-  time and must give the same tokens.
+  time and must give the same tokens;
+* slice 5, the same serving of a qwen1.5-0.5b fleet at its published widths
+  and full depth (4 members of 464M parameters in bf16): 8 requests of a
+  1920-token prompt and 128 new tokens on 4 slots, every attention layer of
+  every prefill through the ``flash_attention`` kernel and of every decode
+  step through ``decode_attention`` against a 2048-slot KV cache; two of the
+  requests are served again one at a time and must give the same tokens.
 
 Slices 1 and 2 launch their kernel 2 times per step (the x and h windows),
-path B 4 times (one per round), the serve path 64 times per prefill (one
-per layer; decode feeds one token and takes no kernel); the counts are set
-to 0 just before a path and read just after it.  It prints the card, one
-JSON line of per-kernel numbers, and last ``{"ok": true, "device": {...}}``.
+path B 4 times (one per round), the falcon-mamba serve path 64 times per
+prefill (one per layer; decode feeds one token and takes no kernel), the
+qwen serve path ``flash_attention`` 24 times per prefill and
+``decode_attention`` 24 times per slot and token; the counts are set to 0
+just before a path and read just after it.  It prints the card, one JSON
+line of per-kernel numbers, and last ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero; so does a machine without a CUDA device or
 a directory without the repository.
 """
@@ -94,6 +102,35 @@ SERVE = dict(requests=8, batch=4, prompt_len=2048, max_new=32, fleet=4,
 FALCON_PARAMS = 7_006_326_784            # per member, from the config's shapes
 LINREC_MAIN = (1, 2048, 8192 * 16)       # (B, S, d_inner·N) of one prefill
 SEQUENTIAL_RIDS = (0, 7)                 # served again one at a time
+# Slice 5: qwen1.5-0.5b (configs/qwen1_5_0_5b.py, hf:Qwen/Qwen1.5-0.5B) served
+# from a fleet of 4.  The prompt is a multiple of 128 and prompt + new
+# tokens (the cache length C) a multiple of 256, the tiling both attention
+# kernels take.
+QSERVE = dict(requests=8, batch=4, prompt_len=1920, max_new=128, fleet=4,
+              routing="user-affinity", dtype="bf16", seed=0)
+QWEN_PARAMS = 463_987_712                # per member, from the config's shapes
+FLASH_MAIN = (1, 1920, 16, 64)           # (B, S, H, hd) of one prefill layer
+DECODE_MAIN = (1, 2048, 16, 1, 64)       # (B, C, J, G, hd) of one decode layer
+# H100 SXM dense bf16 tensor-core peak and L2 size (NVIDIA data sheet): the
+# attention kernels' operations are bf16 products on the main path, and
+# their inputs (8-16 MB) would stay in L2 from one timed call to the next,
+# where the serve path finds them cold.
+BF16_FLOPS_PER_S = 989e12
+L2_BYTES = 50e6
+# flash_attention and decode_attention against their plain versions: f32
+# sums in another order; bf16 as the JAX kernel tests allow (the plain
+# versions round the scores q.k to bf16 before the f32 softmax, as the JAX
+# oracles do, and the normalised p; the kernels keep the scores in f32 and
+# round the unnormalised p; both round the output).  rtol = atol, except for
+# bf16 at the serve path's shapes (Sk or C in the thousands), where most
+# outputs average hundreds of keys and |o| is ~0.03-0.05, half of an atol of
+# 2e-2: there atol is SERVE_ATOL_BF16[kernel], and acompare prints the
+# smallest atol each such check would pass at.  A score rounded to bf16
+# moves by up to ~2^-9 of |q.k| (~0.006 after the scale), so prefill rows
+# with few effective keys differ by ~5e-3 at |o| ~0.01; decode rows, over
+# 1000 keys or more, by ~1e-3.  PERF.md keeps the readings behind both.
+ATOL = {"float32": 2e-5, "bfloat16": 2e-2}
+SERVE_ATOL_BF16 = {"flash_attention": 1e-2, "decode_attention": 2e-3}
 
 
 def fail(msg: str):
@@ -820,26 +857,313 @@ def time_lkernel(torch, linear_recurrence, ref) -> dict:
     return res
 
 
-def falcon_fleet(torch, models, configs, tree):
-    """falcon-mamba-7b with use_pallas on, and a fleet of 4 members drawn
-    from seeds 0-3 layer by layer straight into one bf16 tensor per leaf
-    with a leading fleet axis (A_log f32, as the init makes it)."""
-    cfg = dataclasses.replace(configs.get("falcon-mamba-7b"), use_pallas=True)
+def device_ms(torch, fn, reps: int) -> float:
+    """Mean device ms of ``fn`` per call: the time of the CUDA kernels it
+    runs, summed under torch.profiler over ``reps`` calls after a warm-up
+    call.  Unlike ``timed`` it leaves out the gaps while the host issues the
+    next launch, which are longer than a decode step's kernel."""
+    import torch.profiler as tp
+    fn()
+    torch.cuda.synchronize()
+    with tp.profile(activities=[tp.ProfilerActivity.CPU,
+                                tp.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA)
+    return busy_us / 1e3 / reps
+
+
+def acompare(torch, what, got, want, serve: str = "") -> float:
+    """An attention kernel's output against its plain version's at rtol =
+    atol = ATOL[dtype]; for bf16 at a serve shape of the kernel named
+    ``serve``, atol SERVE_ATOL_BF16[serve].  Returns the largest absolute
+    error."""
+    torch.cuda.synchronize()
+    rtol = ATOL[str(got.dtype).split(".")[1]]
+    bf16_serve = bool(serve) and got.dtype == torch.bfloat16
+    atol = SERVE_ATOL_BF16[serve] if bf16_serve else rtol
+    diff = (got.float() - want.float()).abs()
+    if bf16_serve:
+        need = float((diff - rtol * want.float().abs()).max())
+        print(f"{what}: bf16 at rtol {rtol}: smallest atol that passes "
+              f"{need:.3e} (held at {atol})", flush=True)
+    torch.testing.assert_close(got, want, rtol=rtol, atol=atol,
+                               msg=lambda m: f"{what}: {m}")
+    return float(diff.max())
+
+
+FLASH_CASES = [
+    # (B, Sq, Sk, H, KV, hd, causal, window)
+    (1, 16, 16, 4, 4, 64, True, 0),          # the reduced model's prompt
+    (2, 128, 128, 6, 3, 64, True, 0),        # G = 2, ragged head count
+    (1, 256, 256, 8, 1, 128, True, 64),      # G = 8, window
+    (2, 384, 384, 4, 2, 32, True, 0),        # hd 32
+    (1, 128, 128, 2, 2, 128, False, 0),      # bidirectional
+    (1, 512, 512, 4, 4, 64, True, 200),      # window off the 64-key tiles
+    (1, 256, 128, 2, 1, 64, True, 64),       # rows with no valid key
+    (1, 128, 256, 2, 2, 64, True, 0),        # Sk > Sq
+    (1, 1920, 1920, 16, 16, 64, True, 0),    # the serve path's prefill
+]
+DECODE_CASES = [
+    # (B, C, J, G, hd, window, filled, pos)
+    (2, 256, 2, 2, 64, 0, 256, 255),         # full cache
+    (1, 512, 1, 8, 64, 0, 300, 299),         # kpos -1 tail, G = 8
+    (2, 256, 2, 4, 128, 128, 256, 400),      # ring wrapped, window
+    (1, 128, 4, 1, 32, 0, 128, 127),         # hd 32
+    (1, 128, 2, 2, 64, 0, 0, 5),             # empty cache: every slot masked
+    (1, 256, 2, 16, 128, 0, 256, 255),       # G = 16, the most it takes
+    (3, 2048, 16, 1, 64, 1000, 2048, 2047),  # window, B = 3
+    (1, 2048, 16, 1, 64, 0, 1921, 1920),     # the serve path's first decode
+]
+
+
+def ring_kpos(torch, C, filled, pos, window):
+    """tests/test_kernels.py:164-168: the ring's absolute positions once it
+    has wrapped, else 0 .. filled - 1 and -1 for the empty tail."""
+    c = torch.arange(C, device="cuda")
+    if window and pos >= C:
+        base = pos - C + 1
+        return ((c - base % C) % C + base).int()
+    return torch.where(c < filled, c, -1).int()
+
+
+def check_fkernel(torch, flash_attention, ref) -> dict:
+    """flash_attention against its plain version over FLASH_CASES in f32 and
+    bf16 (G 1/2/8, hd 32/64/128, window on and off, causal and not, rows with
+    no valid key, Sk > Sq, the serve path's prefill); a rerun gives the same
+    bits.  Returns the largest absolute error by dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    err = {}
+    for B, Sq, Sk, H, KV, hd, causal, window in FLASH_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, Sq, H, hd, device="cuda", generator=gen
+                            ).to(dtype)
+            k = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen
+                            ).to(dtype)
+            v = torch.randn(B, Sk, KV, hd, device="cuda", generator=gen
+                            ).to(dtype)
+            kw = dict(causal=causal, window=window)
+            got = flash_attention.flash_attention(q, k, v, **kw)
+            what = (f"flash_attention B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} "
+                    f"hd={hd} {kw} {dtype}")
+            e = acompare(torch, what, got, ref.attention_ref(q, k, v, **kw),
+                         serve="flash_attention" if Sk >= FLASH_MAIN[1]
+                         else "")
+            name = str(dtype).split(".")[1]
+            err[name] = max(err.get(name, 0.0), e)
+            if not torch.equal(got, flash_attention.flash_attention(q, k, v,
+                                                                    **kw)):
+                fail(f"{what}: a rerun differs")
+    print(f"kernel check: flash_attention == plain on {2 * len(FLASH_CASES)} "
+          f"cases (G 1/2/8, hd 32/64/128, window 0/64/200, causal and not, "
+          f"rows with no valid key, Sk > Sq, (1, 1920, 16, 64); f32 and bf16 "
+          f"at rtol=atol {ATOL}, bf16 atol "
+          f"{SERVE_ATOL_BF16['flash_attention']} at Sk = 1920; "
+          f"reruns bit-equal) max_abs_err {err}",
+          flush=True)
+    return err
+
+
+def check_dkernel(torch, decode_attention, ref) -> dict:
+    """decode_attention against its plain version over DECODE_CASES in f32
+    and bf16 (G 1/2/4/8/16, hd 32/64/128, window on and off, a ring that has
+    wrapped, a kpos -1 tail, an empty cache, the serve path's first decode);
+    a rerun gives the same bits.  Returns the largest absolute error by
+    dtype."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    err = {}
+    for B, C, J, G, hd, window, filled, pos in DECODE_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q = torch.randn(B, 1, J, G, hd, device="cuda", generator=gen
+                            ).to(dtype)
+            k = torch.randn(B, C, J, hd, device="cuda", generator=gen
+                            ).to(dtype)
+            v = torch.randn(B, C, J, hd, device="cuda", generator=gen
+                            ).to(dtype)
+            kpos = ring_kpos(torch, C, filled, pos, window)
+            got = decode_attention.decode_attention(q, k, v, kpos, pos,
+                                                    window=window)
+            what = (f"decode_attention B={B} C={C} J={J} G={G} hd={hd} "
+                    f"window={window} filled={filled} pos={pos} {dtype}")
+            e = acompare(torch, what, got, ref.decode_attention_ref(
+                q, k, v, kpos, pos, window=window),
+                         serve="decode_attention" if C >= DECODE_MAIN[1]
+                         else "")
+            name = str(dtype).split(".")[1]
+            err[name] = max(err.get(name, 0.0), e)
+            if not torch.equal(got, decode_attention.decode_attention(
+                    q, k, v, kpos, pos, window=window)):
+                fail(f"{what}: a rerun differs")
+    print(f"kernel check: decode_attention == plain on "
+          f"{2 * len(DECODE_CASES)} cases (G 1/2/4/8/16, hd 32/64/128, window "
+          f"0/128/1000, ring wrapped, kpos -1 tail, empty cache, C = 2048; "
+          f"f32 and bf16 at rtol=atol {ATOL}, bf16 atol "
+          f"{SERVE_ATOL_BF16['decode_attention']} at C = 2048; reruns "
+          f"bit-equal) max_abs_err {err}", flush=True)
+    return err
+
+
+def cold_copies(tensors: tuple, n_calls: int) -> list:
+    """Copies of ``tensors`` that, used one after another, cover more than
+    twice the L2 cache, so that each of ``n_calls`` timed calls reads its
+    inputs from device memory."""
+    nbytes = sum(t.nbytes for t in tensors)
+    n = max(2, math.ceil(2 * L2_BYTES / nbytes))
+    sets = [tensors] + [tuple(t.clone() for t in tensors)
+                        for _ in range(n - 1)]
+    return [sets[i % n] for i in range(n_calls + 1)]   # + the warm-up call
+
+
+def device_ms_cold(torch, fn, tensors: tuple, reps: int) -> float:
+    """device_ms of ``fn(*inputs)``, each call on the next of cold_copies."""
+    inputs = iter(cold_copies(tensors, reps))
+    return device_ms(torch, lambda: fn(*next(inputs)), reps)
+
+
+def attention_bound(nbytes: int, flops: int) -> dict:
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def time_fkernel(torch, flash_attention, ref) -> dict:
+    """flash_attention at one qwen prefill layer's shape (1, 1920, 16, 64)
+    bf16, causal: held to its plain version, then timed (device time, inputs
+    cold in L2 as on the serve path) beside its bound, the plain version and
+    torch's scaled_dot_product_attention (causal, on (B, H, S, hd) copies
+    made outside the timed region; a yardstick only, never on the path).
+    The bound counts the S(S+1)/2
+    unmasked (query, key) pairs a head needs, 2 products of 2·hd flops each
+    at the bf16 tensor-core rate, and q, k, v read and o written once."""
+    import torch.nn.functional as F
+    B, S, H, hd = FLASH_MAIN
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    q, k, v = (torch.randn(B, S, H, hd, device="cuda", generator=gen
+                           ).bfloat16() for _ in range(3))
+    want = ref.attention_ref(q, k, v)
+    err = acompare(torch, "flash_attention main shape",
+                   flash_attention.flash_attention(q, k, v), want,
+                   serve="flash_attention")
+    qkv_t = tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+
+    def sdpa(qt, kt, vt):
+        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    err_lib = float((sdpa(*qkv_t).transpose(1, 2).float() - want.float())
+                    .abs().max())
+    rounds = {"ms": [], "plain_ms": [], "library_ms": [], "warm_ms": []}
+    for _ in range(2):   # alternate, so a drift in clocks hits all of them
+        rounds["ms"].append(device_ms_cold(
+            torch, flash_attention.flash_attention, (q, k, v), 20))
+        rounds["plain_ms"].append(device_ms_cold(
+            torch, ref.attention_ref, (q, k, v), 5))
+        rounds["library_ms"].append(device_ms_cold(torch, sdpa, qkv_t, 20))
+        rounds["warm_ms"].append(device_ms(
+            torch, lambda: flash_attention.flash_attention(q, k, v), 20))
+    del q, k, v, qkv_t, want
+    torch.cuda.empty_cache()
+    pairs = S * (S + 1) // 2
+    res = {k_: min(v_) for k_, v_ in rounds.items()}
+    res.update(attention_bound(4 * B * S * H * hd * 2, 4 * B * H * hd * pairs))
+    res.update(max_abs_err=err,
+               shape=f"q, k, v ({B},{S},{H},{hd}) bf16, causal")
+    print(f"flash_attention at {res['shape']}: == plain (rtol "
+          f"{ATOL['bfloat16']}, atol "
+          f"{SERVE_ATOL_BF16['flash_attention']}), max_abs_err {err:.3e}; "
+          f"scaled_dot_product_attention max |diff| {err_lib:.3e}",
+          flush=True)
+    print(f"flash_attention at {res['shape']}: kernel {res['ms']:.4f} ms "
+          f"(L2 warm {res['warm_ms']:.4f})  plain {res['plain_ms']:.4f} ms  "
+          f"scaled_dot_product_attention {res['library_ms']:.4f} ms  bound "
+          f"{res['bound_ms']:.4f} ms ({res['bound_by']})  rounds {rounds}",
+          flush=True)
+    return res
+
+
+def time_dkernel(torch, decode_attention, ref) -> dict:
+    """decode_attention at one qwen decode layer's shape: q (1, 1, 16, 1,
+    64), a full 2048-slot cache (1, 2048, 16, 64) bf16: held to its plain
+    version, then timed (device time, the cache cold in L2 as on the serve
+    path, where the layer's weights pass through L2 between two reads of
+    it) beside its bound, the plain version and torch's
+    scaled_dot_product_attention with a boolean mask from kpos (a yardstick
+    only, never on the path).  The bound counts every slot (all valid): k
+    and v read once, 4·G·hd flops per slot and head."""
+    import torch.nn.functional as F
+    B, C, J, G, hd = DECODE_MAIN
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    q = torch.randn(B, 1, J, G, hd, device="cuda", generator=gen).bfloat16()
+    k, v = (torch.randn(B, C, J, hd, device="cuda", generator=gen).bfloat16()
+            for _ in range(2))
+    pos = C - 1
+    kpos = torch.arange(C, device="cuda", dtype=torch.int32)
+    want = ref.decode_attention_ref(q, k, v, kpos, pos)
+    err = acompare(torch, "decode_attention main shape",
+                   decode_attention.decode_attention(q, k, v, kpos, pos), want,
+                   serve="decode_attention")
+    qt = q.reshape(B, J * G, 1, hd)
+    kv_t = tuple(t.transpose(1, 2).contiguous() for t in (k, v))
+    mask = ((kpos >= 0) & (kpos <= pos))[None, None, None, :]
+
+    def sdpa(kt, vt):
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=G > 1)
+    err_lib = float((sdpa(*kv_t).reshape(want.shape).float() - want.float())
+                    .abs().max())
+
+    def kernel(k_, v_):
+        return decode_attention.decode_attention(q, k_, v_, kpos, pos)
+
+    def plain(k_, v_):
+        return ref.decode_attention_ref(q, k_, v_, kpos, pos)
+    rounds = {"ms": [], "plain_ms": [], "library_ms": [], "warm_ms": []}
+    for _ in range(2):   # alternate, so a drift in clocks hits all of them
+        rounds["ms"].append(device_ms_cold(torch, kernel, (k, v), 100))
+        rounds["plain_ms"].append(device_ms_cold(torch, plain, (k, v), 50))
+        rounds["library_ms"].append(device_ms_cold(torch, sdpa, kv_t, 100))
+        rounds["warm_ms"].append(device_ms(torch, lambda: kernel(k, v), 100))
+    del q, k, v, kv_t, want
+    torch.cuda.empty_cache()
+    res = {k_: min(v_) for k_, v_ in rounds.items()}
+    res.update(attention_bound(2 * B * C * J * hd * 2 + 2 * B * J * G * hd * 2
+                               + C * 4, 4 * B * J * G * C * hd))
+    res.update(max_abs_err=err,
+               shape=f"q ({B},1,{J},{G},{hd}), k, v ({B},{C},{J},{hd}) bf16, "
+                     f"every slot valid")
+    print(f"decode_attention at {res['shape']}: == plain (rtol "
+          f"{ATOL['bfloat16']}, atol "
+          f"{SERVE_ATOL_BF16['decode_attention']}), max_abs_err {err:.3e}; "
+          f"scaled_dot_product_attention max |diff| {err_lib:.3e}",
+          flush=True)
+    print(f"decode_attention at {res['shape']}: kernel {res['ms']:.5f} ms "
+          f"(L2 warm {res['warm_ms']:.5f})  plain {res['plain_ms']:.5f} ms  "
+          f"scaled_dot_product_attention {res['library_ms']:.5f} ms  bound "
+          f"{res['bound_ms']:.5f} ms ({res['bound_by']})  rounds {rounds}",
+          flush=True)
+    return res
+
+
+def draw_fleet(torch, models, configs, tree, arch: str, n_params: int,
+               members: int):
+    """``arch`` with use_pallas on, and a fleet of ``members`` drawn from
+    seeds 0, 1, ... layer by layer straight into one bf16 tensor per leaf
+    with a leading fleet axis (mamba's A_log f32, as the init makes it)."""
+    cfg = dataclasses.replace(configs.get(arch), use_pallas=True)
     model = models.build(cfg)
     t0 = time.perf_counter()
-    fleet = model.empty(torch.bfloat16, "cuda", lead=(SERVE["fleet"],))
-    for i in range(SERVE["fleet"]):
+    fleet = model.empty(torch.bfloat16, "cuda", lead=(members,))
+    for i in range(members):
         model.init(torch.Generator(device="cuda").manual_seed(i),
                    torch.bfloat16, "cuda",
                    out=tree.map(lambda t: t[i], fleet))
     torch.cuda.synchronize()
     count = sum(t[0].numel() for _, t in tree.items(fleet))
-    if count != FALCON_PARAMS:
-        fail(f"falcon-mamba-7b has {count} parameters, not {FALCON_PARAMS}")
+    if count != n_params:
+        fail(f"{arch} has {count} parameters, not {n_params}")
     gb = sum(t.nbytes for _, t in tree.items(fleet)) / 1e9
-    print(f"falcon-mamba-7b fleet: {SERVE['fleet']} x {count} parameters, "
-          f"{gb:.3f} GB on the card, drawn in "
-          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print(f"{arch} fleet: {members} x {count} parameters, {gb:.3f} GB on the "
+          f"card, drawn in {time.perf_counter() - t0:.2f} s", flush=True)
     return model, fleet
 
 
@@ -902,6 +1226,84 @@ def serve_path(torch, exp, serve, ops, linear_recurrence, ref, model, fleet,
             "completed": done}
 
 
+def qwen_serve_path(torch, exp, serve, ops, flash_attention, decode_attention,
+                    ref, model, fleet, counters) -> dict:
+    """Slice 5's main path: serve_fleet over the qwen1.5-0.5b fleet with
+    every kernel's count from 0.  It must complete 8 requests of 128 tokens
+    with exactly 24 flash_attention launches per prefill (one per layer), 24
+    decode_attention launches per slot and token after the first, and no
+    other kernel.  The inputs of the first prefill's first layer (q, k, v)
+    and of the first decode step's first layer (q and a copy of the cache it
+    read) are kept, and each kernel is held to its plain version on them
+    afterwards."""
+    spec = exp.ServeSpec(**QSERVE)
+    captured = {}
+    real_attention, real_decode = ops.attention, ops.decode_attention
+
+    def capture_attention(q, k, v, **kw):
+        if "flash" not in captured:
+            captured["flash"] = (q, k, v, kw)
+        return real_attention(q, k, v, **kw)
+
+    def capture_decode(q, k, v, kpos, pos, **kw):
+        if "decode" not in captured:
+            captured["decode"] = (q, k.clone(), v.clone(), kpos.clone(), pos,
+                                  kw)
+        return real_decode(q, k, v, kpos, pos, **kw)
+
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    ops.attention, ops.decode_attention = capture_attention, capture_decode
+    try:
+        res = serve.serve_fleet(model, fleet, spec)
+    finally:
+        ops.attention, ops.decode_attention = real_attention, real_decode
+    launches = {k: c.launches for k, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    layers, n = model.cfg.num_layers, QSERVE["requests"]
+    want = {"flash_attention": layers * n,
+            "decode_attention": layers * n * (QSERVE["max_new"] - 1)}
+    if any(launches[k] != w for k, w in want.items()) or \
+            sum(launches.values()) != sum(want.values()):
+        fail(f"qwen serve path launched {launches}; {n} prefills and "
+             f"{n * (QSERVE['max_new'] - 1)} slot-token decodes of {layers} "
+             f"attention layers need {want} and nothing else")
+    done = res.completed
+    vocab = model.cfg.vocab_size
+    if [c["rid"] for c in done] != list(range(n)) or any(
+            len(c["tokens"]) != QSERVE["max_new"]
+            or not all(0 <= t < vocab for t in c["tokens"]) for c in done):
+        fail(f"qwen serve path did not complete {n} requests of "
+             f"{QSERVE['max_new']} tokens: {done}")
+    q, k, v, kw = captured["flash"]
+    err_f = acompare(torch, "flash_attention on the serve path's first layer "
+                     "inputs", flash_attention.flash_attention(q, k, v, **kw),
+                     ref.attention_ref(q, k, v, **kw),
+                     serve="flash_attention")
+    f_shape = tuple(q.shape)
+    q, k, v, kpos, pos, kw = captured["decode"]
+    err_d = acompare(torch, "decode_attention on the serve path's first "
+                     "decode inputs", decode_attention.decode_attention(
+                         q, k, v, kpos, pos, **kw),
+                     ref.decode_attention_ref(q, k, v, kpos, pos, **kw),
+                     serve="decode_attention")
+    d_shape = (tuple(q.shape), tuple(k.shape), pos,
+               int((kpos >= 0).sum()))
+    del captured, q, k, v, kpos
+    torch.cuda.empty_cache()
+    print(f"qwen serve path: qwen1.5-0.5b, {spec}", flush=True)
+    print(f"qwen serve path: throughput {res.throughput}  peak device memory "
+          f"{peak_gb:.3f} GB  launches {launches}  nodes "
+          f"{[c['node'] for c in done]}  tokens of rid 0 {done[0]['tokens']}",
+          flush=True)
+    print(f"kernel check: flash_attention == plain on the serve path's first "
+          f"layer inputs {f_shape} (max_abs_err {err_f:.3e}); "
+          f"decode_attention == plain on its first decode's (q, cache, pos, filled slots) "
+          f"{d_shape} (max_abs_err {err_d:.3e})", flush=True)
+    return {"launches": launches, "peak_gb": peak_gb, "completed": done}
+
+
 def serve_alone(torch, model, fleet, tree, req, max_new):
     """One request served alone, batch 1: prefill, then one token at a
     time, each the argmax of the last logits."""
@@ -919,17 +1321,18 @@ def serve_alone(torch, model, fleet, tree, req, max_new):
     return toks
 
 
-def check_sequential(torch, exp, serve, model, fleet, tree, completed):
+def check_sequential(torch, exp, serve, model, fleet, tree, completed,
+                     sv: dict):
     """Continuous batching == one request at a time, token for token, for
-    SEQUENTIAL_RIDS (a first-wave and a second-wave request).  The serve
-    dtype is bf16, so the fleet's bf16 leaves are what serve_fleet used;
-    A_log is cast as it does."""
-    reqs = serve.synth_requests(exp.ServeSpec(**SERVE), fleet=SERVE["fleet"],
+    SEQUENTIAL_RIDS (a first-wave and a second-wave request) of the serve
+    spec ``sv``.  The serve dtype is bf16, so the fleet's bf16 leaves are
+    what serve_fleet used; mamba's A_log is cast as it does."""
+    reqs = serve.synth_requests(exp.ServeSpec(**sv), fleet=sv["fleet"],
                                 vocab=model.cfg.vocab_size)
     cast = tree.map(lambda t: t.to(torch.bfloat16), fleet)
     for rid in SEQUENTIAL_RIDS:
         alone = serve_alone(torch, model, cast, tree, reqs[rid],
-                            SERVE["max_new"])
+                            sv["max_new"])
         if alone != completed[rid]["tokens"]:
             fail(f"rid {rid}: continuous batching gave "
                  f"{completed[rid]['tokens']}, alone {alone}")
@@ -937,13 +1340,13 @@ def check_sequential(torch, exp, serve, model, fleet, tree, completed):
           f"{SEQUENTIAL_RIDS}", flush=True)
 
 
-def profile_serve(torch, model, fleet, tree):
+def profile_serve(torch, model, fleet, tree, sv: dict, kernels: tuple):
     """Where one prefill's and one decode step's device time goes:
     torch.profiler over each (after the main path warmed everything),
-    device time summed by kernel."""
+    device time summed by kernel, and the share of ``kernels``."""
     params = tree.map(lambda t: t[0].to(torch.bfloat16), fleet)
-    S = SERVE["prompt_len"]
-    cache = model.init_cache(1, S + 1, torch.bfloat16, "cuda")
+    S = sv["prompt_len"]
+    cache = model.init_cache(1, S + sv["max_new"], torch.bfloat16, "cuda")
     prompt = torch.randint(0, model.cfg.vocab_size, (1, S), device="cuda")
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
@@ -956,17 +1359,19 @@ def profile_serve(torch, model, fleet, tree):
                 logits, _ = model.decode_step(params, prompt[:, :1], cache, S)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3
-        kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-                   for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA
-                   and e.self_device_time_total > 0]
-        busy = sum(ms for _, ms, _ in kernels)
-        lin = sum(ms for k, ms, _ in kernels if "linear_recurrence" in k)
-        top = sorted(kernels, key=lambda k: -k[1])[:10]
-        print(f"profile of one {what} (falcon-mamba-7b, bf16, prompt {S}): "
+        found = [(e.key, e.self_device_time_total / 1e3, e.count)
+                 for e in prof.key_averages()
+                 if e.device_type == torch.autograd.DeviceType.CUDA
+                 and e.self_device_time_total > 0]
+        busy = sum(ms for _, ms, _ in found)
+        ours = {name: sum(ms for k, ms, _ in found if name in k)
+                for name in kernels}
+        top = sorted(found, key=lambda k: -k[1])[:10]
+        print(f"profile of one {what} ({model.cfg.name}, bf16, prompt {S}): "
               f"wall {wall_ms:.3f} ms  device busy {busy:.3f} ms (idle share "
-              f"{1 - busy / wall_ms:.4f})  linear_recurrence {lin:.3f} ms  "
-              f"kernels {sum(c for _, _, c in kernels)}  top kernels (ms, "
+              f"{1 - busy / wall_ms:.4f})  "
+              + "  ".join(f"{n} {ms:.3f} ms" for n, ms in ours.items())
+              + f"  kernels {sum(c for _, _, c in found)}  top kernels (ms, "
               "calls): " + "; ".join(f"{k[:60]} {ms:.3f} x{c}"
                                      for k, ms, c in top), flush=True)
 
@@ -1006,9 +1411,10 @@ def main():
     from repro_torch import configs, exp, models, serve, sparse, tree
     from repro_torch.core import algorithms as alg, compress, driver, gossip
     from repro_torch.dist import steps
-    from repro_torch.kernels import (build, gossip_matmul, linear_recurrence,
-                                     ops, quantized_gossip, ref,
-                                     sparse_gossip)
+    from repro_torch.kernels import (build, decode_attention,
+                                     flash_attention, gossip_matmul,
+                                     linear_recurrence, ops, quantized_gossip,
+                                     ref, sparse_gossip)
     from repro_torch.launch import train
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1032,6 +1438,10 @@ def main():
     check_skernel(torch, sparse_gossip, ref, ops)
     check_lkernel(torch, linear_recurrence, ref)
     lkern = time_lkernel(torch, linear_recurrence, ref)
+    check_fkernel(torch, flash_attention, ref)
+    fkern = time_fkernel(torch, flash_attention, ref)
+    check_dkernel(torch, decode_attention, ref)
+    dkern = time_dkernel(torch, decode_attention, ref)
     check_small_run(torch, exp)
     check_small_compressed_run(torch, exp)
 
@@ -1055,7 +1465,9 @@ def main():
     counters = {"gossip_mix": gossip_matmul.gossip_mix,
                 "quantized_gossip_mix": quantized_gossip.quantized_gossip_mix,
                 "sparse_segment_mix": sparse_gossip.sparse_segment_mix,
-                "linear_recurrence": linear_recurrence.linear_recurrence}
+                "linear_recurrence": linear_recurrence.linear_recurrence,
+                "flash_attention": flash_attention.flash_attention,
+                "decode_attention": decode_attention.decode_attention}
     res_a, plan, rounds, sampled = sampled_paths(torch, train, exp, alg,
                                                  driver, sparse, counters)
     skern = time_skernel(torch, sparse_gossip, ref, driver, plan,
@@ -1064,13 +1476,26 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    model, fleet = falcon_fleet(torch, models, configs, tree)
+    model, fleet = draw_fleet(torch, models, configs, tree, "falcon-mamba-7b",
+                              FALCON_PARAMS, SERVE["fleet"])
     served = serve_path(torch, exp, serve, ops, linear_recurrence, ref, model,
                         fleet, counters)
     check_sequential(torch, exp, serve, model, fleet, tree,
-                     served["completed"])
-    profile_serve(torch, model, fleet, tree)
-    del fleet
+                     served["completed"], SERVE)
+    profile_serve(torch, model, fleet, tree, SERVE, ("linear_recurrence",))
+    del model, fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, fleet = draw_fleet(torch, models, configs, tree, "qwen1.5-0.5b",
+                              QWEN_PARAMS, QSERVE["fleet"])
+    qserved = qwen_serve_path(torch, exp, serve, ops, flash_attention,
+                              decode_attention, ref, model, fleet, counters)
+    check_sequential(torch, exp, serve, model, fleet, tree,
+                     qserved["completed"], QSERVE)
+    profile_serve(torch, model, fleet, tree, QSERVE,
+                  ("flash_attention", "decode_attention"))
+    del model, fleet
 
     rows = [
         {"name": "gossip_mix", "route": "cuda",
@@ -1110,6 +1535,31 @@ def main():
          "plain_ms": lkern["plain_ms"], "bound_ms": lkern["bound_ms"],
          "bound_by": lkern["bound_by"], "library_ms": lkern["library_ms"],
          "shape": lkern["shape"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:74",
+         "launches": qserved["launches"]["flash_attention"],
+         "launches_per_prefill":
+             qserved["launches"]["flash_attention"] / QSERVE["requests"],
+         "max_abs_err": fkern["max_abs_err"], "ms": fkern["ms"],
+         "plain_ms": fkern["plain_ms"], "bound_ms": fkern["bound_ms"],
+         "bound_by": fkern["bound_by"], "library_ms": fkern["library_ms"],
+         "shape": fkern["shape"], "timed": "device time under "
+         "torch.profiler, inputs cold in L2; library = "
+         "scaled_dot_product_attention"},
+        {"name": "decode_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+         "replaces": "src/repro/kernels/decode_attention.py:69",
+         "launches": qserved["launches"]["decode_attention"],
+         "launches_per_slot_token":
+             qserved["launches"]["decode_attention"]
+             / (QSERVE["requests"] * (QSERVE["max_new"] - 1)),
+         "max_abs_err": dkern["max_abs_err"], "ms": dkern["ms"],
+         "plain_ms": dkern["plain_ms"], "bound_ms": dkern["bound_ms"],
+         "bound_by": dkern["bound_by"], "library_ms": dkern["library_ms"],
+         "shape": dkern["shape"], "timed": "device time under "
+         "torch.profiler, the cache cold in L2; library = "
+         "scaled_dot_product_attention with a boolean mask from kpos"},
     ]
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

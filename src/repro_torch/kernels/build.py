@@ -3,8 +3,9 @@
 Each source under ``csrc/`` is compiled on first use into a shared library
 with a plain C interface, ``build/lib<stem>-<hash>.so`` beside this module
 (``build/`` is git-ignored), for ``sm_90a``.  The file name carries a hash of
-the source and flags, so an edited source is rebuilt and an unchanged one is
-loaded as it is.  :func:`build_all` starts one ``nvcc`` per source at once.
+the source, the ``csrc/`` headers it includes and the flags, so an edited
+source or header is rebuilt and an unchanged one is loaded as it is.
+:func:`build_all` starts one ``nvcc`` per source at once.
 
 Nothing here runs at import: the CPU tests import every module of the port,
 and this machine may have no ``nvcc``.
@@ -15,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -23,10 +25,11 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD_DIR = Path(__file__).parent / "build"
 SOURCES = ("gossip_mix", "quantized_gossip_mix", "sparse_segment_mix",
-           "linear_recurrence")
+           "linear_recurrence", "flash_attention", "decode_attention")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
+_LOCAL_INCLUDE = re.compile(rb'^\s*#include\s+"([^"]+)"', re.MULTILINE)
 _LIBS: dict = {}        # stem -> loaded ctypes.CDLL (one load per process)
 BUILD_SECONDS: dict = {}  # stem -> wall seconds of the nvcc run that built it
 
@@ -42,6 +45,8 @@ def _nvcc() -> str:
 
 def library_path(stem: str) -> Path:
     src = (CSRC / f"{stem}.cu").read_bytes()
+    for name in _LOCAL_INCLUDE.findall(src):
+        src += (CSRC / name.decode()).read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{stem}-{tag}.so"
 

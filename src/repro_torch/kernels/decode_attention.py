@@ -1,0 +1,134 @@
+"""Single-token decode attention over a ring-buffered KV cache: the Hopper
+kernel's wrapper.
+
+One query token, q (B, 1, J, G, hd) with G query rows per KV head, attends
+to the cache k, v (B, C, J, hd) whose slot c holds absolute position
+kpos[c] (-1 = empty).  Slot c is valid when kpos[c] >= 0, kpos[c] <= pos
+and, with a window, kpos[c] > pos - window.  The kernel
+(``csrc/decode_attention.cu``) gives a block one (batch, KV head) and
+streams the cache once; see the note at the top of the source.
+
+Dispatch is by where the tensors lie, never by a fallback: CUDA tensors
+launch the kernel (and anything the kernel does not take raises), CPU
+tensors take the plain version
+:func:`repro_torch.kernels.ref.decode_attention_ref`.  Both routes refuse
+the cache lengths the JAX package's kernel asserts on
+(``decode_attention.py:78``): C must be a multiple of its block, min(256,
+C).  ``decode_attention.launches`` counts kernel launches, and only those.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import build, ref
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (32, 64, 128)
+MAX_G = 16                      # query rows per KV head the kernel takes
+BLOCK = 256                     # the JAX kernel's default block_k
+_MAX_GRID = 65_535              # B rides the grid's y dimension
+
+
+def _lib() -> ctypes.CDLL:
+    lib = build.load("decode_attention")
+    # every pointer and the stream as c_void_p: a bare int would be cut to 32 bits
+    lib.decode_attention_launch.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    lib.decode_attention_launch.restype = ctypes.c_int
+    lib.decode_attention_error_string.argtypes = [ctypes.c_int]
+    lib.decode_attention_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _check_shapes(q, k, v, kpos) -> None:
+    """Raise for what neither route takes: ranks, shapes, and the tiling of
+    C the JAX kernel asserts."""
+    if q.dim() != 5 or q.shape[1] != 1 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"q {tuple(q.shape)} must be (B, 1, J, G, hd) and k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} (B, C, J, hd) "
+                         "of one shape")
+    B, _, J, G, hd = q.shape
+    C = k.shape[1]
+    if (k.shape[0], k.shape[2], k.shape[3]) != (B, J, hd):
+        raise ValueError(f"q {tuple(q.shape)} and k {tuple(k.shape)}: batch, "
+                         "KV heads and head_dim must agree")
+    if kpos.shape != (C,):
+        raise ValueError(f"kpos {tuple(kpos.shape)} must be ({C},)")
+    if C < 1 or C % min(BLOCK, C):
+        raise ValueError(f"C={C} does not tile: it must be at most {BLOCK} or "
+                         f"a multiple of {BLOCK}, as the JAX kernel asserts "
+                         "(decode_attention.py:78)")
+    if len({q.device, k.device, v.device, kpos.device}) != 1:
+        raise ValueError(f"q, k, v, kpos on {q.device}, {k.device}, "
+                         f"{v.device}, {kpos.device}")
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kpos: torch.Tensor, pos: int, *,
+                     window: int = 0) -> torch.Tensor:
+    """q: (B, 1, J, G, hd); k, v: (B, C, J, hd); kpos: (C,) int32; pos: the
+    query's absolute position (a host int) -> (B, 1, J·G, hd) in q's dtype.
+    The kernel takes f32 or bf16 (q, k, v of one dtype), hd 32, 64 or 128
+    and G <= 16; the plain version on the CPU takes any float dtype."""
+    _check_shapes(q, k, v, kpos)
+    if window < 0:
+        raise ValueError(f"window={window} must be >= 0 (0 = none)")
+    if q.device.type == "cpu":
+        return ref.decode_attention_ref(q, k, v, kpos, pos, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"decode_attention takes CPU or CUDA tensors, not "
+                         f"{q.device.type}")
+    return _launch(q, k, v, kpos, int(pos), window)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` contiguous and 16-byte aligned (the kernel reads 16-byte
+    vectors): a copy only where it is not both already."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
+def _launch(q, k, v, kpos, pos, window):
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"decode_attention kernel takes q, k, v all f32 or "
+                        f"all bf16, not {q.dtype}, {k.dtype}, {v.dtype}")
+    if kpos.dtype != torch.int32:
+        raise TypeError(f"decode_attention kernel takes int32 kpos, not "
+                        f"{kpos.dtype}")
+    B, _, J, G, hd = q.shape
+    C = k.shape[1]
+    if hd not in HEAD_DIMS:
+        raise ValueError(f"decode_attention kernel takes head_dim in "
+                         f"{HEAD_DIMS}, got {hd}")
+    if G > MAX_G:
+        raise ValueError(f"decode_attention kernel takes G <= {MAX_G} query "
+                         f"rows per KV head, got {G}")
+    if B > _MAX_GRID:
+        raise ValueError(f"decode_attention kernel takes B <= {_MAX_GRID}, "
+                         f"got {B}")
+    q, k, v = (_aligned(t) for t in (q, k, v))
+    kpos = kpos.contiguous()
+    o = torch.empty((B, 1, J * G, hd), dtype=q.dtype, device=q.device)
+    lib = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.decode_attention_launch(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
+            o.data_ptr(), B, C, J, G, hd, pos, int(window),
+            1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
+    if err != 0:
+        msg = lib.decode_attention_error_string(err).decode()
+        raise RuntimeError(f"decode_attention launch failed: {msg} "
+                           f"(cudaError {err})")
+    decode_attention.launches += 1
+    return o
+
+
+decode_attention.launches = 0

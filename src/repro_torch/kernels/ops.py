@@ -9,10 +9,11 @@ compressed multi-consensus on an (n, D) state matrix, the kernel or its
 plain version by the tensors' device.  ``sparse_gossip_mix`` is one
 edge-list gossip round; its ``use_pallas`` keeps the JAX API's name and
 selects the ``sparse_segment_mix`` wrapper for the segment sum.
-``linear_recurrence`` is the kernel wrapper itself, the route the model takes
-when ``cfg.use_pallas`` is on.  Of the JAX package's six kernels
-``gossip_mix``, ``quantized_gossip_mix``, ``sparse_segment_mix`` and
-``linear_recurrence`` are ported; ROADMAP.md Queue 2 lists the rest.
+``linear_recurrence``, ``attention`` (the ``flash_attention`` wrapper) and
+``decode_attention`` are the kernel wrappers themselves, the routes the model
+takes when ``cfg.use_pallas`` is on; with it off the model takes its own
+plain attention (``models/attention.py``).  All six of the JAX package's
+kernels are ported.
 """
 
 from __future__ import annotations
@@ -22,6 +23,8 @@ from typing import Optional
 import torch
 
 from . import ref
+from .decode_attention import decode_attention  # noqa: F401
+from .flash_attention import flash_attention as attention  # noqa: F401
 from .gossip_matmul import gossip_mix as _gossip
 from .linear_recurrence import linear_recurrence  # noqa: F401
 from .quantized_gossip import quantized_gossip_mix  # noqa: F401

@@ -5,7 +5,11 @@ the input dtype) and are no yardstick of speed."""
 
 from __future__ import annotations
 
+import math
+
 import torch
+
+NEG_INF = -1e30
 
 
 def gossip_mix_ref(ws: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
@@ -104,3 +108,56 @@ def linear_recurrence_ref(a: torch.Tensor, b: torch.Tensor):
         h = a[:, t].to(torch.float32) * h + b[:, t].to(torch.float32)
         h_all[:, t] = h
     return h_all, h
+
+
+def masked_softmax_pv(s: torch.Tensor, mask: torch.Tensor,
+                      v: torch.Tensor) -> torch.Tensor:
+    """softmax over keys of the f32 scores ``s`` (B, J, G, Sq, Sk) with
+    masked entries at the finite ``NEG_INF`` (a row with no valid key
+    averages v), p cast to ``v.dtype`` before the product with v (B, Sk, J,
+    hd) -> (B, Sq, J, G, hd).  The one plain masked softmax of the port:
+    the model's attention (``models/attention.py``) uses it too."""
+    s = torch.where(mask, s, torch.full((), NEG_INF, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bjgqk,bkjh->bqjgh", p.to(v.dtype), v)
+
+
+def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                  causal: bool = True, window: int = 0) -> torch.Tensor:
+    """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd), query
+    head h reading KV head h // (H / KV) (the JAX package's
+    ``attention_ref``).  Scores q·k in the inputs' dtype, then f32, divided
+    by √hd; key k is masked for row q when causal and k > q, or with a
+    window when k <= q − window."""
+    B, Sq, H, hd = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    qg = q.reshape(B, Sq, KV, H // KV, hd)
+    s = torch.einsum("bqjgh,bkjh->bjgqk", qg, k).to(torch.float32)
+    s = s / math.sqrt(hd)
+    q_pos = torch.arange(Sq, device=q.device)[:, None]
+    k_pos = torch.arange(Sk, device=q.device)[None, :]
+    mask = torch.ones((Sq, Sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_pos <= q_pos
+    if window:
+        mask &= k_pos > q_pos - window
+    o = masked_softmax_pv(s, mask, v)
+    return o.reshape(B, Sq, H, hd)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kpos: torch.Tensor, pos: int, *,
+                         window: int = 0) -> torch.Tensor:
+    """q: (B, 1, J, G, hd); k, v: (B, C, J, hd); kpos: (C,) absolute
+    positions (-1 = empty slot); pos: the query's position -> (B, 1, J·G,
+    hd) (the JAX package's ``decode_attention_ref``).  Slot c is valid when
+    kpos[c] >= 0, kpos[c] <= pos and, with a window, kpos[c] > pos −
+    window."""
+    B, _, J, G, hd = q.shape
+    s = torch.einsum("bqjgh,bkjh->bjgqk", q, k).to(torch.float32)
+    s = s / math.sqrt(hd)
+    mask = (kpos >= 0) & (kpos <= pos)
+    if window:
+        mask &= kpos > pos - window
+    o = masked_softmax_pv(s, mask, v)
+    return o.reshape(B, 1, J * G, hd)

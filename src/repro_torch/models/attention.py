@@ -1,10 +1,16 @@
-"""GQA attention for train mode: projections and chunked full-causal
-attention in plain torch ops (no fused attention operator), the port of the
-JAX package's ``models/attention.py`` train path.
+"""GQA attention: projections, chunked full-causal attention in plain torch
+ops (no fused attention operator), the ring-buffer KV cache and single-token
+decode against it, the port of the JAX package's ``models/attention.py``
+(its causal paths; the sliding-window and bidirectional ones are not
+ported).
 
 Shapes: x (B, S, D); q (B, S, KV, G, hd) with G = H // KV; k, v (B, S, KV, hd).
 Masked scores take the finite value ``NEG_INF`` = -1e30 and the softmax runs
-in f32, as in the reference.
+in f32, as in the reference; ``kernels/ref.py`` ``masked_softmax_pv`` is the
+one copy of that step.  The cache stores each slot's absolute position
+beside its keys (``kpos``, -1 = empty), so one mask serves append caches and
+ring buffers.  Unlike the reference, ``cache_insert`` and
+``cache_prefill`` write into the cache they are given and return it.
 """
 
 from __future__ import annotations
@@ -13,9 +19,8 @@ import math
 
 import torch
 
+from ..kernels import ops, ref
 from . import layers
-
-NEG_INF = -1e30
 
 
 def init_attention(gen, cfg, dtype, device) -> dict:
@@ -65,9 +70,7 @@ def out_proj(p, o, cfg):
 def _sdpa(q, k, v, mask, scale):
     """q (B,Sq,J,G,hd); k,v (B,Sk,J,hd); mask broadcastable to (B,J,G,Sq,Sk)."""
     s = torch.einsum("bqjgh,bkjh->bjgqk", q, k).to(torch.float32) * scale
-    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
-    p = torch.softmax(s, dim=-1)
-    return torch.einsum("bjgqk,bkjh->bqjgh", p.to(v.dtype), v)
+    return ref.masked_softmax_pv(s, mask, v)
 
 
 def _pos_mask(q_pos, k_pos, causal):
@@ -88,3 +91,74 @@ def attend_full(q, k, v, q_pos, k_pos, *, causal=True, q_chunk=1024):
                   _pos_mask(q_pos[c:c + q_chunk], k_pos, causal), scale)
             for c in range(0, Sq, q_chunk)]
     return torch.cat(outs, dim=1).reshape(B, Sq, J * G, hd)
+
+
+class _FlashForwardOnly(torch.autograd.Function):
+    """``flash_attention`` with no backward: the JAX package's kernel has no
+    VJP either, so the reference cannot train through it."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, window):
+        return ops.attention(q, k, v, causal=True, window=window)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError(
+            "flash_attention has no backward kernel (the JAX package's has no "
+            "VJP): train with use_pallas off")
+
+
+def flash_attend(qf, k, v, *, window: int = 0):
+    """The ``use_pallas`` route: qf (B, S, H, hd) post-rope, k, v (B, S, KV,
+    hd) -> (B, S, H, hd) through the ``flash_attention`` wrapper, causal.
+    Differentiating through it raises."""
+    return _FlashForwardOnly.apply(qf, k, v, window)
+
+
+# ---------------------------------------------------------------------------
+# KV cache
+# ---------------------------------------------------------------------------
+
+def init_cache(cfg, batch: int, max_len: int, dtype, device="cpu") -> dict:
+    """Cache for one attention layer: a ring buffer of C = min(window,
+    max_len) slots with a window, else max_len."""
+    C = min(cfg.window, max_len) if cfg.window else max_len
+    KV, hd = cfg.num_kv_heads, cfg.head_dim
+    return {
+        "k": torch.zeros((batch, C, KV, hd), dtype=dtype, device=device),
+        "v": torch.zeros((batch, C, KV, hd), dtype=dtype, device=device),
+        "kpos": torch.full((C,), -1, dtype=torch.int32, device=device),
+    }
+
+
+def cache_insert(cache: dict, k1, v1, pos: int) -> dict:
+    """Write a single token's k1, v1 (B, 1, KV, hd) at absolute position
+    ``pos`` (slot pos % C), in place."""
+    slot = pos % cache["k"].shape[1]
+    cache["k"][:, slot] = k1[:, 0]
+    cache["v"][:, slot] = v1[:, 0]
+    cache["kpos"][slot] = pos
+    return cache
+
+
+def cache_prefill(cache: dict, k, v, positions) -> dict:
+    """Write a prefill's k, v (B, S, KV, hd) at ``positions`` (S,) in place,
+    keeping the last C tokens when S >= C (each at slot pos % C)."""
+    C = cache["k"].shape[1]
+    if k.shape[1] >= C:
+        k, v, positions = k[:, -C:], v[:, -C:], positions[-C:]
+    slots = positions % C
+    cache["k"][:, slots] = k.to(cache["k"].dtype)
+    cache["v"][:, slots] = v.to(cache["v"].dtype)
+    cache["kpos"][slots] = positions.to(torch.int32)
+    return cache
+
+
+def decode_attend(q1, cache: dict, pos: int, *, window: int = 0):
+    """q1 (B, 1, J, G, hd) against the cache at position ``pos``; returns
+    (B, 1, H, hd)-flat.  The plain route (``use_pallas`` off): the kernel's
+    plain version, which divides the scores by √hd where the reference's
+    ``decode_attend`` multiplies by 1/√hd (the same bits for hd 64, at most
+    an ulp of a score apart otherwise)."""
+    return ref.decode_attention_ref(q1, cache["k"], cache["v"], cache["kpos"],
+                                    pos, window=window)

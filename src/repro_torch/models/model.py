@@ -2,11 +2,13 @@
 server and the tests share, and ``params_from_jax`` carries a JAX parameter
 tree (or serve cache) across.
 
-The port runs the dense decoder (qwen1.5-0.5b's family) in train mode and
-the mamba stack (falcon-mamba-7b's family) in every mode, the latter with
-``use_pallas`` routing its recurrence to the Hopper ``linear_recurrence``;
-every other configuration raises ``NotImplementedError`` naming the
-ROADMAP.md item that ports it.
+The port runs the dense decoder (qwen1.5-0.5b's family) and the mamba stack
+(falcon-mamba-7b's family) in every mode.  ``use_pallas`` routes the dense
+decoder's attention to the Hopper ``flash_attention`` (prefill, and a
+train-mode forward that cannot be differentiated, as in the reference) and
+``decode_attention`` (decode), and mamba's recurrence to
+``linear_recurrence``; every other configuration raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -31,9 +33,9 @@ class Model(NamedTuple):
     init_cache: Callable      # (batch, max_len, dtype, device) -> cache
 
 
-# The families the port runs: (arch_type, pattern) -> may use_pallas be on.
-# The dense decoder's use_pallas reaches flash_attention (Queue 2 item 3).
-PORTED = {("dense", ("attn",)): False, ("ssm", ("mamba",)): True}
+# The families the port runs, (arch_type, pattern), each with use_pallas on
+# or off.
+PORTED = {("dense", ("attn",)), ("ssm", ("mamba",))}
 
 
 def _check_supported(cfg) -> None:
@@ -56,10 +58,6 @@ def _check_supported(cfg) -> None:
             raise NotImplementedError(
                 f"{cfg.name}: {field}={have!r} is not ported yet (the port "
                 f"runs {field}={ported!r}; ROADMAP.md Queue 1 item 9)")
-    if cfg.use_pallas and not PORTED[family]:
-        raise NotImplementedError(
-            f"{cfg.name}: use_pallas=True routes attention to flash_attention"
-            ", which is not ported yet (ROADMAP.md Queue 2 item 3)")
 
 
 def build(cfg) -> Model:
@@ -88,6 +86,13 @@ def build(cfg) -> Model:
 def params_from_jax(params) -> dict:
     """The JAX package's parameter tree or serve cache (nested dicts of
     arrays, e.g. after ``jax.device_get``) as the port's: the same tree,
-    leaf layouts and dtypes (mamba's A_log stays f32), as CPU tensors.  A
-    copy, no transpose."""
-    return tree.map(lambda a: torch.from_numpy(np.array(a)), params)
+    leaf layouts and dtypes (mamba's A_log stays f32; bf16 stays bf16, bit
+    for bit), as CPU tensors.  A copy, no transpose."""
+    return tree.map(_tensor, params)
+
+
+def _tensor(a) -> torch.Tensor:
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":   # ml_dtypes' type, which torch refuses
+        return torch.from_numpy(a.view(np.uint16)).view(torch.bfloat16)
+    return torch.from_numpy(a)

@@ -12,10 +12,13 @@ pattern; the trainer passes that form, whose leaves are separate tensors, so
 each layer's gradient lands in its own slice of the flat gradient buffer
 (see :func:`repro_torch.dist.collectives.FlatLayout.grad_leaves`).
 
-The port serves the mamba kind only: an ``"attn"`` layer in prefill or
-decode mode raises (ROADMAP.md Queue 1 item 11).  Unlike the reference,
-prefill and decode write the new cache into the ``cache`` they are given and
-return it.
+Both kinds serve: an ``"attn"`` layer's cache is the ring-buffer KV cache
+of :mod:`repro_torch.models.attention`, a mamba layer's its conv and SSM
+state.  With ``cfg.use_pallas`` an attention layer's prefill (and train-mode
+forward, which then cannot be differentiated, as in the reference) runs the
+``flash_attention`` wrapper and its decode the ``decode_attention`` wrapper.
+Unlike the reference, prefill and decode write the new cache into the
+``cache`` they are given and return it.
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from .. import tree
+from ..kernels import ops
 from . import attention as attn
 from . import layers, ssm
 
@@ -107,7 +111,9 @@ def unit_params(units, cfg) -> list:
             for u in range(cfg.units_and_rem[0])]
 
 
-def _apply_attn_layer(p, x, cfg, rope, positions):
+def _apply_attn_layer(p, x, cfg, rope, positions, mode, cache, pos):
+    """mode 'train' (no cache), 'prefill' (the prompt's k, v into
+    ``cache``) or 'decode' (one token at ``pos``, inserted first)."""
     h = layers.apply_norm(p["ln1"], x)
     q = attn.project_q(p["attn"], h, cfg)
     k, v = attn.project_kv(p["attn"], h)
@@ -117,22 +123,31 @@ def _apply_attn_layer(p, x, cfg, rope, positions):
                            cos, sin)
     q = qf.reshape(q.shape)
     k = layers.apply_rope(k, cos, sin)
-    o = attn.attend_full(q, k, v, positions, positions, causal=True,
-                         q_chunk=cfg.q_chunk)
+    if mode == "decode":
+        attn.cache_insert(cache, k, v, pos)
+        if cfg.use_pallas:
+            o = ops.decode_attention(q, cache["k"], cache["v"], cache["kpos"],
+                                     pos, window=cfg.window)
+        else:
+            o = attn.decode_attend(q, cache, pos, window=cfg.window)
+    else:
+        if cfg.use_pallas:
+            o = attn.flash_attend(qf, k, v, window=cfg.window)
+        else:
+            o = attn.attend_full(q, k, v, positions, positions, causal=True,
+                                 q_chunk=cfg.q_chunk)
+        if mode == "prefill":
+            attn.cache_prefill(cache, k, v, positions)
     x = x + attn.out_proj(p["attn"], o, cfg)
     h = layers.apply_norm(p["ln2"], x)
     return x + layers.apply_mlp(p["mlp"], h)
 
 
-def _apply_layer(p, x, cfg, kind, rope, positions, mode, cache):
+def _apply_layer(p, x, cfg, kind, rope, positions, mode, cache, pos):
     """One layer; in prefill and decode mode the layer's new cache is
     written into ``cache`` (views of the stacked cache)."""
     if kind == "attn":
-        if mode != "train":
-            raise NotImplementedError(
-                f"{mode} of an 'attn' layer (its KV cache and the attention "
-                "kernels) is not ported yet (ROADMAP.md Queue 1 item 11)")
-        return _apply_attn_layer(p, x, cfg, rope, positions)
+        return _apply_attn_layer(p, x, cfg, rope, positions, mode, cache, pos)
     if kind == "mamba":
         h = layers.apply_norm(p["ln1"], x)
         y, new = ssm.mamba_forward(
@@ -148,23 +163,25 @@ def _apply_layer(p, x, cfg, kind, rope, positions, mode, cache):
 # Cache structure
 # ---------------------------------------------------------------------------
 
-def _init_layer_cache(cfg, kind, batch, dtype, device):
+def _init_layer_cache(cfg, kind, batch, max_len, dtype, device):
+    if kind == "attn":
+        return attn.init_cache(cfg, batch, max_len, dtype, device)
     if kind == "mamba":
         return ssm.init_mamba_cache(cfg, batch, dtype, device)
-    raise NotImplementedError(
-        f"a serve cache for {kind!r} layers is not ported yet (ROADMAP.md "
-        "Queue 1 item 11)")
+    raise ValueError(kind)
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cpu") -> dict:
-    """Zero serve cache, the reference's tree: ``{"units": {name: leaves
-    stacked on the layer axis}, "rem": {}}``.  A mamba layer's cache does
+    """Empty serve cache, the reference's tree: ``{"units": {name: leaves
+    stacked on the layer axis}, "rem": {}}``.  An attention layer's KV cache
+    holds ``max_len`` slots (kpos -1 = empty); a mamba layer's cache does
     not grow with ``max_len``."""
     units = cfg.units_and_rem[0]
     stacked = {
         name: tree.map(lambda t: t[None].repeat((units,) + (1,) * t.dim()),
-                       _init_layer_cache(cfg, kind, batch, dtype, device))
+                       _init_layer_cache(cfg, kind, batch, max_len, dtype,
+                                         device))
         for name, kind in zip(unit_names(cfg), cfg.pattern)}
     return {"units": stacked, "rem": {}}
 
@@ -174,21 +191,25 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 # ---------------------------------------------------------------------------
 
 def forward(params, cfg, tokens: torch.Tensor, *, mode: str = "train",
-            cache: dict | None = None,
+            cache: dict | None = None, pos: int | None = None,
             last_only: bool = False) -> torch.Tensor:
     """tokens: (B, S) int -> logits (B, S, V) (B, 1, V with
     ``last_only``).  ``mode`` is 'train', 'prefill' or 'decode'; the latter
-    two update ``cache`` in place."""
+    two update ``cache`` in place.  In decode mode the one token sits at
+    absolute position ``pos`` (its rope angle and its cache slot)."""
     x = layers.embed_tokens(params["embed"], tokens)
     positions = rope = None
-    if cfg.num_heads:         # attention layers, which run in train mode only
-        positions = torch.arange(x.shape[1], device=x.device)
+    if cfg.num_heads:
+        positions = (torch.full((1,), pos, device=x.device)
+                     if mode == "decode"
+                     else torch.arange(x.shape[1], device=x.device))
         rope = layers.rope_angles(positions, cfg.head_dim, cfg.rope_theta)
     for u, up in enumerate(unit_params(params["units"], cfg)):
         for name, kind in zip(unit_names(cfg), cfg.pattern):
             c = (tree.map(lambda t: t[u], cache["units"][name])
                  if cache is not None else None)
-            x = _apply_layer(up[name], x, cfg, kind, rope, positions, mode, c)
+            x = _apply_layer(up[name], x, cfg, kind, rope, positions, mode, c,
+                             pos)
     if last_only:
         x = x[:, -1:]
     x = layers.apply_norm(params["final_norm"], x)
@@ -215,9 +236,9 @@ def prefill(params, cfg, tokens, cache, *, last_only: bool = False):
 
 
 def decode_step(params, cfg, token, cache, pos):
-    """token: (B, 1) int; pos: its absolute position, which an attention
-    cache will need (a mamba layer's state does not).  (logits (B, 1, V),
-    cache updated in place)."""
-    del pos
-    logits = forward(params, cfg, token, mode="decode", cache=cache)
+    """token: (B, 1) int; pos: its absolute position (a host int: an
+    attention layer's rope angle and cache slot; a mamba layer's state does
+    not use it).  (logits (B, 1, V), cache updated in place)."""
+    logits = forward(params, cfg, token, mode="decode", cache=cache,
+                     pos=int(pos))
     return logits, cache

@@ -27,7 +27,9 @@ update a slot's rows in place.
 The reference's ``shard_fleet`` and ``mesh=`` place the fleet on a device
 mesh; on one card they are no-ops and are not ported.  The model's kernel
 policy (``cfg.use_pallas``: mamba prefill through the Hopper
-``linear_recurrence``) is the engine's only kernel decision.
+``linear_recurrence``, attention prefill and decode through
+``flash_attention`` and ``decode_attention``) is the engine's only kernel
+decision.
 """
 
 from __future__ import annotations

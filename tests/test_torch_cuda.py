@@ -13,7 +13,11 @@ refusals.  For ``linear_recurrence`` (held bit-equal to its plain version
 by ``chip_smoke.py`` at small and ragged shapes, the main shape and the
 serve path's own inputs): a large B·C whose S is not a multiple of the
 kernel's 8-step load batch, in f32 and bf16, inputs that are not 16-byte
-aligned, and its refusals.
+aligned, and its refusals.  For ``flash_attention`` and ``decode_attention``
+(held to their plain versions by ``chip_smoke.py`` at small, ragged-head and
+masked cases and at the qwen1.5-0.5b serve path's shapes): yi-6b's heads (32
+query heads over 4 KV heads of 128, G = 8) with the window off and on,
+inputs that are not contiguous, and their refusals.
 
 These need an NVIDIA GPU and skip elsewhere; the file imports neither jax
 nor the JAX package, so it runs on a machine that has only torch:
@@ -29,6 +33,8 @@ torch = pytest.importorskip("torch")
 from repro_torch.core import gossip  # noqa: E402
 from repro_torch.kernels import gossip_matmul, quantized_gossip, ref  # noqa: E402
 from repro_torch.kernels import linear_recurrence, sparse_gossip  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 
 
 @pytest.mark.cuda
@@ -223,3 +229,129 @@ def test_linear_recurrence_kernel_refuses_what_it_cannot_take():
         linear_recurrence.linear_recurrence(a[:, :, ::2], a[:, :, ::2])
     with pytest.raises(ValueError, match="on"):
         linear_recurrence.linear_recurrence(a, a.cpu())
+
+
+# flash_attention and decode_attention: f32 sums in another order; bf16 as
+# the JAX kernel tests allow (the kernel rounds p before normalising it, the
+# plain version after).
+ATTN_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+YI = dict(H=32, KV=4, hd=128)           # configs/yi_6b.py's heads
+
+
+def _cuda_normal(rng, shape, dtype):
+    return torch.from_numpy(rng.standard_normal(shape).astype(
+        np.float32)).cuda().to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 200])
+def test_flash_attention_kernel_at_yi_heads(dtype, window):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    rng = np.random.default_rng(11)
+    B, S = 2, 640
+    q = _cuda_normal(rng, (B, S, YI["H"], YI["hd"]), dtype)
+    k = _cuda_normal(rng, (B, S, YI["KV"], YI["hd"]), dtype)
+    v = _cuda_normal(rng, (B, S, YI["KV"], YI["hd"]), dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=window)
+    # a strided q (every other head of a wider tensor) is made contiguous
+    wide = torch.stack([q, q], dim=3).view(B, S, 2 * YI["H"], YI["hd"])
+    strided = flash_attention(wide[:, :, ::2], k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    want = ref.attention_ref(q, k, v, window=window)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    assert torch.equal(strided, got)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("window", [0, 300])
+def test_decode_attention_kernel_at_yi_heads(dtype, window):
+    """A ring that has wrapped (slot c holds position pos - C + 1 .. pos)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    rng = np.random.default_rng(12)
+    B, C, pos = 3, 1024, 1500
+    J, G, hd = YI["KV"], YI["H"] // YI["KV"], YI["hd"]
+    q = _cuda_normal(rng, (B, 1, J, G, hd), dtype)
+    k = _cuda_normal(rng, (B, C, J, hd), dtype)
+    v = _cuda_normal(rng, (B, C, J, hd), dtype)
+    base = pos - C + 1
+    kpos = torch.from_numpy(((np.arange(C) - base % C) % C + base).astype(
+        np.int32)).cuda()
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, kpos, pos, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    want = ref.decode_attention_ref(q, k, v, kpos, pos, window=window)
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_take_unaligned_inputs(dtype):
+    """The kernels read 16-byte vectors; a tensor that starts off that
+    alignment (one element into a buffer) is copied by the wrapper, and the
+    result is the same bits as from an aligned copy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    rng = np.random.default_rng(13)
+
+    def shifted(shape):
+        flat = _cuda_normal(rng, (int(np.prod(shape)) + 1,), dtype)
+        return flat[1:].view(shape)
+    q, k, v = shifted((1, 256, 4, 64)), shifted((1, 256, 2, 64)), \
+        shifted((1, 256, 2, 64))
+    assert q.data_ptr() % 16 != 0
+    torch.testing.assert_close(flash_attention(q, k, v),
+                               flash_attention(q.clone(), k.clone(),
+                                               v.clone()), rtol=0, atol=0)
+    kpos = torch.arange(256, device="cuda", dtype=torch.int32)
+    q1 = shifted((1, 1, 2, 2, 64))
+    torch.testing.assert_close(
+        decode_attention(q1, k, v, kpos, 255),
+        decode_attention(q1.clone(), k.clone(), v.clone(), kpos, 255),
+        rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_attention_kernels_refuse_what_they_cannot_take():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    def z(*shape, **kw):
+        return torch.zeros(shape, device="cuda", **kw)
+    with pytest.raises(TypeError, match="f32 or all bf16"):
+        flash_attention(z(1, 128, 2, 64, dtype=torch.float16),
+                        z(1, 128, 2, 64, dtype=torch.float16),
+                        z(1, 128, 2, 64, dtype=torch.float16))
+    with pytest.raises(TypeError, match="f32 or all bf16"):
+        flash_attention(z(1, 128, 2, 64), z(1, 128, 2, 64),
+                        z(1, 128, 2, 64, dtype=torch.bfloat16))
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(z(1, 128, 2, 96), z(1, 128, 2, 96), z(1, 128, 2, 96))
+    with pytest.raises(ValueError, match="does not tile"):
+        flash_attention(z(1, 200, 2, 64), z(1, 200, 2, 64), z(1, 200, 2, 64))
+    kpos = torch.arange(256, device="cuda", dtype=torch.int32)
+    with pytest.raises(TypeError, match="f32 or all bf16"):
+        decode_attention(z(1, 1, 2, 1, 64, dtype=torch.float16),
+                         z(1, 256, 2, 64, dtype=torch.float16),
+                         z(1, 256, 2, 64, dtype=torch.float16), kpos, 0)
+    with pytest.raises(TypeError, match="int32 kpos"):
+        decode_attention(z(1, 1, 2, 1, 64), z(1, 256, 2, 64),
+                         z(1, 256, 2, 64), kpos.long(), 0)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention(z(1, 1, 2, 1, 48), z(1, 256, 2, 48),
+                         z(1, 256, 2, 48), kpos, 0)
+    with pytest.raises(ValueError, match="G <= 16"):
+        decode_attention(z(1, 1, 1, 17, 64), z(1, 256, 1, 64),
+                         z(1, 256, 1, 64), kpos, 0)
+    with pytest.raises(ValueError, match="does not tile"):
+        decode_attention(z(1, 1, 2, 1, 64), z(1, 272, 2, 64),
+                         z(1, 272, 2, 64),
+                         torch.arange(272, device="cuda", dtype=torch.int32),
+                         0)

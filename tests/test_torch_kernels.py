@@ -112,7 +112,9 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "sparse/sampled.py", "sparse/realize.py", "sparse/smoke.py",
                    "sparse/telemetry.py", "kernels/sparse_gossip.py",
                    "kernels/linear_recurrence.py", "models/ssm.py",
-                   "serve/engine.py", "serve/traffic.py"):
+                   "serve/engine.py", "serve/traffic.py",
+                   "kernels/flash_attention.py",
+                   "kernels/decode_attention.py", "models/attention.py"):
         assert port / module in files, module
     for path in files:
         for name in _imports(path):

@@ -205,15 +205,17 @@ def test_init_fills_a_fleets_views_in_place():
 
 
 def test_attention_layers_do_not_serve_yet():
+    """The dense decoder serves (tests/test_torch_attention.py); attention
+    with a sliding window or a logit softcap (recurrentgemma's) does not
+    yet, with use_pallas on or off."""
     cfg = configs.get("qwen1.5-0.5b").reduced(layers=1, d_model=32, d_ff=64,
                                               vocab=64)
-    model = build(cfg)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        model.init_cache(1, 8, torch.float32)
-    params = model.init(torch.Generator().manual_seed(0))
-    with pytest.raises(NotImplementedError, match="Queue 1 item 11"):
-        model.decode_step(params, torch.zeros(1, 1, dtype=torch.long),
-                          {"units": {"0_attn": {}}, "rem": {}}, 0)
+    build(cfg).init_cache(1, 8, torch.float32)
+    for field, value in (("window", 4), ("logit_softcap", 30.0)):
+        for use_pallas in (False, True):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+                build(dataclasses.replace(cfg, use_pallas=use_pallas,
+                                          **{field: value}))
 
 
 def test_mamba_training_is_not_ported():
