@@ -916,6 +916,7 @@ DECODE_CASES = [
     (1, 256, 2, 16, 128, 0, 256, 255),       # G = 16, the most it takes
     (3, 2048, 16, 1, 64, 1000, 2048, 2047),  # window, B = 3
     (1, 2048, 16, 1, 64, 0, 1921, 1920),     # the serve path's first decode
+    (1, 2048, 16, 1, 64, 0, 200, 199),       # 8 splits, 7 with no valid slot
 ]
 
 
@@ -969,9 +970,9 @@ def check_fkernel(torch, flash_attention, ref) -> dict:
 def check_dkernel(torch, decode_attention, ref) -> dict:
     """decode_attention against its plain version over DECODE_CASES in f32
     and bf16 (G 1/2/4/8/16, hd 32/64/128, window on and off, a ring that has
-    wrapped, a kpos -1 tail, an empty cache, the serve path's first decode);
-    a rerun gives the same bits.  Returns the largest absolute error by
-    dtype."""
+    wrapped, a kpos -1 tail, an empty cache, the serve path's first decode,
+    a cache whose later splits hold no valid slot); a rerun gives the same
+    bits.  Returns the largest absolute error by dtype."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     err = {}
     for B, C, J, G, hd, window, filled, pos in DECODE_CASES:
@@ -998,11 +999,46 @@ def check_dkernel(torch, decode_attention, ref) -> dict:
                 fail(f"{what}: a rerun differs")
     print(f"kernel check: decode_attention == plain on "
           f"{2 * len(DECODE_CASES)} cases (G 1/2/4/8/16, hd 32/64/128, window "
-          f"0/128/1000, ring wrapped, kpos -1 tail, empty cache, C = 2048; "
+          f"0/128/1000, ring wrapped, kpos -1 tail, empty cache, splits with "
+          f"no valid slot, C = 2048; "
           f"f32 and bf16 at rtol=atol {ATOL}, bf16 atol "
           f"{SERVE_ATOL_BF16['decode_attention']} at C = 2048; reruns "
           f"bit-equal) max_abs_err {err}", flush=True)
     return err
+
+
+def print_attention_resources(torch, flash_attention, decode_attention):
+    """What each attention kernel compiled to (registers, spilled bytes,
+    static and dynamic shared memory, from cudaFuncGetAttributes) and how it
+    launches at the main path's shapes (grid, block, cluster)."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    B, S, H, hd = FLASH_MAIN
+    for dtype in (torch.bfloat16, torch.float32):
+        print(f"flash_attention {str(dtype).split('.')[1]} hd {hd}: "
+              f"{flash_attention.resources(hd, dtype)} at {FLASH_MAIN}: "
+              f"{flash_attention.launch_geometry(B, S, H, dtype)}",
+              flush=True)
+    B, C, J, G, hd = DECODE_MAIN
+    for dtype in (torch.bfloat16, torch.float32):
+        print(f"decode_attention {str(dtype).split('.')[1]} hd {hd}: "
+              f"{decode_attention.resources(hd, dtype)} at {DECODE_MAIN}: "
+              f"{decode_attention.launch_geometry(B, J, C, sms)}",
+              flush=True)
+
+
+def host_us(torch, fn, n: int = 1000) -> float:
+    """Host microseconds per call of ``fn`` (a kernel wrapper) over ``n``
+    calls, time.perf_counter around the calls; the device drains after the
+    clock stops.  Timed where the kernel is shorter than a call's host work,
+    so that the launch queue never fills and blocks the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def cold_copies(tensors: tuple, n_calls: int) -> list:
@@ -1061,12 +1097,14 @@ def time_fkernel(torch, flash_attention, ref) -> dict:
         rounds["library_ms"].append(device_ms_cold(torch, sdpa, qkv_t, 20))
         rounds["warm_ms"].append(device_ms(
             torch, lambda: flash_attention.flash_attention(q, k, v), 20))
-    del q, k, v, qkv_t, want
+    small = tuple(t[:, :128] for t in (q, k, v))
+    host = host_us(torch, lambda: flash_attention.flash_attention(*small))
+    del q, k, v, qkv_t, want, small
     torch.cuda.empty_cache()
     pairs = S * (S + 1) // 2
     res = {k_: min(v_) for k_, v_ in rounds.items()}
     res.update(attention_bound(4 * B * S * H * hd * 2, 4 * B * H * hd * pairs))
-    res.update(max_abs_err=err,
+    res.update(max_abs_err=err, wrapper_host_us=host,
                shape=f"q, k, v ({B},{S},{H},{hd}) bf16, causal")
     print(f"flash_attention at {res['shape']}: == plain (rtol "
           f"{ATOL['bfloat16']}, atol "
@@ -1078,6 +1116,8 @@ def time_fkernel(torch, flash_attention, ref) -> dict:
           f"scaled_dot_product_attention {res['library_ms']:.4f} ms  bound "
           f"{res['bound_ms']:.4f} ms ({res['bound_by']})  rounds {rounds}",
           flush=True)
+    print(f"flash_attention wrapper: {host:.2f} host us per call (1000 "
+          f"calls at ({B},128,{H},{hd}) bf16)", flush=True)
     return res
 
 
@@ -1123,12 +1163,13 @@ def time_dkernel(torch, decode_attention, ref) -> dict:
         rounds["plain_ms"].append(device_ms_cold(torch, plain, (k, v), 50))
         rounds["library_ms"].append(device_ms_cold(torch, sdpa, kv_t, 100))
         rounds["warm_ms"].append(device_ms(torch, lambda: kernel(k, v), 100))
+    host = host_us(torch, lambda: kernel(k, v))
     del q, k, v, kv_t, want
     torch.cuda.empty_cache()
     res = {k_: min(v_) for k_, v_ in rounds.items()}
     res.update(attention_bound(2 * B * C * J * hd * 2 + 2 * B * J * G * hd * 2
                                + C * 4, 4 * B * J * G * C * hd))
-    res.update(max_abs_err=err,
+    res.update(max_abs_err=err, wrapper_host_us=host,
                shape=f"q ({B},1,{J},{G},{hd}), k, v ({B},{C},{J},{hd}) bf16, "
                      f"every slot valid")
     print(f"decode_attention at {res['shape']}: == plain (rtol "
@@ -1141,6 +1182,8 @@ def time_dkernel(torch, decode_attention, ref) -> dict:
           f"scaled_dot_product_attention {res['library_ms']:.5f} ms  bound "
           f"{res['bound_ms']:.5f} ms ({res['bound_by']})  rounds {rounds}",
           flush=True)
+    print(f"decode_attention wrapper: {host:.2f} host us per call (1000 "
+          f"calls at the main shape)", flush=True)
     return res
 
 
@@ -1438,6 +1481,7 @@ def main():
     check_skernel(torch, sparse_gossip, ref, ops)
     check_lkernel(torch, linear_recurrence, ref)
     lkern = time_lkernel(torch, linear_recurrence, ref)
+    print_attention_resources(torch, flash_attention, decode_attention)
     check_fkernel(torch, flash_attention, ref)
     fkern = time_fkernel(torch, flash_attention, ref)
     check_dkernel(torch, decode_attention, ref)
@@ -1544,7 +1588,8 @@ def main():
          "max_abs_err": fkern["max_abs_err"], "ms": fkern["ms"],
          "plain_ms": fkern["plain_ms"], "bound_ms": fkern["bound_ms"],
          "bound_by": fkern["bound_by"], "library_ms": fkern["library_ms"],
-         "shape": fkern["shape"], "timed": "device time under "
+         "shape": fkern["shape"], "wrapper_host_us": fkern["wrapper_host_us"],
+         "timed": "device time under "
          "torch.profiler, inputs cold in L2; library = "
          "scaled_dot_product_attention"},
         {"name": "decode_attention", "route": "cuda",
@@ -1557,7 +1602,8 @@ def main():
          "max_abs_err": dkern["max_abs_err"], "ms": dkern["ms"],
          "plain_ms": dkern["plain_ms"], "bound_ms": dkern["bound_ms"],
          "bound_by": dkern["bound_by"], "library_ms": dkern["library_ms"],
-         "shape": dkern["shape"], "timed": "device time under "
+         "shape": dkern["shape"], "wrapper_host_us": dkern["wrapper_host_us"],
+         "timed": "device time under "
          "torch.profiler, the cache cold in L2; library = "
          "scaled_dot_product_attention with a boolean mask from kpos"},
     ]

@@ -5,8 +5,10 @@ One query token, q (B, 1, J, G, hd) with G query rows per KV head, attends
 to the cache k, v (B, C, J, hd) whose slot c holds absolute position
 kpos[c] (-1 = empty).  Slot c is valid when kpos[c] >= 0, kpos[c] <= pos
 and, with a window, kpos[c] > pos - window.  The kernel
-(``csrc/decode_attention.cu``) gives a block one (batch, KV head) and
-streams the cache once; see the note at the top of the source.
+(``csrc/decode_attention.cu``) splits the cache of each (batch, KV head)
+over a cluster of :func:`splits_for` blocks, streams it once and combines
+the splits in distributed shared memory, in one launch; see the note at the
+top of the source.
 
 Dispatch is by where the tensors lie, never by a fallback: CUDA tensors
 launch the kernel (and anything the kernel does not take raises), CPU
@@ -20,6 +22,7 @@ C).  ``decode_attention.launches`` counts kernel launches, and only those.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -30,21 +33,64 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 MAX_G = 16                      # query rows per KV head the kernel takes
 BLOCK = 256                     # the JAX kernel's default block_k
+TILE = 64                       # cache slots per tile of the kernel
+MAX_SPLITS = 8                  # blocks per cluster (the portable most)
 _MAX_GRID = 65_535              # B rides the grid's y dimension
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
+    """The kernel's library, its argument types set once, at load."""
     lib = build.load("decode_attention")
     # every pointer and the stream as c_void_p: a bare int would be cut to 32 bits
     lib.decode_attention_launch.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
     lib.decode_attention_launch.restype = ctypes.c_int
+    lib.decode_attention_resources.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.decode_attention_resources.restype = ctypes.c_int
     lib.decode_attention_error_string.argtypes = [ctypes.c_int]
     lib.decode_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def splits_for(B: int, J: int, C: int, sms: int) -> int:
+    """How many blocks (one cluster) share the cache of one (batch, KV
+    head): doubled from 1 while B·J·splits stays within ``sms`` (the SMs of
+    the card), up to MAX_SPLITS, each split a whole number of TILE-slot
+    tiles.  At the serve path's decode (B 1, J 16, C 2048, 132 SMs): 8."""
+    s = 1
+    while (2 * s <= MAX_SPLITS and B * J * 2 * s <= sms
+           and C % (2 * s * TILE) == 0):
+        s *= 2
+    return s
+
+
+def launch_geometry(B: int, J: int, C: int, sms: int) -> dict:
+    """The grid, block and cluster the kernel launches with: J·splits x B
+    blocks of 128 threads, the splits of one (b, j) in one cluster."""
+    splits = splits_for(B, J, C, sms)
+    return {"grid": (J * splits, B), "block": 128, "cluster": splits}
+
+
+def resources(hd: int, dtype: torch.dtype) -> dict:
+    """The compiled kernel for (hd, dtype): registers and spilled (local)
+    bytes per thread, static and dynamic shared bytes and threads per
+    block."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().decode_attention_resources(hd, _DTYPES[dtype], out)
+    if err != 0:
+        raise RuntimeError(f"decode_attention_resources: cudaError {err}")
+    return dict(zip(("registers", "local_bytes", "static_smem",
+                     "dynamic_smem", "threads"), out))
 
 
 def _check_shapes(q, k, v, kpos) -> None:
@@ -113,15 +159,15 @@ def _launch(q, k, v, kpos, pos, window):
     if B > _MAX_GRID:
         raise ValueError(f"decode_attention kernel takes B <= {_MAX_GRID}, "
                          f"got {B}")
-    q, k, v = (_aligned(t) for t in (q, k, v))
-    kpos = kpos.contiguous()
+    q, k, v, kpos = (_aligned(t) for t in (q, k, v, kpos))
     o = torch.empty((B, 1, J * G, hd), dtype=q.dtype, device=q.device)
     lib = _lib()
+    splits = splits_for(B, J, C, _sm_count(q.device.index))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_launch(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), kpos.data_ptr(),
-            o.data_ptr(), B, C, J, G, hd, pos, int(window),
+            o.data_ptr(), B, C, J, G, hd, splits, pos, int(window),
             1.0 / math.sqrt(hd), _DTYPES[q.dtype], stream)
     if err != 0:
         msg = lib.decode_attention_error_string(err).decode()

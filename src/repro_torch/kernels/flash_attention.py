@@ -4,8 +4,9 @@
 
 for q (B, Sq, H, hd) and k, v (B, Sk, KV, hd), query head h reading KV head
 h // (H / KV).  The kernel (``csrc/flash_attention.cu``) gives a block one
-(batch, head, 64-row q-tile) and walks the k-tiles with an online softmax;
-see the note at the top of the source.
+(batch, head, q-tile) and walks the k-tiles with an online softmax: for bf16
+on the tensor cores (wgmma on TMA tiles of 128 rows and 128 keys), for f32
+with FMAs (64-row tiles); see the note at the top of the source.
 
 Dispatch is by where the tensors lie, never by a fallback: CUDA tensors
 launch the kernel (and anything the kernel does not take raises), CPU
@@ -19,6 +20,7 @@ and only those.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -28,10 +30,12 @@ from . import build, ref
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128)
 BLOCK = 128                     # the JAX kernel's default block_q = block_k
-_MAX_GRID = 65_535              # H and B ride the grid's y and z dimensions
+_MAX_GRID = 65_535              # B (and, for f32, H) ride the grid's y and z
 
 
+@functools.cache
 def _lib() -> ctypes.CDLL:
+    """The kernels' library, its argument types set once, at load."""
     lib = build.load("flash_attention")
     # every pointer and the stream as c_void_p: a bare int would be cut to 32 bits
     lib.flash_attention_launch.argtypes = [
@@ -40,9 +44,33 @@ def _lib() -> ctypes.CDLL:
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_float,
         ctypes.c_int, ctypes.c_void_p]
     lib.flash_attention_launch.restype = ctypes.c_int
+    lib.flash_attention_resources.argtypes = [
+        ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_int)]
+    lib.flash_attention_resources.restype = ctypes.c_int
     lib.flash_attention_error_string.argtypes = [ctypes.c_int]
     lib.flash_attention_error_string.restype = ctypes.c_char_p
     return lib
+
+
+def resources(hd: int, dtype: torch.dtype) -> dict:
+    """The compiled kernel that (hd, dtype) takes: registers and spilled
+    (local) bytes per thread, static and dynamic shared bytes and threads
+    per block."""
+    out = (ctypes.c_int * 5)()
+    err = _lib().flash_attention_resources(hd, _DTYPES[dtype], out)
+    if err != 0:
+        raise RuntimeError(f"flash_attention_resources: cudaError {err}")
+    return dict(zip(("registers", "local_bytes", "static_smem",
+                     "dynamic_smem", "threads"), out))
+
+
+def launch_geometry(B: int, Sq: int, H: int, dtype: torch.dtype) -> dict:
+    """The grid and block the kernel for ``dtype`` launches with: bf16
+    (tensor cores) a block of 288 threads per (head, 128-row q-tile,
+    batch), f32 (SIMT) 128 threads per (64-row q-tile, head, batch)."""
+    if dtype == torch.bfloat16:
+        return {"grid": (H, -(-Sq // 128), B), "block": 288, "cluster": 1}
+    return {"grid": (-(-Sq // 64), H, B), "block": 128, "cluster": 1}
 
 
 def _check_shapes(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:

@@ -161,3 +161,57 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask &= kpos > pos - window
     o = masked_softmax_pv(s, mask, v)
     return o.reshape(B, 1, J * G, hd)
+
+
+def decode_attention_split_ref(q: torch.Tensor, k: torch.Tensor,
+                               v: torch.Tensor, kpos: torch.Tensor, pos: int,
+                               *, window: int = 0, splits: int,
+                               tile: int = 64) -> torch.Tensor:
+    """The Hopper ``decode_attention`` kernel's arithmetic, for the tests:
+    the C slots split into ``splits`` runs of ceil(C / splits); each run
+    walks its slots in tiles of ``tile`` with an online softmax (f32 scores
+    q·k·scale, invalid slots at ``NEG_INF``, m from ``NEG_INF``, l summed
+    from the f32 p, p rounded to v's dtype before the product with v); then
+    the runs' (m, l, acc) are combined in order: M = max m_r, L = Σ
+    e^(m_r − M)·l_r, o = Σ e^(m_r − M)·acc_r / max(L, 1e-30).  Shapes as
+    :func:`decode_attention_ref`."""
+    B, _, J, G, hd = q.shape
+    C = k.shape[1]
+    dev = q.device
+    scale = torch.tensor(1.0 / math.sqrt(hd), dtype=torch.float32,
+                         device=dev)
+    qf = q.reshape(B, J, G, hd).to(torch.float32)
+    valid = (kpos >= 0) & (kpos <= pos)
+    if window:
+        valid &= kpos > pos - window
+    chunk = -(-C // splits)
+    neg = torch.full((), NEG_INF, device=dev)
+    states = []
+    for c_begin in range(0, chunk * splits, chunk):
+        m = torch.full((B, J, G), NEG_INF, device=dev)
+        l = torch.zeros((B, J, G), device=dev)
+        acc = torch.zeros((B, J, G, hd), device=dev)
+        c_end = min(C, c_begin + chunk)
+        for c0 in range(c_begin, c_end, tile):
+            c1 = min(c_end, c0 + tile)
+            kt = k[:, c0:c1].to(torch.float32)            # (B, t, J, hd)
+            s = torch.einsum("bjgh,btjh->bjgt", qf, kt) * scale
+            s = torch.where(valid[c0:c1], s, neg)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = alpha * l + p.sum(-1)
+            pv = torch.einsum("bjgt,btjh->bjgh", p.to(v.dtype).float(),
+                              v[:, c0:c1].float())
+            acc = alpha[..., None] * acc + pv
+            m = m_new
+        states.append((m, l, acc))
+    M = torch.stack([m for m, _, _ in states]).amax(0)
+    L = torch.zeros_like(M)
+    out = torch.zeros_like(states[0][2])
+    for m, l, acc in states:
+        w = torch.exp(m - M)
+        L = L + w * l
+        out = out + w[..., None] * acc
+    o = out / torch.clamp(L, min=1e-30)[..., None]
+    return o.reshape(B, 1, J * G, hd).to(q.dtype)

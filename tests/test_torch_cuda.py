@@ -17,7 +17,12 @@ aligned, and its refusals.  For ``flash_attention`` and ``decode_attention``
 (held to their plain versions by ``chip_smoke.py`` at small, ragged-head and
 masked cases and at the qwen1.5-0.5b serve path's shapes): yi-6b's heads (32
 query heads over 4 KV heads of 128, G = 8) with the window off and on,
-inputs that are not contiguous, and their refusals.
+inputs that are not contiguous, and their refusals; for the bf16
+tensor-core route of ``flash_attention``, every head_dim at Sq 16, 128 and
+384 with G 1 and 4, a window, rows with no valid key, reruns bit-equal, and
+a bf16 call it refuses that no other kernel serves; for ``decode_attention``,
+clusters of 1, 2 and 8 blocks, caches whose splits hold no valid slot, and
+reruns bit-equal.
 
 These need an NVIDIA GPU and skip elsewhere; the file imports neither jax
 nor the JAX package, so it runs on a machine that has only torch:
@@ -355,3 +360,131 @@ def test_attention_kernels_refuse_what_they_cannot_take():
                          z(1, 272, 2, 64),
                          torch.arange(272, device="cuda", dtype=torch.int32),
                          0)
+
+
+def _flash_case(rng, B, Sq, Sk, H, KV, hd, causal, window):
+    """flash_attention on the bf16 (tensor-core) route against its plain
+    version, a rerun bit-equal, one launch per call."""
+    q = _cuda_normal(rng, (B, Sq, H, hd), torch.bfloat16)
+    k = _cuda_normal(rng, (B, Sk, KV, hd), torch.bfloat16)
+    v = _cuda_normal(rng, (B, Sk, KV, hd), torch.bfloat16)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    again = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(
+        got, ref.attention_ref(q, k, v, causal=causal, window=window),
+        rtol=tol, atol=tol)
+    assert torch.equal(got, again)
+    return got, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G", [1, 4])
+@pytest.mark.parametrize("Sq", [16, 128, 384])
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_attention_tensor_core_route(hd, Sq, G):
+    """Every head_dim (its own TMA box and swizzle: 64 B at hd 32, 128 B at
+    64, two boxes at 128), a q-tile padded past Sq (16), one tile and three,
+    MHA and G = 4, causal and not."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    rng = np.random.default_rng(hd + Sq + G)
+    for causal in (True, False):
+        _flash_case(rng, 2, Sq, Sq, 4 * G, 4, hd, causal, 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [32, 64, 128])
+def test_flash_attention_tensor_core_window_and_keyless_rows(hd):
+    """A window off the 128-key tiles, and with Sq > Sk rows that have no
+    valid key, which average v over all Sk keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    rng = np.random.default_rng(20 + hd)
+    _flash_case(rng, 1, 512, 512, 4, 2, hd, True, 200)
+    Sq, Sk, window = 384, 128, 64
+    got, v = _flash_case(rng, 1, Sq, Sk, 4, 2, hd, True, window)
+    rows = slice(Sk + window - 1, Sq)
+    mean = v.float().mean(1).repeat_interleave(2, dim=1)
+    torch.testing.assert_close(got[:, rows].float(),
+                               mean[:, None].expand_as(got[:, rows]),
+                               rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bf16_refusal_is_not_served_by_the_f32_kernel():
+    """The library's bf16 entry takes hd 32, 64 and 128 only: hd 96 in bf16
+    returns an error and writes nothing (the SIMT kernel, which is for f32,
+    does not take it over); the wrapper raises before it for both routes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    from repro_torch.kernels import flash_attention as fa_mod
+    x = torch.zeros(1, 128, 2, 96, device="cuda", dtype=torch.bfloat16)
+    o = torch.full_like(x, 7.0)
+    lib = fa_mod._lib()
+    before = flash_attention.launches
+    err = lib.flash_attention_launch(
+        x.data_ptr(), x.data_ptr(), x.data_ptr(), o.data_ptr(), 1, 128, 128,
+        2, 2, 96, 1, 0, 96 ** -0.5, 1,
+        torch.cuda.current_stream().cuda_stream)
+    torch.cuda.synchronize()
+    assert err != 0
+    assert torch.all(o == 7.0)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(x, x, x)
+    assert flash_attention.launches == before
+
+
+def _decode_case(rng, B, C, J, G, hd, kpos, pos, window=0):
+    q = _cuda_normal(rng, (B, 1, J, G, hd), torch.bfloat16)
+    k = _cuda_normal(rng, (B, C, J, hd), torch.bfloat16)
+    v = _cuda_normal(rng, (B, C, J, hd), torch.bfloat16)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, kpos, pos, window=window)
+    again = decode_attention(q, k, v, kpos, pos, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 2
+    tol = ATTN_TOL[torch.bfloat16]
+    torch.testing.assert_close(
+        got, ref.decode_attention_ref(q, k, v, kpos, pos, window=window),
+        rtol=tol, atol=tol)
+    assert torch.equal(got, again)
+    return got, v
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,C,J,splits", [(3, 64, 32, 1), (1, 128, 1, 2),
+                                          (1, 2048, 16, 8), (3, 2048, 16, 2)])
+def test_decode_attention_cluster_sizes(B, C, J, splits):
+    """Clusters of 1, 2 and 8 blocks (the split the wrapper picks for these
+    shapes on a 132-SM H100), B = 3, a full cache."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    from repro_torch.kernels import decode_attention as da_mod
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    if sms == 132:
+        assert da_mod.splits_for(B, J, C, sms) == splits
+    rng = np.random.default_rng(C + J)
+    kpos = torch.arange(C, device="cuda", dtype=torch.int32)
+    _decode_case(rng, B, C, J, 2, 64, kpos, C - 1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("filled", [0, 200])
+def test_decode_attention_empty_splits(filled):
+    """A 2048-slot cache in 8 splits with only its first 200 slots filled
+    (7 splits without a valid slot drop out), and with none (every split
+    empty: the mean of v over all 2048 slots)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    rng = np.random.default_rng(filled)
+    C = 2048
+    c = torch.arange(C, device="cuda", dtype=torch.int32)
+    kpos = torch.where(c < filled, c, -1).int()
+    got, v = _decode_case(rng, 1, C, 16, 1, 64, kpos, max(filled - 1, 5))
+    if not filled:
+        torch.testing.assert_close(got[:, 0].float(), v.float().mean(1),
+                                   rtol=2e-2, atol=2e-2)
