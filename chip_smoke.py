@@ -19,8 +19,8 @@ and then drives the main paths through the train CLI's own functions:
   on the card.  Path A takes the JAX package's route, the edge plan's
   scatter mixer (0 kernel launches); path B runs the same built scenario
   through ``run_algorithm`` with a plan whose mixer asks for the
-  ``sparse_segment_mix`` kernel (``use_pallas=True``), and its evals must
-  equal path A's;
+  ``sparse_segment_mix`` kernel (``use_pallas=True``), every round on the
+  kernel's staged variant, and its evals must equal path A's;
 * slice 4, continuously-batched serving of a falcon-mamba-7b fleet at its
   published widths and full depth (4 members of 7.0B parameters in bf16,
   random from seeds) through ``repro_torch.serve.serve_fleet``: 8 requests
@@ -532,17 +532,42 @@ def round_weights(torch, seg, S, gen):
                                        generator=gen) + 0.01)
 
 
+def launch_counted(torch, sparse_gossip, x, layout, variant: str, what: str):
+    """sparse_segment_mix(x, *layout), failing unless it launched the
+    ``variant`` kernel once (and unless launch_geometry chose it)."""
+    sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+    S = layout.offsets.numel() - 1
+    geo = sparse_gossip.launch_geometry(layout.rows.numel(), x.shape[1], S,
+                                        x.dtype, sms)
+    counts = sparse_gossip.sparse_segment_mix.variants
+    before = dict(counts)
+    got = sparse_gossip.sparse_segment_mix(x, *layout)
+    ran = [k for k in counts if counts[k] != before[k]]
+    if geo["variant"] != variant or ran != [variant] or \
+            counts[variant] != before[variant] + 1:
+        fail(f"sparse_segment_mix {what}: expected one {variant} launch, "
+             f"geometry {geo}, launched {ran}")
+    return got
+
+
 def check_skernel(torch, sparse_gossip, ref, ops):
     """sparse_segment_mix against its plain version over E 0/1/511/513/27,000
-    edges, D 1/7/128/784/1000 (odd widths take the one-column path), S
+    edges, D 1/7/128/784/1000 (odd widths take the one-column copies), S
     1/7/256 segments, f32 and bf16 x, with repeated src, dst and seg (drawn
     from small ranges) and padded edges (seg = S: in no segment); a rerun
-    gives the same bits.  Weights are a gossip round's: w >= 0 with each
-    segment's sum in (0, 1).  Then whole padded rounds, laid out as the plan
-    stages them (pad edges w = 0, src = dst = seg = 0; pad slots = n),
-    through ops.sparse_gossip_mix's kernel and plain routes."""
+    gives the same bits.  With src drawn from 3,000 nodes, the rounds of
+    27,000 edges touch more rows than the staged variant takes in f32 and
+    run the gather variant; the rest run the staged one.  Then rounds of
+    exactly max_staged_rows - 1, max_staged_rows and max_staged_rows + 1
+    distinct rows, f32 and bf16: staged, staged, gather.  Weights are a
+    gossip round's: w >= 0 with each segment's sum in (0, 1).  Then whole
+    padded rounds, laid out as the plan stages them (pad edges w = 0, src =
+    dst = seg = 0; pad slots = n), through ops.sparse_gossip_mix's kernel
+    and plain routes."""
     gen = torch.Generator(device="cuda").manual_seed(4)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     n, cases, err = 3000, 0, 0.0
+    ran = {"staged": 0, "gather": 0}
     for E in (0, 1, 511, 513, 27_000):
         for D in (1, 7, 128, 784, 1000):
             for S in (1, 7, 256):
@@ -560,13 +585,45 @@ def check_skernel(torch, sparse_gossip, ref, ops):
                     want = ref.sparse_gossip_mix_ref(
                         seg[keep], w[keep], x[src[keep]], x[dst[keep]], S)
                     layout = sparse_gossip.segment_layout(src, dst, w, seg, S)
-                    got = sparse_gossip.sparse_segment_mix(x, *layout)
+                    variant = sparse_gossip.launch_geometry(
+                        layout.rows.numel(), D, S, dtype, sms)["variant"]
                     what = f"E={E} D={D} S={S} {dtype}"
+                    got = launch_counted(torch, sparse_gossip, x, layout,
+                                         variant, what)
                     err = max(err, scompare(torch, what, got, want))
                     if not torch.equal(
                             got, sparse_gossip.sparse_segment_mix(x, *layout)):
                         fail(f"sparse_segment_mix {what}: a rerun differs")
+                    ran[variant] += 1
                     cases += 1
+    if not all(ran.values()):
+        fail(f"sparse_segment_mix case grid left a variant out: {ran}")
+    n_lim = 4000
+    for dtype in (torch.float32, torch.bfloat16):
+        lim = sparse_gossip.max_staged_rows(dtype)
+        for U, variant in ((lim - 1, "staged"), (lim, "staged"),
+                           (lim + 1, "gather")):
+            E, S, D = 2 * U + 1000, 256, 784
+            ids = torch.randperm(n_lim, device="cuda", generator=gen)[:U]
+            pick = torch.randint(0, U, (2, E), device="cuda", generator=gen)
+            pick[0, :U] = torch.arange(U, device="cuda")  # every id a sender
+            src, dst = ids[pick[0]], ids[pick[1]]
+            seg = torch.randint(0, S, (E,), device="cuda", generator=gen)
+            w = round_weights(torch, seg, S, gen)
+            x = torch.randn(n_lim, D, device="cuda", generator=gen).to(dtype)
+            layout = sparse_gossip.segment_layout(src, dst, w, seg, S)
+            what = f"U={U} (limit {lim}) {dtype}"
+            if layout.rows.numel() != U:
+                fail(f"sparse_segment_mix {what}: layout has "
+                     f"{layout.rows.numel()} rows")
+            got = launch_counted(torch, sparse_gossip, x, layout, variant,
+                                 what)
+            want = ref.sparse_gossip_mix_ref(seg, w, x[src], x[dst], S)
+            err = max(err, scompare(torch, what, got, want))
+            if not torch.equal(got,
+                               sparse_gossip.sparse_segment_mix(x, *layout)):
+                fail(f"sparse_segment_mix {what}: a rerun differs")
+            cases += 1
     for S_real, E_real, D in ((1, 1, 784), (200, 20_000, 784), (7, 0, 5)):
         smax, emax = 256, 27_000
         x = torch.randn(n, D, device="cuda", generator=gen)
@@ -590,9 +647,13 @@ def check_skernel(torch, sparse_gossip, ref, ops):
         cases += 1
     print(f"kernel check: sparse_segment_mix == plain on {cases} cases (E "
           f"0/1/511/513/27,000, D 1/7/128/784/1000, S 1/7/256, f32 and bf16, "
-          f"repeated ids, padded edges; 3 padded rounds through "
-          f"ops.sparse_gossip_mix, pad slots = n; rtol=atol={STOL}; reruns "
-          f"bit-equal) max_abs_err {err:.3e}", flush=True)
+          f"repeated ids, padded edges: {ran['staged']} staged, "
+          f"{ran['gather']} gather; U = max_staged_rows - 1, + 0, + 1 in f32 "
+          f"({sparse_gossip.max_staged_rows(torch.float32)}) and bf16 "
+          f"({sparse_gossip.max_staged_rows(torch.bfloat16)}): staged, "
+          f"staged, gather; 3 padded rounds through ops.sparse_gossip_mix, "
+          f"pad slots = n; rtol=atol={STOL}; reruns bit-equal) max_abs_err "
+          f"{err:.3e}", flush=True)
 
 
 def round_arrays(torch, plan, tensors, r):
@@ -605,59 +666,96 @@ def round_arrays(torch, plan, tensors, r):
             tensors["ew"][r, :e], tensors["seg"][r, :e].long(), S)
 
 
+def round_csr(torch, src, dst, w, seg, S, n):
+    """One round as an (S, n) CSR matrix, +w at (seg, src) and -w at (seg,
+    dst): torch.sparse.mm of it with x is the round's delta."""
+    idx = torch.stack([torch.cat([seg, seg]), torch.cat([src, dst])])
+    return torch.sparse_coo_tensor(idx, torch.cat([w, -w]), (S, n),
+                                   check_invariants=False
+                                   ).coalesce().to_sparse_csr()
+
+
 def time_skernel(torch, sparse_gossip, ref, driver, plan, x, rounds) -> dict:
     """sparse_segment_mix at the main path's shape: each of the ``rounds``
-    rounds path A ran, on its final state ``x`` (100,000 x 784 f32), held to
-    the plain version at rtol = atol = STOL, then timed per round beside the
-    plain version (gathers + index_add_) and torch.sparse.mm of the round's
-    (S, n) CSR matrix (+w at (seg, src), -w at (seg, dst)), built outside
-    the timed region.  The bound counts this round's data: the distinct rows
-    of x read, delta written, the edge arrays; and 3·E·D f32 operations."""
+    rounds path A ran, on its final state ``x`` (100,000 x 784 f32), laid
+    out as the mixer lays it out, must take the staged variant, equal the
+    plain version at rtol = atol = STOL and give the same bits on a rerun.
+    The times come from ``examples/torch/sparse_compare.py`` on this
+    checkout, run in a process of its own on the same rounds (their edge
+    counts must agree): per round, device time under torch.profiler
+    (``device_ms``, 20 calls each) of the kernel and of torch.sparse.mm on
+    the round's (S, n) CSR matrix in turns, kernel, library, library,
+    kernel; the plain version's device time (gathers + index_add_); the
+    wrapper's host µs per call.  Late in this process the profiler leaves
+    out the records of a session's first launches, at times all of them
+    (PERF.md §7); a fresh process has lost none.  The bound counts this
+    round's data: the distinct rows of x read, delta written, the edge
+    arrays; and 3·E·D f32 operations."""
     tensors = driver.stage_plan(plan, device="cuda")
     n, D = x.shape
-    per = {"ms": [], "plain_ms": [], "library_ms": [], "bound_ms": []}
-    err, t_b, t_o, edges, longest = 0.0, 0.0, 0.0, [], []
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    err, err_lib, t_b, t_o = 0.0, 0.0, 0.0, 0.0
+    edges, longest, walks, urows, bound = [], [], [], [], []
     for r in rounds:
         src, dst, w, seg, S = round_arrays(torch, plan, tensors, r)
         layout = sparse_gossip.segment_layout(src, dst, w, seg, S)
-        longest.append(int(layout[3].diff().max()))
+        U = layout.rows.numel()
+        geo = sparse_gossip.launch_geometry(U, D, S, x.dtype, sms)
+        what = f"main shape, round {r}"
+        got = launch_counted(torch, sparse_gossip, x, layout, "staged", what)
         want = ref.sparse_gossip_mix_ref(seg, w, x[src], x[dst], S)
-        err = max(err, scompare(torch, f"main shape, round {r}",
-                                sparse_gossip.sparse_segment_mix(x, *layout),
-                                want))
+        err = max(err, scompare(torch, what, got, want))
+        if not torch.equal(got, sparse_gossip.sparse_segment_mix(x, *layout)):
+            fail(f"sparse_segment_mix {what}: a rerun differs")
+        A = round_csr(torch, src, dst, w, seg, S, n)
+        err_lib = max(err_lib,
+                      float((torch.sparse.mm(A, x) - want).abs().max()))
         E = src.numel()
-        idx = torch.stack([torch.cat([seg, seg]), torch.cat([src, dst])])
-        A = torch.sparse_coo_tensor(idx, torch.cat([w, -w]), (S, n),
-                                    check_invariants=False
-                                    ).coalesce().to_sparse_csr()
-        lib = torch.sparse.mm(A, x)
-        err_lib = float((lib - want).abs().max())
-        per["ms"].append(timed(
-            lambda: sparse_gossip.sparse_segment_mix(x, *layout), 50))
-        per["plain_ms"].append(timed(
-            lambda: ref.sparse_gossip_mix_ref(seg, w, x[src], x[dst], S), 20))
-        per["library_ms"].append(timed(lambda: torch.sparse.mm(A, x), 20))
-        rows = int(torch.unique(torch.cat([src, dst])).numel())
-        nbytes = rows * D * 4 + S * D * 4 + E * (8 + 8 + 4) + (S + 1) * 8
+        nbytes = U * D * 4 + S * D * 4 + E * (8 + 8 + 4) + (S + 1) * 8
         tb, to = nbytes / HBM_BYTES_PER_S, 3 * E * D / FP32_FLOPS_PER_S
-        per["bound_ms"].append(max(tb, to) * 1e3)
+        bound.append(max(tb, to) * 1e3)
         t_b, t_o = t_b + tb, t_o + to
         edges.append(E)
-    res = {k: sum(v) / len(v) for k, v in per.items()}
-    res.update(max_abs_err=err, bound_by="bytes" if t_b >= t_o
-               else "operations",
+        urows.append(U)
+        longest.append(int(layout.offsets.diff().max()))
+        walks.append(int(ref.staged_warp_edges_ref(
+            layout.offsets, geo["grid"][1] * sparse_gossip.WARPS).max()))
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "examples/torch/sparse_compare.py"),
+         "--src", str(ROOT / "src"), "--rounds", str(len(edges))],
+        capture_output=True, text=True, timeout=600)
+    if out.returncode != 0:
+        fail(f"sparse_compare.py exited {out.returncode}: "
+             f"{out.stderr[-2000:]}")
+    timing = json.loads(out.stdout.strip().splitlines()[-1])
+    if timing["edges"] != edges:
+        fail(f"sparse_compare.py timed rounds of {timing['edges']} edges, "
+             f"path A mixed {edges}")
+    res = {k: timing[k] for k in ("ms", "plain_ms", "library_ms", "host_us")}
+    res.update(bound_ms=sum(bound) / len(bound), max_abs_err=err,
+               bound_by="bytes" if t_b >= t_o else "operations",
+               variant="staged", geometry=geo,
+               resources=sparse_gossip.resources("staged", x.dtype,
+                                                 geo["vec"], U),
                shape=f"x ({n},{D}) f32, {len(edges)} rounds of "
                      f"{min(edges)}-{max(edges)} edges (mean "
-                     f"{sum(edges) / len(edges):.0f})")
-    print(f"sparse_segment_mix at {res['shape']}: == plain on every round "
-          f"(rtol=atol={STOL}), max_abs_err {err:.3e}; torch.sparse.mm "
-          f"max |diff| {err_lib:.3e} on the last", flush=True)
-    print(f"sparse_segment_mix per round (mean of {len(edges)}): kernel "
-          f"{res['ms']:.5f} ms  plain {res['plain_ms']:.5f} ms  "
-          f"torch.sparse.mm {res['library_ms']:.5f} ms  bound "
-          f"{res['bound_ms']:.6f} ms ({res['bound_by']}); per round kernel "
-          f"{[round(v, 5) for v in per['ms']]}; edges of the longest "
-          f"segment (a block walks them in order) {longest}", flush=True)
+                     f"{sum(edges) / len(edges):.0f}), {min(urows)}-"
+                     f"{max(urows)} distinct rows")
+    print(f"sparse_segment_mix at {res['shape']}: staged on every round "
+          f"(last geometry {geo}; resources {res['resources']}), == plain "
+          f"(rtol=atol={STOL}), max_abs_err {err:.3e}, reruns bit-equal; "
+          f"torch.sparse.mm max |diff| {err_lib:.3e}", flush=True)
+    print(f"sparse_segment_mix per round (mean of {len(edges)}), device ms "
+          f"under torch.profiler in a fresh process (sparse_compare.py): "
+          f"kernel {res['ms']:.6f}  plain {res['plain_ms']:.6f}  "
+          f"torch.sparse.mm {res['library_ms']:.6f}  bound "
+          f"{res['bound_ms']:.6f} ({res['bound_by']}); wrapper host "
+          f"{res['host_us']:.2f} us per call; per round kernel "
+          f"{[round(v, 6) for v in timing['per_round_ms']]} library "
+          f"{[round(v, 6) for v in timing['per_round_library_ms']]}; edges "
+          f"of the longest segment {longest}; edges of the longest warp "
+          f"walk {walks}; launches the profiler did not record, per timing "
+          f"{timing['lost']}", flush=True)
     return res
 
 
@@ -716,8 +814,10 @@ def sampled_paths(torch, train, exp, alg, driver, sparse, counters):
                          for f in dataclasses.fields(built.plan)})
     rec = sparse.SparseTelemetryRecorder(built.schedule, wps=built.wps)
     gen = torch.Generator(device="cuda").manual_seed(spec.run.seed)
+    variants = counters["sparse_segment_mix"].variants
     for c in counters.values():
         c.launches = 0
+    variants.update(staged=0, gather=0)
     torch.cuda.reset_peak_memory_stats()
     state_b, hist_b = driver.run_algorithm(
         alg.from_rule(built.rule), built.x0, built.grad_fn, built.schedule,
@@ -731,6 +831,9 @@ def sampled_paths(torch, train, exp, alg, driver, sparse, counters):
             launches_b.values()) != launches_b["sparse_segment_mix"]:
         fail(f"sampled path B launched {launches_b} over {SAMPLED_STEPS} "
              "MC-DSGT steps; its 4 rounds per step need 4 sparse_segment_mix")
+    if variants != {"staged": 4 * SAMPLED_STEPS, "gather": 0}:
+        fail(f"sampled path B: sparse_segment_mix variants {variants}; every "
+             "round must take the staged one")
     if not all(math.isfinite(v) for v in evals_b):
         fail(f"sampled path B evals not finite: {evals_b}")
     torch.testing.assert_close(torch.tensor(evals_b), torch.tensor(evals),
@@ -739,7 +842,8 @@ def sampled_paths(torch, train, exp, alg, driver, sparse, counters):
           f"{[h['sec'] for h in rec.history]}  grad_norm2 {evals_b} == path "
           f"A's at rtol 1e-4 (generator reseeded with run.seed, same draws)"
           f"  consensus {[h['consensus'] for h in rec.history]}  peak device "
-          f"memory {peak_b:.3f} GB  launches {launches_b}", flush=True)
+          f"memory {peak_b:.3f} GB  launches {launches_b}, by variant "
+          f"{variants}", flush=True)
     del state_b
     profile_sampled(torch, alg, driver, built, plan, spec)
     rounds = range(built.wps * SAMPLED_STEPS)   # the rounds the runs mixed
@@ -859,9 +963,15 @@ def time_lkernel(torch, linear_recurrence, ref) -> dict:
 
 def device_ms(torch, fn, reps: int) -> float:
     """Mean device ms of ``fn`` per call: the time of the CUDA kernels it
-    runs, summed under torch.profiler over ``reps`` calls after a warm-up
-    call.  Unlike ``timed`` it leaves out the gaps while the host issues the
-    next launch, which are longer than a decode step's kernel."""
+    runs under torch.profiler over ``reps`` calls after a warm-up call.
+    Unlike ``timed`` it leaves out the gaps while the host issues the next
+    launch, which are longer than a decode step's kernel.
+
+    Per kernel, its mean recorded launch times its launches a call (its
+    recorded count over ``reps``, rounded up), summed over the kernels: a
+    launch the profiler did not record does not lower the time.
+    ``device_ms.lost`` keeps how many launches were not recorded, and
+    ``device_ms.lost_total`` their sum over the process."""
     import torch.profiler as tp
     fn()
     torch.cuda.synchronize()
@@ -870,9 +980,22 @@ def device_ms(torch, fn, reps: int) -> float:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA)
-    return busy_us / 1e3 / reps
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.count > 0]
+    if not events:
+        fail(f"device_ms: the profiler recorded no kernel in {reps} calls")
+    us, lost = 0.0, 0
+    for e in events:
+        per_call = -(-e.count // reps)
+        us += e.self_device_time_total / e.count * per_call
+        lost += per_call * reps - e.count
+    device_ms.lost = lost
+    device_ms.lost_total += lost
+    return us / 1e3
+
+
+device_ms.lost_total = 0
 
 
 def acompare(torch, what, got, want, serve: str = "") -> float:
@@ -1486,6 +1609,8 @@ def main():
     fkern = time_fkernel(torch, flash_attention, ref)
     check_dkernel(torch, decode_attention, ref)
     dkern = time_dkernel(torch, decode_attention, ref)
+    print(f"device_ms: launches the profiler did not record in the kernel "
+          f"timings above: {device_ms.lost_total}", flush=True)
     check_small_run(torch, exp)
     check_small_compressed_run(torch, exp)
 
@@ -1568,8 +1693,13 @@ def main():
          "max_abs_err": skern["max_abs_err"], "ms": skern["ms"],
          "plain_ms": skern["plain_ms"], "bound_ms": skern["bound_ms"],
          "bound_by": skern["bound_by"], "library_ms": skern["library_ms"],
-         "shape": skern["shape"], "timed": "per round, mean over the rounds "
-         "of path A; library = torch.sparse.mm"},
+         "shape": skern["shape"], "wrapper_host_us": skern["host_us"],
+         "variant": skern["variant"], "resources": skern["resources"],
+         "timed": "device time under torch.profiler per round (each "
+         "kernel's mean recorded launch times its launches a call), kernel "
+         "and library in turns (k, l, l, k), mean over the rounds of path A, "
+         "in a fresh process (examples/torch/sparse_compare.py); library = "
+         "torch.sparse.mm (CSR)"},
         {"name": "linear_recurrence", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/linear_recurrence.cu",
          "replaces": "src/repro/kernels/linear_recurrence.py:50",

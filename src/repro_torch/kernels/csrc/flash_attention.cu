@@ -76,7 +76,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "attention_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 

@@ -1,8 +1,10 @@
-// Device helpers shared by flash_attention.cu and decode_attention.cu:
-// conversions between the input dtype (f32 or bf16) and f32, the vectorised
-// load of f32 tiles into shared memory (the f32 flash kernel), and the
-// asynchronous copies Hopper offers: cp.async with commit / wait groups,
-// mbarriers, and TMA tile loads that complete on an mbarrier.
+// Device and host helpers shared by the Hopper kernels (flash_attention.cu,
+// decode_attention.cu, sparse_segment_mix.cu): conversions between the
+// input dtype (f32 or bf16) and f32, the vectorised load of f32 tiles into
+// shared memory (the f32 flash kernel), the asynchronous copies Hopper
+// offers (cp.async with commit / wait groups, mbarriers, and TMA tile loads
+// that complete on an mbarrier), the dynamic shared-memory attribute and a
+// kernel's compiled resources.
 //
 // Included by each source (kernels/build.py rebuilds a source's library when
 // a header it includes changes).

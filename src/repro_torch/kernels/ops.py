@@ -28,7 +28,7 @@ from .flash_attention import flash_attention as attention  # noqa: F401
 from .gossip_matmul import gossip_mix as _gossip
 from .linear_recurrence import linear_recurrence  # noqa: F401
 from .quantized_gossip import quantized_gossip_mix  # noqa: F401
-from .sparse_gossip import segment_layout, sparse_segment_mix
+from .sparse_gossip import SegmentLayout, segment_layout, sparse_segment_mix
 
 
 def gossip_mix(ws: torch.Tensor, x: torch.Tensor, *, use_kernel: bool = False,
@@ -44,7 +44,7 @@ def gossip_mix(ws: torch.Tensor, x: torch.Tensor, *, use_kernel: bool = False,
 def sparse_gossip_mix(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                       w: torch.Tensor, seg: Optional[torch.Tensor],
                       slots: torch.Tensor, *, use_pallas: bool = False,
-                      offsets: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      layout: Optional[SegmentLayout] = None) -> torch.Tensor:
     """One edge-list gossip round on an (n, ...) state:
     x[slots[s]] += delta[s], delta[s] = sum over e with seg[e] == s of
     w[e]·(x[src[e]] − x[dst[e]]) (Laplacian form, see
@@ -54,10 +54,11 @@ def sparse_gossip_mix(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     out-of-range id n, and ``seg[e]`` indexes ``dst[e]`` within it, the
     layout of :meth:`repro_torch.sparse.plan.SparseGossipPlan.tensors`.
     ``use_pallas`` False takes the plain segment sum, True the
-    ``sparse_segment_mix`` wrapper, whose edges must be grouped by segment:
-    pass ``offsets`` (S + 1,) for edges already grouped (the mixer groups
-    them once per staged plan; ``seg`` is then unused), or leave it None and
-    they are grouped here.
+    ``sparse_segment_mix`` wrapper, which takes the round laid out by
+    :func:`repro_torch.kernels.sparse_gossip.segment_layout`: pass that
+    ``layout`` (the mixer lays out each round once per staged plan; src,
+    dst, w and seg are then unused), or leave it None and the round is laid
+    out here.
 
     Unlike the JAX op, x is updated IN PLACE and returned: the caller owns
     the state, and a copy would read and write all n rows for the few
@@ -70,9 +71,9 @@ def sparse_gossip_mix(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
     if not use_pallas:
         delta = ref.sparse_gossip_mix_ref(seg, w, flat[src], flat[dst], S)
     else:
-        if offsets is None:
-            src, dst, w, offsets = segment_layout(src, dst, w, seg, S)
-        delta = sparse_segment_mix(flat, src, dst, w, offsets)
+        if layout is None:
+            layout = segment_layout(src, dst, w, seg, S)
+        delta = sparse_segment_mix(flat, *layout)
     valid = slots < n
     delta = torch.where(valid[:, None], delta, 0.0)
     flat.index_add_(0, torch.where(valid, slots, 0), delta.to(x.dtype))

@@ -94,6 +94,35 @@ def sparse_gossip_mix_ref(seg: torch.Tensor, w: torch.Tensor,
     return out.index_add_(0, seg, contrib)
 
 
+def staged_rows_ref(x: torch.Tensor, rows: torch.Tensor, lsrc: torch.Tensor,
+                    ldst: torch.Tensor):
+    """The endpoint states as the staged ``sparse_segment_mix`` reads them:
+    the round's distinct rows x[rows] (U, D) taken once, and both endpoints
+    of every edge gathered from them by local id.  Returns (xs, xd), equal
+    to (x[src], x[dst]) when rows[lsrc] == src and rows[ldst] == dst."""
+    staged = x[rows]
+    return staged[lsrc.long()], staged[ldst.long()]
+
+
+def staged_warp_edges_ref(offsets: torch.Tensor, nw: int) -> torch.Tensor:
+    """How the staged ``sparse_segment_mix`` deals a round's S segments to
+    the ``nw`` warps of a column tile: with S <= nw, warp k takes segment k
+    alone; otherwise segment s goes to warp min(⌊(offsets[s] −
+    offsets[0])·nw / E⌋, nw − 1), E = offsets[S] − offsets[0] (all to warp 0
+    when E = 0), so a warp takes a run of whole segments whose first edges
+    fall in its slice of E / nw edges.  Returns (nw,) int64: the edges each
+    warp walks."""
+    off = offsets.cpu().long()
+    S, E = off.numel() - 1, int(off[-1] - off[0])
+    if S <= nw:
+        warp = torch.arange(S)
+    elif E == 0:
+        warp = torch.zeros(S, dtype=torch.long)
+    else:
+        warp = torch.clamp((off[:-1] - off[0]) * nw // E, max=nw - 1)
+    return torch.zeros(nw, dtype=torch.long).index_add_(0, warp, off.diff())
+
+
 def linear_recurrence_ref(a: torch.Tensor, b: torch.Tensor):
     """h_t = a_t·h_{t−1} + b_t along axis 1, h_{−1} = 0 (the JAX package's
     ``linear_recurrence_ref``).  a, b: (B, S, C), any float dtype, each step

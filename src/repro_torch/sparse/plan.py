@@ -299,8 +299,10 @@ class SparseGossipPlan:
         is the hand-written Hopper ``sparse_segment_mix`` on a CUDA tensor.
         Each round is cut to its realized edges and receivers, counted on
         the host, so padding is never read.  The first call with a staged
-        plan turns its int32 indices to int64 and, for the kernel, sorts
-        each round's edges by receiver segment: once per staged plan, not
+        plan turns its int32 indices to int64 and, for the kernel, lays out
+        all its rounds in one call (:func:`repro_torch.kernels.
+        sparse_gossip.segment_layouts`: edges grouped by receiver segment,
+        each round's distinct rows compacted): once per staged plan, not
         per round.  The reference's mesh, axis, mode and interpret
         arguments have no meaning on one device and are not taken.
         """
@@ -317,27 +319,31 @@ class SparseGossipPlan:
         def prepare(tensors):
             src, dst = tensors["esrc"].long(), tensors["edst"].long()
             w, slots = tensors["ew"], tensors["slots"].long()
+            layouts = [None] * self.period
             if use_pallas:
                 smax = slots.shape[1]
                 pad = (torch.arange(src.shape[1], device=src.device)[None]
                        >= torch.tensor(edges, device=src.device)[:, None])
                 seg = tensors["seg"].long().masked_fill(pad, smax)
-                src, dst, w, offsets = sparse_gossip.segment_layout(
-                    src, dst, w, seg, smax)
+                layouts = [
+                    lay._replace(src=lay.src[:e], dst=lay.dst[:e],
+                                 w=lay.w[:e], offsets=lay.offsets[:s + 1],
+                                 lsrc=lay.lsrc[:e], ldst=lay.ldst[:e])
+                    for lay, e, s in zip(sparse_gossip.segment_layouts(
+                        src, dst, w, seg, smax), edges, receivers)]
             return [(src[r, :e], dst[r, :e], w[r, :e], slots[r, :s],
-                     offsets[r, :s + 1] if use_pallas else None)
+                     layouts[r])
                     for r, (e, s) in enumerate(zip(edges, receivers))]
 
         def mix_fn(tensors, t0, rounds, x):
             if staged["tensors"] is not tensors:
                 staged["tensors"], staged["rounds"] = tensors, prepare(tensors)
             for i in range(rounds):
-                src, dst, w, slots, offsets = \
+                src, dst, w, slots, layout = \
                     staged["rounds"][(t0 + i) % self.period]
                 if use_pallas:
                     x = kops.sparse_gossip_mix(x, src, dst, w, None, slots,
-                                               use_pallas=True,
-                                               offsets=offsets)
+                                               use_pallas=True, layout=layout)
                 else:
                     x = sparse_mix(src, dst, w, x)
             return x

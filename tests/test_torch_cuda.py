@@ -7,10 +7,12 @@ its plain version by ``chip_smoke.py`` at n 4/16, both schemes, EF on and
 off): its largest n and W stack, the one-column path that rows without
 16-byte alignment take, a rerun giving the same bits, and its refusals.  For
 ``sparse_segment_mix`` (held to its plain version by ``chip_smoke.py`` over
-E, D, S, padding, bf16 and a window of the sampled-client path): a state
-whose rows are not 16-byte aligned, a rerun giving the same bits, and its
-refusals.  For ``linear_recurrence`` (held bit-equal to its plain version
-by ``chip_smoke.py`` at small and ragged shapes, the main shape and the
+E, D, S, padding, bf16, U around the staging limit and the sampled-client
+path's rounds): both variants on a state whose rows are not 16-byte
+aligned, in f32 and bf16 and at a ragged D, reruns giving the same bits,
+the two variants giving the same bits, and the refusals.  For
+``linear_recurrence`` (held bit-equal to its plain version by
+``chip_smoke.py`` at small and ragged shapes, the main shape and the
 serve path's own inputs): a large B·C whose S is not a multiple of the
 kernel's 8-step load batch, in f32 and bf16, inputs that are not 16-byte
 aligned, and its refusals.  For ``flash_attention`` and ``decode_attention``
@@ -159,29 +161,47 @@ def test_quantized_gossip_mix_kernel_refuses_what_it_cannot_take():
         qgm(eye(4), z(4, 512)[:, ::2], z(4, 256), scheme="sign")
 
 
+def _sparse_round(n, D, E, S, ids, dtype, seed):
+    """A round on an (n, D) state whose rows are only element-aligned (one
+    value of slack before them), edges between ``ids`` of the n nodes, and
+    a gossip round's weights: each receiver's sum below 1 (Metropolis), so
+    partial sums stay of the order of x."""
+    rng = np.random.default_rng(seed)
+    flat = torch.from_numpy(rng.standard_normal(n * D + 1).astype(
+        np.float32)).cuda().to(dtype)
+    x = flat[1:].view(n, D)
+    pick = torch.from_numpy(rng.choice(n, ids, replace=False)).cuda()
+    src = pick[torch.from_numpy(rng.integers(0, ids, E)).cuda()]
+    dst = pick[torch.from_numpy(rng.integers(0, ids, E)).cuda()]
+    seg = torch.from_numpy(rng.integers(0, S, E)).cuda()
+    w = torch.from_numpy(rng.random(E).astype(np.float32)).cuda()
+    w = w / (torch.zeros(S, device="cuda").index_add_(0, seg, w)[seg] + 0.5)
+    return x, src, dst, w, seg
+
+
+def _variant_launches(x, layout, variant):
+    """Two calls, which must launch ``variant`` twice and nothing else."""
+    counts = sparse_gossip.sparse_segment_mix.variants
+    before, launches = dict(counts), sparse_gossip.sparse_segment_mix.launches
+    a = sparse_gossip.sparse_segment_mix(x, *layout)
+    b = sparse_gossip.sparse_segment_mix(x, *layout)
+    torch.cuda.synchronize()
+    assert sparse_gossip.sparse_segment_mix.launches == launches + 2
+    assert {k: counts[k] - before[k] for k in counts} == {
+        variant: 2, **{k: 0 for k in counts if k != variant}}
+    return a, b
+
+
 @pytest.mark.cuda
 def test_sparse_segment_mix_kernel_unaligned_rerun_and_refusals():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
-    rng = np.random.default_rng(3)
     n, D, E, S = 5_000, 784, 20_000, 256
-    # one float of slack: rows only 4-byte aligned, the one-column path
-    flat = torch.from_numpy(rng.standard_normal(n * D + 1).astype(
-        np.float32)).cuda()
-    x = flat[1:].view(n, D)
-    src = torch.from_numpy(rng.integers(0, n, E)).cuda()
-    dst = torch.from_numpy(rng.integers(0, n, E)).cuda()
-    seg = torch.from_numpy(rng.integers(0, S, E)).cuda()
-    # a gossip round's weights: each receiver's sum below 1 (Metropolis), so
-    # partial sums stay of the order of x
-    w = torch.from_numpy(rng.random(E).astype(np.float32)).cuda()
-    w = w / (torch.zeros(S, device="cuda").index_add_(0, seg, w)[seg] + 0.5)
+    # ids from all 5,000 nodes: more rows than the staged variant takes
+    x, src, dst, w, seg = _sparse_round(n, D, E, S, n, torch.float32, 3)
     layout = sparse_gossip.segment_layout(src, dst, w, seg, S)
-    before = sparse_gossip.sparse_segment_mix.launches
-    a = sparse_gossip.sparse_segment_mix(x, *layout)
-    b = sparse_gossip.sparse_segment_mix(x, *layout)
-    torch.cuda.synchronize()
-    assert sparse_gossip.sparse_segment_mix.launches == before + 2
+    assert layout.rows.numel() > sparse_gossip.max_staged_rows(x.dtype)
+    a, b = _variant_launches(x, layout, "gather")
     assert torch.equal(a, b)    # each segment summed in one fixed order
     # f32 products summed in another order than index_add_'s atomics
     torch.testing.assert_close(
@@ -189,11 +209,47 @@ def test_sparse_segment_mix_kernel_unaligned_rerun_and_refusals():
         rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="int64"):
         sparse_gossip.sparse_segment_mix(x, layout[0].int(), *layout[1:])
+    with pytest.raises(ValueError, match="int32"):
+        sparse_gossip.sparse_segment_mix(x, *layout[:5], layout.lsrc.long(),
+                                         layout.ldst)
+    with pytest.raises(ValueError, match="int64"):
+        sparse_gossip.sparse_segment_mix(x, *layout[:4], layout.rows.int(),
+                                         *layout[5:])
     with pytest.raises(TypeError, match="f32 or bf16"):
         sparse_gossip.sparse_segment_mix(x.half(), *layout)
     with pytest.raises(ValueError, match="contiguous x"):
         sparse_gossip.sparse_segment_mix(x[:, ::2], *layout)
 
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("variant,ids", [("staged", 300), ("gather", 5_000)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [784, 781])
+def test_sparse_segment_mix_variants_unaligned_rerun(variant, ids, dtype, D):
+    """Both variants on rows only element-aligned (the staged variant's
+    4-byte copies in f32, 2-byte in bf16; the gather variant's one-column
+    path) and on a ragged D: bit-equal reruns, and the two variants give the
+    same bits on the same round."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    n, E, S = 5_000, 20_000, 256
+    x, src, dst, w, seg = _sparse_round(n, D, E, S, ids, dtype, 7)
+    layout = sparse_gossip.segment_layout(src, dst, w, seg, S)
+    a, b = _variant_launches(x, layout, variant)
+    assert torch.equal(a, b)
+    torch.testing.assert_close(
+        a, ref.sparse_gossip_mix_ref(seg, w, x[src], x[dst], S),
+        rtol=1e-5, atol=1e-5)
+    if variant == "staged":
+        # the same round through the gather variant: one order, one result
+        geometry = sparse_gossip.launch_geometry
+        try:
+            sparse_gossip.launch_geometry = lambda *args: {
+                "variant": "gather", "block": sparse_gossip.GATHER_THREADS}
+            c = sparse_gossip.sparse_segment_mix(x, *layout)
+        finally:
+            sparse_gossip.launch_geometry = geometry
+        assert torch.equal(a, c)
 
 
 @pytest.mark.cuda
