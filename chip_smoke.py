@@ -33,15 +33,33 @@ and then drives the main paths through the train CLI's own functions:
   1920-token prompt and 128 new tokens on 4 slots, every attention layer of
   every prefill through the ``flash_attention`` kernel and of every decode
   step through ``decode_attention`` against a 2048-slot KV cache; two of the
-  requests are served again one at a time and must give the same tokens.
+  requests are served again one at a time and must give the same tokens;
+* the serve entry point, ``repro_torch.launch.serve.main``: it trains a
+  qwen1.5-0.5b fleet of 4 at full width for 2 MC-DSGT steps through
+  ``gossip_mix`` and serves 8 requests of 128 + 16 tokens from it in bf16
+  (``exp.run``'s serve phase, the model's plain attention, as in the
+  reference);
+* slice 8, the same serving of a recurrentgemma-2b fleet at its published
+  widths and full depth (4 members of 2.89B parameters in bf16): 8 requests
+  of a 3968-token prompt and 128 new tokens on 4 slots, every rglru layer
+  of every prefill through ``linear_recurrence`` at C = 2560, every local
+  attention layer (10 query heads of 256 over 1 KV head, a 2048-token
+  window) of every prefill through ``flash_attention`` and of every decode
+  step through ``decode_attention`` against a 2048-slot ring that has
+  wrapped; two requests are served again one at a time and must give the
+  same tokens.
 
 Slices 1 and 2 launch their kernel 2 times per step (the x and h windows),
 path B 4 times (one per round), the falcon-mamba serve path 64 times per
 prefill (one per layer; decode feeds one token and takes no kernel), the
 qwen serve path ``flash_attention`` 24 times per prefill and
-``decode_attention`` 24 times per slot and token; the counts are set to 0
-just before a path and read just after it.  It prints the card, one JSON
-line of per-kernel numbers, and last ``{"ok": true, "device": {...}}``.
+``decode_attention`` 24 times per slot and token, the serve CLI path
+``gossip_mix`` 2 times per step and nothing else, the recurrentgemma serve
+path ``linear_recurrence`` 18 and ``flash_attention`` 8 times per prefill
+and ``decode_attention`` 8 times per slot and token; the counts are set to
+0 just before a path and read just after it.  It prints the card, its
+total wall time, one JSON line of per-kernel numbers (the last three rows:
+the recurrentgemma shapes), and last ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero; so does a machine without a CUDA device or
 a directory without the repository.
 """
@@ -109,8 +127,30 @@ SEQUENTIAL_RIDS = (0, 7)                 # served again one at a time
 QSERVE = dict(requests=8, batch=4, prompt_len=1920, max_new=128, fleet=4,
               routing="user-affinity", dtype="bf16", seed=0)
 QWEN_PARAMS = 463_987_712                # per member, from the config's shapes
-FLASH_MAIN = (1, 1920, 16, 64)           # (B, S, H, hd) of one prefill layer
+FLASH_MAIN = (1, 1920, 16, 16, 64)       # (B, S, H, KV, hd) of one prefill
 DECODE_MAIN = (1, 2048, 16, 1, 64)       # (B, C, J, G, hd) of one decode layer
+# Slice 8: recurrentgemma-2b (configs/recurrentgemma_2b.py, hf:google/
+# recurrentgemma-2b, arXiv:2402.19427) served from a fleet of 4: 26 layers,
+# 8 units of (rglru, rglru, attn) + 2 rglru, MQA (10 query heads of 256 over
+# 1 KV head), a 2048-token window over a 2048-slot ring.  The prompt is a
+# multiple of 128 and longer than the window, so every prefill runs the
+# windowed flash path and wraps the ring; prompt + new = 4096 is within the
+# model's 8192-token training context.
+RGSERVE = dict(requests=8, batch=4, prompt_len=3968, max_new=128, fleet=4,
+               routing="user-affinity", dtype="bf16", seed=0)
+RG_PARAMS = 2_894_574_080                # per member, the reference's count
+RG_WINDOW = 2048
+FLASH_RG = (1, 3968, 10, 1, 256)         # (B, S, H, KV, hd) of one prefill
+DECODE_RG = (1, 2048, 1, 10, 256)        # (B, C, J, G, hd) of one decode
+LINREC_RG = (1, 3968, 2560)              # (B, S, lru_width) of one layer
+# The serve CLI path: the port's launch/serve.py trains a qwen1.5-0.5b fleet
+# at full width (2 MC-DSGT steps through gossip_mix) and serves it.
+SERVE_CLI_STEPS = 2
+SERVE_CLI_ARGV = ["--arch", "qwen1.5-0.5b", "--preset", "full", "--nodes",
+                  "4", "--algo", "mc_dsgt", "--gossip-impl", "pallas",
+                  "--steps", str(SERVE_CLI_STEPS), "--requests", "8",
+                  "--serve-batch", "4", "--prompt-len", "128", "--max-new",
+                  "16", "--dtype", "bf16"]
 # H100 SXM dense bf16 tensor-core peak and L2 size (NVIDIA data sheet): the
 # attention kernels' operations are bf16 products on the main path, and
 # their inputs (8-16 MB) would stay in L2 from one timed call to the next,
@@ -920,19 +960,22 @@ def check_lkernel(torch, linear_recurrence, ref):
           "(0, 1)); reruns bit-equal", flush=True)
 
 
-def time_lkernel(torch, linear_recurrence, ref) -> dict:
-    """linear_recurrence at one falcon-mamba prefill's shape (1, 2048,
-    131072) f32: bit-equal to the plain version and on a rerun, then timed
-    beside its bound and the plain version.  No single PyTorch call
+def time_lkernel(torch, linear_recurrence, ref, shape=LINREC_MAIN,
+                 what: str = "one falcon-mamba prefill") -> dict:
+    """linear_recurrence at ``shape`` (B, S, C) f32 (one falcon-mamba
+    prefill's (1, 2048, 131072), or one recurrentgemma rglru layer's (1,
+    3968, 2560)): bit-equal to the plain version and on a rerun, then
+    timed beside its bound and the plain version.  No single PyTorch call
     computes a linear recurrence, so there is no library time."""
-    B, S, C = LINREC_MAIN
+    B, S, C = shape
     gen = torch.Generator(device="cuda").manual_seed(7)
     a = torch.rand(B, S, C, device="cuda", generator=gen)
     b = torch.randn(B, S, C, device="cuda", generator=gen)
     got = linear_recurrence.linear_recurrence(a, b)
-    err = lequal(torch, "main shape", got, ref.linear_recurrence_ref(a, b))
-    lequal(torch, "main shape rerun", linear_recurrence.linear_recurrence(
-        a, b), got)
+    err = lequal(torch, f"at {what}'s shape", got,
+                 ref.linear_recurrence_ref(a, b))
+    lequal(torch, f"at {what}'s shape, rerun",
+           linear_recurrence.linear_recurrence(a, b), got)
     del got
     torch.cuda.empty_cache()
     rounds = {"ms": [], "plain_ms": []}
@@ -1028,6 +1071,10 @@ FLASH_CASES = [
     (1, 256, 128, 2, 1, 64, True, 64),       # rows with no valid key
     (1, 128, 256, 2, 2, 64, True, 0),        # Sk > Sq
     (1, 1920, 1920, 16, 16, 64, True, 0),    # the serve path's prefill
+    (1, 128, 128, 10, 1, 256, True, 48),     # hd 256, G = 10 (MQA)
+    (2, 384, 384, 4, 2, 256, True, 100),     # hd 256, window off the tiles
+    (1, 256, 128, 2, 1, 256, True, 64),      # hd 256, rows with no valid key
+    (1, 3968, 3968, 10, 1, 256, True, 2048),  # recurrentgemma's prefill
 ]
 DECODE_CASES = [
     # (B, C, J, G, hd, window, filled, pos)
@@ -1040,6 +1087,11 @@ DECODE_CASES = [
     (3, 2048, 16, 1, 64, 1000, 2048, 2047),  # window, B = 3
     (1, 2048, 16, 1, 64, 0, 1921, 1920),     # the serve path's first decode
     (1, 2048, 16, 1, 64, 0, 200, 199),       # 8 splits, 7 with no valid slot
+    (1, 2048, 1, 10, 256, 2048, 2048, 4000),  # recurrentgemma: ring wrapped
+    (1, 2048, 1, 10, 256, 2048, 200, 199),   # hd 256, splits with no slot
+    (1, 256, 1, 16, 256, 0, 256, 255),       # hd 256, G = 16
+    (2, 512, 2, 10, 256, 300, 512, 700),     # hd 256, B 2, ring, window
+    (1, 256, 1, 10, 256, 0, 0, 5),           # hd 256, empty cache
 ]
 
 
@@ -1081,10 +1133,10 @@ def check_fkernel(torch, flash_attention, ref) -> dict:
                                                                     **kw)):
                 fail(f"{what}: a rerun differs")
     print(f"kernel check: flash_attention == plain on {2 * len(FLASH_CASES)} "
-          f"cases (G 1/2/8, hd 32/64/128, window 0/64/200, causal and not, "
-          f"rows with no valid key, Sk > Sq, (1, 1920, 16, 64); f32 and bf16 "
-          f"at rtol=atol {ATOL}, bf16 atol "
-          f"{SERVE_ATOL_BF16['flash_attention']} at Sk = 1920; "
+          f"cases (G 1/2/8/10, hd 32/64/128/256, window 0/48/64/100/200/2048, "
+          f"causal and not, rows with no valid key, Sk > Sq, (1, 1920, 16, "
+          f"64), (1, 3968, 10 over 1, 256); f32 and bf16 at rtol=atol {ATOL}, "
+          f"bf16 atol {SERVE_ATOL_BF16['flash_attention']} at Sk >= 1920; "
           f"reruns bit-equal) max_abs_err {err}",
           flush=True)
     return err
@@ -1121,9 +1173,9 @@ def check_dkernel(torch, decode_attention, ref) -> dict:
                     q, k, v, kpos, pos, window=window)):
                 fail(f"{what}: a rerun differs")
     print(f"kernel check: decode_attention == plain on "
-          f"{2 * len(DECODE_CASES)} cases (G 1/2/4/8/16, hd 32/64/128, window "
-          f"0/128/1000, ring wrapped, kpos -1 tail, empty cache, splits with "
-          f"no valid slot, C = 2048; "
+          f"{2 * len(DECODE_CASES)} cases (G 1/2/4/8/10/16, hd 32/64/128/256, "
+          f"window 0/128/300/1000/2048, rings wrapped, kpos -1 tail, empty "
+          f"cache, splits with no valid slot, C = 2048; "
           f"f32 and bf16 at rtol=atol {ATOL}, bf16 atol "
           f"{SERVE_ATOL_BF16['decode_attention']} at C = 2048; reruns "
           f"bit-equal) max_abs_err {err}", flush=True)
@@ -1133,20 +1185,23 @@ def check_dkernel(torch, decode_attention, ref) -> dict:
 def print_attention_resources(torch, flash_attention, decode_attention):
     """What each attention kernel compiled to (registers, spilled bytes,
     static and dynamic shared memory, from cudaFuncGetAttributes) and how it
-    launches at the main path's shapes (grid, block, cluster)."""
+    launches at the main paths' shapes (grid, block, cluster): qwen1.5's
+    hd 64 and recurrentgemma's hd 256."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    B, S, H, hd = FLASH_MAIN
-    for dtype in (torch.bfloat16, torch.float32):
-        print(f"flash_attention {str(dtype).split('.')[1]} hd {hd}: "
-              f"{flash_attention.resources(hd, dtype)} at {FLASH_MAIN}: "
-              f"{flash_attention.launch_geometry(B, S, H, dtype)}",
-              flush=True)
-    B, C, J, G, hd = DECODE_MAIN
-    for dtype in (torch.bfloat16, torch.float32):
-        print(f"decode_attention {str(dtype).split('.')[1]} hd {hd}: "
-              f"{decode_attention.resources(hd, dtype)} at {DECODE_MAIN}: "
-              f"{decode_attention.launch_geometry(B, J, C, sms)}",
-              flush=True)
+    for B, S, H, _, hd in (FLASH_MAIN, FLASH_RG):
+        for dtype in (torch.bfloat16, torch.float32):
+            print(f"flash_attention {str(dtype).split('.')[1]} hd {hd}: "
+                  f"{flash_attention.resources(hd, dtype)} at "
+                  f"{(B, S, H, hd)}: "
+                  f"{flash_attention.launch_geometry(B, S, H, hd, dtype)}",
+                  flush=True)
+    for B, C, J, G, hd in (DECODE_MAIN, DECODE_RG):
+        for dtype in (torch.bfloat16, torch.float32):
+            geometry = decode_attention.launch_geometry(B, J, C, hd, dtype,
+                                                        sms)
+            print(f"decode_attention {str(dtype).split('.')[1]} hd {hd}: "
+                  f"{decode_attention.resources(hd, dtype)} at "
+                  f"{(B, C, J, G, hd)}: {geometry}", flush=True)
 
 
 def host_us(torch, fn, n: int = 1000) -> float:
@@ -1187,48 +1242,74 @@ def attention_bound(nbytes: int, flops: int) -> dict:
             "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
 
 
-def time_fkernel(torch, flash_attention, ref) -> dict:
-    """flash_attention at one qwen prefill layer's shape (1, 1920, 16, 64)
-    bf16, causal: held to its plain version, then timed (device time, inputs
-    cold in L2 as on the serve path) beside its bound, the plain version and
-    torch's scaled_dot_product_attention (causal, on (B, H, S, hd) copies
-    made outside the timed region; a yardstick only, never on the path).
-    The bound counts the S(S+1)/2
-    unmasked (query, key) pairs a head needs, 2 products of 2·hd flops each
-    at the bf16 tensor-core rate, and q, k, v read and o written once."""
+def window_pairs(S: int, window: int) -> int:
+    """Unmasked (query, key) pairs of one head of causal attention over S
+    positions, within ``window`` keys when it is set: sum of min(i + 1, w)."""
+    if not window or window >= S:
+        return S * (S + 1) // 2
+    return window * (window + 1) // 2 + (S - window) * window
+
+
+def time_fkernel(torch, flash_attention, ref, shape=FLASH_MAIN,
+                 window: int = 0,
+                 what: str = "one qwen prefill layer") -> dict:
+    """flash_attention at ``shape`` (B, S, H, KV, hd) bf16, causal (qwen's
+    (1, 1920, 16, 16, 64), or recurrentgemma's (1, 3968, 10, 1, 256) with a
+    2048-key window): held to its plain version, then timed (device time,
+    inputs cold in L2 as on the serve path) beside its bound, the plain
+    version and torch's scaled_dot_product_attention (causal, or with the
+    window's boolean mask, on (B, H, S, hd) copies made outside the timed
+    region; a yardstick only, never on the path).  The bound counts the
+    unmasked (query, key) pairs a head needs (``window_pairs``), 2 products
+    of 2·hd flops each at the bf16 tensor-core rate, and q, k, v read and o
+    written once."""
     import torch.nn.functional as F
-    B, S, H, hd = FLASH_MAIN
+    B, S, H, KV, hd = shape
     gen = torch.Generator(device="cuda").manual_seed(10)
-    q, k, v = (torch.randn(B, S, H, hd, device="cuda", generator=gen
-                           ).bfloat16() for _ in range(3))
-    want = ref.attention_ref(q, k, v)
-    err = acompare(torch, "flash_attention main shape",
-                   flash_attention.flash_attention(q, k, v), want,
+    q = torch.randn(B, S, H, hd, device="cuda", generator=gen).bfloat16()
+    k, v = (torch.randn(B, S, KV, hd, device="cuda", generator=gen
+                        ).bfloat16() for _ in range(2))
+    kw = dict(window=window)
+    want = ref.attention_ref(q, k, v, **kw)
+    err = acompare(torch, f"flash_attention at {what}'s shape",
+                   flash_attention.flash_attention(q, k, v, **kw), want,
                    serve="flash_attention")
     qkv_t = tuple(t.transpose(1, 2).contiguous() for t in (q, k, v))
+    i = torch.arange(S, device="cuda")
+    mask = ((i[None, :] <= i[:, None]) & (i[None, :] > i[:, None] - window)
+            if window else None)
 
     def sdpa(qt, kt, vt):
-        return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        if mask is None:
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                  enable_gqa=H != KV)
+        return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                              enable_gqa=H != KV)
     err_lib = float((sdpa(*qkv_t).transpose(1, 2).float() - want.float())
                     .abs().max())
+
+    def kernel(q_, k_, v_):
+        return flash_attention.flash_attention(q_, k_, v_, **kw)
+
+    def plain(q_, k_, v_):
+        return ref.attention_ref(q_, k_, v_, **kw)
     rounds = {"ms": [], "plain_ms": [], "library_ms": [], "warm_ms": []}
     for _ in range(2):   # alternate, so a drift in clocks hits all of them
-        rounds["ms"].append(device_ms_cold(
-            torch, flash_attention.flash_attention, (q, k, v), 20))
-        rounds["plain_ms"].append(device_ms_cold(
-            torch, ref.attention_ref, (q, k, v), 5))
+        rounds["ms"].append(device_ms_cold(torch, kernel, (q, k, v), 20))
+        rounds["plain_ms"].append(device_ms_cold(torch, plain, (q, k, v), 5))
         rounds["library_ms"].append(device_ms_cold(torch, sdpa, qkv_t, 20))
-        rounds["warm_ms"].append(device_ms(
-            torch, lambda: flash_attention.flash_attention(q, k, v), 20))
+        rounds["warm_ms"].append(device_ms(torch, lambda: kernel(q, k, v),
+                                           20))
     small = tuple(t[:, :128] for t in (q, k, v))
-    host = host_us(torch, lambda: flash_attention.flash_attention(*small))
-    del q, k, v, qkv_t, want, small
+    host = host_us(torch, lambda: kernel(*small))
+    del q, k, v, qkv_t, want, small, mask
     torch.cuda.empty_cache()
-    pairs = S * (S + 1) // 2
     res = {k_: min(v_) for k_, v_ in rounds.items()}
-    res.update(attention_bound(4 * B * S * H * hd * 2, 4 * B * H * hd * pairs))
+    res.update(attention_bound(2 * B * S * (H + KV) * hd * 2,
+                               4 * B * H * hd * window_pairs(S, window)))
     res.update(max_abs_err=err, wrapper_host_us=host,
-               shape=f"q, k, v ({B},{S},{H},{hd}) bf16, causal")
+               shape=f"q ({B},{S},{H},{hd}), k, v ({B},{S},{KV},{hd}) bf16, "
+                     f"causal" + (f", window {window}" if window else ""))
     print(f"flash_attention at {res['shape']}: == plain (rtol "
           f"{ATOL['bfloat16']}, atol "
           f"{SERVE_ATOL_BF16['flash_attention']}), max_abs_err {err:.3e}; "
@@ -1244,30 +1325,41 @@ def time_fkernel(torch, flash_attention, ref) -> dict:
     return res
 
 
-def time_dkernel(torch, decode_attention, ref) -> dict:
-    """decode_attention at one qwen decode layer's shape: q (1, 1, 16, 1,
-    64), a full 2048-slot cache (1, 2048, 16, 64) bf16: held to its plain
-    version, then timed (device time, the cache cold in L2 as on the serve
-    path, where the layer's weights pass through L2 between two reads of
-    it) beside its bound, the plain version and torch's
-    scaled_dot_product_attention with a boolean mask from kpos (a yardstick
-    only, never on the path).  The bound counts every slot (all valid): k
-    and v read once, 4·G·hd flops per slot and head."""
+def time_dkernel(torch, decode_attention, ref, shape=DECODE_MAIN,
+                 window: int = 0, what: str = "one qwen decode layer"
+                 ) -> dict:
+    """decode_attention at ``shape`` (B, C, J, G, hd) bf16 against a full
+    cache (qwen's q (1, 1, 16, 1, 64) and a 2048-slot cache at pos 2047; or
+    recurrentgemma's q (1, 1, 1, 10, 256) and a 2048-slot ring, wrapped, at
+    pos 4000 with a 2048-token window): held to its plain version, then
+    timed (device time, the cache cold in L2 as on the serve path, where
+    the layer's weights pass through L2 between two reads of it) beside its
+    bound, the plain version and torch's scaled_dot_product_attention with
+    a boolean mask from kpos (a yardstick only, never on the path).  The
+    bound counts every slot (all valid): k and v read once, 4·G·hd flops
+    per slot and head."""
     import torch.nn.functional as F
-    B, C, J, G, hd = DECODE_MAIN
+    B, C, J, G, hd = shape
     gen = torch.Generator(device="cuda").manual_seed(11)
     q = torch.randn(B, 1, J, G, hd, device="cuda", generator=gen).bfloat16()
     k, v = (torch.randn(B, C, J, hd, device="cuda", generator=gen).bfloat16()
             for _ in range(2))
-    pos = C - 1
-    kpos = torch.arange(C, device="cuda", dtype=torch.int32)
-    want = ref.decode_attention_ref(q, k, v, kpos, pos)
-    err = acompare(torch, "decode_attention main shape",
-                   decode_attention.decode_attention(q, k, v, kpos, pos), want,
+    pos = 4000 if window else C - 1
+    kpos = ring_kpos(torch, C, C, pos, window)
+    want = ref.decode_attention_ref(q, k, v, kpos, pos, window=window)
+    err = acompare(torch, f"decode_attention at {what}'s shape",
+                   decode_attention.decode_attention(q, k, v, kpos, pos,
+                                                     window=window), want,
                    serve="decode_attention")
     qt = q.reshape(B, J * G, 1, hd)
     kv_t = tuple(t.transpose(1, 2).contiguous() for t in (k, v))
-    mask = ((kpos >= 0) & (kpos <= pos))[None, None, None, :]
+    valid = (kpos >= 0) & (kpos <= pos)
+    if window:
+        valid &= kpos > pos - window
+    if int(valid.sum()) != C:
+        fail(f"decode_attention timing at {shape}: {int(valid.sum())} of {C} "
+             "slots valid; the bound counts all")
+    mask = valid[None, None, None, :]
 
     def sdpa(kt, vt):
         return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
@@ -1276,10 +1368,11 @@ def time_dkernel(torch, decode_attention, ref) -> dict:
                     .abs().max())
 
     def kernel(k_, v_):
-        return decode_attention.decode_attention(q, k_, v_, kpos, pos)
+        return decode_attention.decode_attention(q, k_, v_, kpos, pos,
+                                                 window=window)
 
     def plain(k_, v_):
-        return ref.decode_attention_ref(q, k_, v_, kpos, pos)
+        return ref.decode_attention_ref(q, k_, v_, kpos, pos, window=window)
     rounds = {"ms": [], "plain_ms": [], "library_ms": [], "warm_ms": []}
     for _ in range(2):   # alternate, so a drift in clocks hits all of them
         rounds["ms"].append(device_ms_cold(torch, kernel, (k, v), 100))
@@ -1294,7 +1387,8 @@ def time_dkernel(torch, decode_attention, ref) -> dict:
                                + C * 4, 4 * B * J * G * C * hd))
     res.update(max_abs_err=err, wrapper_host_us=host,
                shape=f"q ({B},1,{J},{G},{hd}), k, v ({B},{C},{J},{hd}) bf16, "
-                     f"every slot valid")
+                     + (f"ring wrapped at pos {pos}, window {window}, "
+                        if window else "") + "every slot valid")
     print(f"decode_attention at {res['shape']}: == plain (rtol "
           f"{ATOL['bfloat16']}, atol "
           f"{SERVE_ATOL_BF16['decode_attention']}), max_abs_err {err:.3e}; "
@@ -1306,7 +1400,7 @@ def time_dkernel(torch, decode_attention, ref) -> dict:
           f"{res['bound_ms']:.5f} ms ({res['bound_by']})  rounds {rounds}",
           flush=True)
     print(f"decode_attention wrapper: {host:.2f} host us per call (1000 "
-          f"calls at the main shape)", flush=True)
+          f"calls at {what}'s shape)", flush=True)
     return res
 
 
@@ -1392,62 +1486,82 @@ def serve_path(torch, exp, serve, ops, linear_recurrence, ref, model, fleet,
             "completed": done}
 
 
-def qwen_serve_path(torch, exp, serve, ops, flash_attention, decode_attention,
-                    ref, model, fleet, counters) -> dict:
-    """Slice 5's main path: serve_fleet over the qwen1.5-0.5b fleet with
-    every kernel's count from 0.  It must complete 8 requests of 128 tokens
-    with exactly 24 flash_attention launches per prefill (one per layer), 24
-    decode_attention launches per slot and token after the first, and no
-    other kernel.  The inputs of the first prefill's first layer (q, k, v)
-    and of the first decode step's first layer (q and a copy of the cache it
-    read) are kept, and each kernel is held to its plain version on them
+def layer_kinds(cfg) -> dict:
+    """How many layers of each kind the config stacks (units + remainder)."""
+    units, rem = cfg.units_and_rem
+    kinds = list(cfg.pattern) * units + list(cfg.pattern[:rem])
+    return {k: kinds.count(k) for k in sorted(set(kinds))}
+
+
+def attention_serve_path(torch, exp, serve, ops, flash_attention,
+                         decode_attention, linear_recurrence, ref, model,
+                         fleet, counters, sv: dict, label: str) -> dict:
+    """Slice 5's and slice 8's main paths: serve_fleet over the qwen1.5-0.5b
+    or the recurrentgemma-2b fleet with every kernel's count from 0.  It must
+    complete ``sv['requests']`` requests of ``sv['max_new']`` tokens with
+    exactly one flash_attention launch per attention layer and prefill, one
+    decode_attention launch per attention layer, slot and token after the
+    first, one linear_recurrence launch per rglru layer and prefill (a
+    decode step's one token takes the chunked scan), and no other kernel.
+    The inputs of the first prefill's first attention layer (q, k, v), of
+    the first decode step's first attention layer (q and a copy of the
+    cache it read) and of the first prefill's first rglru layer (a, b) are
+    kept, and each kernel is held to its plain version on them
     afterwards."""
-    spec = exp.ServeSpec(**QSERVE)
+    spec = exp.ServeSpec(**sv)
     captured = {}
-    real_attention, real_decode = ops.attention, ops.decode_attention
+    real = {"attention": ops.attention, "decode": ops.decode_attention,
+            "linrec": ops.linear_recurrence}
 
     def capture_attention(q, k, v, **kw):
-        if "flash" not in captured:
-            captured["flash"] = (q, k, v, kw)
-        return real_attention(q, k, v, **kw)
+        captured.setdefault("flash", (q, k, v, kw))
+        return real["attention"](q, k, v, **kw)
 
     def capture_decode(q, k, v, kpos, pos, **kw):
         if "decode" not in captured:
             captured["decode"] = (q, k.clone(), v.clone(), kpos.clone(), pos,
                                   kw)
-        return real_decode(q, k, v, kpos, pos, **kw)
+        return real["decode"](q, k, v, kpos, pos, **kw)
+
+    def capture_linrec(a, b):
+        captured.setdefault("linrec", (a, b))
+        return real["linrec"](a, b)
 
     for c in counters.values():
         c.launches = 0
     torch.cuda.reset_peak_memory_stats()
     ops.attention, ops.decode_attention = capture_attention, capture_decode
+    ops.linear_recurrence = capture_linrec
     try:
         res = serve.serve_fleet(model, fleet, spec)
     finally:
-        ops.attention, ops.decode_attention = real_attention, real_decode
+        ops.attention, ops.decode_attention = real["attention"], real["decode"]
+        ops.linear_recurrence = real["linrec"]
     launches = {k: c.launches for k, c in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    layers, n = model.cfg.num_layers, QSERVE["requests"]
-    want = {"flash_attention": layers * n,
-            "decode_attention": layers * n * (QSERVE["max_new"] - 1)}
+    kinds, n = layer_kinds(model.cfg), sv["requests"]
+    want = {"flash_attention": kinds.get("attn", 0) * n,
+            "decode_attention": kinds.get("attn", 0) * n * (sv["max_new"] - 1),
+            "linear_recurrence": kinds.get("rglru", 0) * n}
+    want = {k: w for k, w in want.items() if w}
     if any(launches[k] != w for k, w in want.items()) or \
             sum(launches.values()) != sum(want.values()):
-        fail(f"qwen serve path launched {launches}; {n} prefills and "
-             f"{n * (QSERVE['max_new'] - 1)} slot-token decodes of {layers} "
-             f"attention layers need {want} and nothing else")
+        fail(f"{label} launched {launches}; {n} prefills and "
+             f"{n * (sv['max_new'] - 1)} slot-token decodes of {kinds} layers "
+             f"need {want} and nothing else")
     done = res.completed
     vocab = model.cfg.vocab_size
     if [c["rid"] for c in done] != list(range(n)) or any(
-            len(c["tokens"]) != QSERVE["max_new"]
+            len(c["tokens"]) != sv["max_new"]
             or not all(0 <= t < vocab for t in c["tokens"]) for c in done):
-        fail(f"qwen serve path did not complete {n} requests of "
-             f"{QSERVE['max_new']} tokens: {done}")
+        fail(f"{label} did not complete {n} requests of {sv['max_new']} "
+             f"tokens: {done}")
     q, k, v, kw = captured["flash"]
     err_f = acompare(torch, "flash_attention on the serve path's first layer "
                      "inputs", flash_attention.flash_attention(q, k, v, **kw),
                      ref.attention_ref(q, k, v, **kw),
                      serve="flash_attention")
-    f_shape = tuple(q.shape)
+    f_shape = (tuple(q.shape), tuple(k.shape), kw)
     q, k, v, kpos, pos, kw = captured["decode"]
     err_d = acompare(torch, "decode_attention on the serve path's first "
                      "decode inputs", decode_attention.decode_attention(
@@ -1455,19 +1569,67 @@ def qwen_serve_path(torch, exp, serve, ops, flash_attention, decode_attention,
                      ref.decode_attention_ref(q, k, v, kpos, pos, **kw),
                      serve="decode_attention")
     d_shape = (tuple(q.shape), tuple(k.shape), pos,
-               int((kpos >= 0).sum()))
+               int((kpos >= 0).sum()), kw)
+    checks = (f"kernel check: flash_attention == plain on the serve path's "
+              f"first layer inputs {f_shape} (max_abs_err {err_f:.3e}); "
+              f"decode_attention == plain on its first decode's (q, cache, "
+              f"pos, filled slots) {d_shape} (max_abs_err {err_d:.3e})")
+    errs = {"flash_attention": err_f, "decode_attention": err_d}
+    if "linrec" in captured:
+        a, b = captured["linrec"]
+        errs["linear_recurrence"] = lequal(
+            torch, "on the serve path's first rglru layer inputs",
+            linear_recurrence.linear_recurrence(a, b),
+            ref.linear_recurrence_ref(a, b))
+        checks += (f"; linear_recurrence bit-equal to plain on its first "
+                   f"rglru layer's inputs {tuple(a.shape)}")
+        del a, b
     del captured, q, k, v, kpos
     torch.cuda.empty_cache()
-    print(f"qwen serve path: qwen1.5-0.5b, {spec}", flush=True)
-    print(f"qwen serve path: throughput {res.throughput}  peak device memory "
+    print(f"{label}: {model.cfg.name}, {spec}", flush=True)
+    print(f"{label}: throughput {res.throughput}  peak device memory "
           f"{peak_gb:.3f} GB  launches {launches}  nodes "
           f"{[c['node'] for c in done]}  tokens of rid 0 {done[0]['tokens']}",
           flush=True)
-    print(f"kernel check: flash_attention == plain on the serve path's first "
-          f"layer inputs {f_shape} (max_abs_err {err_f:.3e}); "
-          f"decode_attention == plain on its first decode's (q, cache, pos, filled slots) "
-          f"{d_shape} (max_abs_err {err_d:.3e})", flush=True)
-    return {"launches": launches, "peak_gb": peak_gb, "completed": done}
+    print(checks, flush=True)
+    return {"launches": launches, "peak_gb": peak_gb, "completed": done,
+            "max_abs_err": errs, "throughput": res.throughput}
+
+
+def serve_cli_path(torch, serve_cli, counters) -> dict:
+    """The serve entry point: ``repro_torch.launch.serve.main`` on
+    SERVE_CLI_ARGV (on the card, its default device) trains a qwen1.5-0.5b
+    fleet of 4 at full width for SERVE_CLI_STEPS MC-DSGT steps through
+    gossip_mix (2 launches a step) and serves 8 requests from it in bf16,
+    through the model's plain attention (the trained config's use_pallas is
+    off, as in the reference): every count from 0, gossip_mix alone
+    launched, all 8 requests completed."""
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = serve_cli.main(list(SERVE_CLI_ARGV))
+    wall = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    if launches["gossip_mix"] != 2 * SERVE_CLI_STEPS or \
+            sum(launches.values()) != 2 * SERVE_CLI_STEPS:
+        fail(f"serve CLI path launched {launches}; {SERVE_CLI_STEPS} MC-DSGT "
+             "steps need 2 gossip_mix each and nothing else")
+    done = res.completed
+    if [c["rid"] for c in done] != list(range(8)) or any(
+            len(c["tokens"]) != 16 for c in done):
+        fail(f"serve CLI path did not complete 8 requests of 16 tokens: "
+             f"{done}")
+    print(f"serve CLI path: python -m repro_torch.launch.serve "
+          f"{' '.join(SERVE_CLI_ARGV)}", flush=True)
+    print(f"serve CLI path: throughput {res.throughput}  wall {wall:.2f} s "
+          f"(training and serving)  peak device memory {peak_gb:.3f} GB  "
+          f"launches {launches} ({launches['gossip_mix'] / SERVE_CLI_STEPS:g} "
+          f"gossip_mix per step)  tokens of rid 0 {done[0]['tokens']}",
+          flush=True)
+    return {"launches": launches, "peak_gb": peak_gb,
+            "throughput": res.throughput}
 
 
 def serve_alone(torch, model, fleet, tree, req, max_new):
@@ -1581,7 +1743,7 @@ def main():
                                      flash_attention, gossip_matmul,
                                      linear_recurrence, ops, quantized_gossip,
                                      ref, sparse_gossip)
-    from repro_torch.launch import train
+    from repro_torch.launch import serve as serve_cli, train
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -1592,7 +1754,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    t0 = time.perf_counter()
+    t_start = t0 = time.perf_counter()
     build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s "
           f"(nvcc per source, in parallel: {build.BUILD_SECONDS})", flush=True)
@@ -1604,11 +1766,17 @@ def main():
     check_skernel(torch, sparse_gossip, ref, ops)
     check_lkernel(torch, linear_recurrence, ref)
     lkern = time_lkernel(torch, linear_recurrence, ref)
+    lkern_rg = time_lkernel(torch, linear_recurrence, ref, LINREC_RG,
+                            "one recurrentgemma rglru layer")
     print_attention_resources(torch, flash_attention, decode_attention)
     check_fkernel(torch, flash_attention, ref)
     fkern = time_fkernel(torch, flash_attention, ref)
+    fkern_rg = time_fkernel(torch, flash_attention, ref, FLASH_RG, RG_WINDOW,
+                            "one recurrentgemma prefill layer")
     check_dkernel(torch, decode_attention, ref)
     dkern = time_dkernel(torch, decode_attention, ref)
+    dkern_rg = time_dkernel(torch, decode_attention, ref, DECODE_RG,
+                            RG_WINDOW, "one recurrentgemma decode layer")
     print(f"device_ms: launches the profiler did not record in the kernel "
           f"timings above: {device_ms.lost_total}", flush=True)
     check_small_run(torch, exp)
@@ -1658,12 +1826,33 @@ def main():
 
     model, fleet = draw_fleet(torch, models, configs, tree, "qwen1.5-0.5b",
                               QWEN_PARAMS, QSERVE["fleet"])
-    qserved = qwen_serve_path(torch, exp, serve, ops, flash_attention,
-                              decode_attention, ref, model, fleet, counters)
+    qserved = attention_serve_path(torch, exp, serve, ops, flash_attention,
+                                   decode_attention, linear_recurrence, ref,
+                                   model, fleet, counters, QSERVE,
+                                   "qwen serve path")
     check_sequential(torch, exp, serve, model, fleet, tree,
                      qserved["completed"], QSERVE)
     profile_serve(torch, model, fleet, tree, QSERVE,
                   ("flash_attention", "decode_attention"))
+    del model, fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    served_cli = serve_cli_path(torch, serve_cli, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    model, fleet = draw_fleet(torch, models, configs, tree,
+                              "recurrentgemma-2b", RG_PARAMS,
+                              RGSERVE["fleet"])
+    rgserved = attention_serve_path(torch, exp, serve, ops, flash_attention,
+                                    decode_attention, linear_recurrence, ref,
+                                    model, fleet, counters, RGSERVE,
+                                    "recurrentgemma serve path")
+    check_sequential(torch, exp, serve, model, fleet, tree,
+                     rgserved["completed"], RGSERVE)
+    profile_serve(torch, model, fleet, tree, RGSERVE,
+                  ("linear_recurrence", "flash_attention", "decode_attention"))
     del model, fleet
 
     rows = [
@@ -1737,6 +1926,29 @@ def main():
          "torch.profiler, the cache cold in L2; library = "
          "scaled_dot_product_attention with a boolean mask from kpos"},
     ]
+    # the same three kernels at recurrentgemma-2b's serve shapes
+    rg_n, rg_new = RGSERVE["requests"], RGSERVE["max_new"]
+    for name, kern, per, unit in (
+            ("linear_recurrence", lkern_rg, rg_n, "launches_per_prefill"),
+            ("flash_attention", fkern_rg, rg_n, "launches_per_prefill"),
+            ("decode_attention", dkern_rg, rg_n * (rg_new - 1),
+             "launches_per_slot_token")):
+        base = next(r for r in rows if r["name"] == name)
+        row = {k: base[k] for k in ("name", "route", "source", "replaces")}
+        row.update(
+            path="recurrentgemma-2b serve",
+            launches=rgserved["launches"][name],
+            max_abs_err=kern["max_abs_err"], ms=kern["ms"],
+            plain_ms=kern["plain_ms"], bound_ms=kern["bound_ms"],
+            bound_by=kern["bound_by"], library_ms=kern["library_ms"],
+            shape=kern["shape"])
+        row[unit] = rgserved["launches"][name] / per
+        if "wrapper_host_us" in kern:
+            row.update(wrapper_host_us=kern["wrapper_host_us"],
+                       timed=base["timed"])
+        rows.append(row)
+    print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
+          "(kernels' build included)", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,8 +1,9 @@
 """Architecture config registry: resolve --arch <id> to a ModelConfig.
 
-The port trains the dense qwen1.5-0.5b and serves the mamba falcon-mamba-7b;
-the other architectures of the JAX package's registry come with their model
-families (ROADMAP.md Queue 1)."""
+The port trains the dense qwen1.5-0.5b and serves it, the mamba
+falcon-mamba-7b and the hybrid recurrentgemma-2b; the other architectures of
+the JAX package's registry come with their model families (ROADMAP.md
+Queue 1)."""
 from .base import INPUT_SHAPES, InputShape, ModelConfig  # noqa: F401
 
 _REGISTRY = {}
@@ -29,4 +30,4 @@ def names() -> list:
 
 
 def _load_all():
-    from . import falcon_mamba_7b, qwen1_5_0_5b  # noqa: F401
+    from . import falcon_mamba_7b, qwen1_5_0_5b, recurrentgemma_2b  # noqa: F401

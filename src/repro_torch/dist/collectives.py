@@ -57,9 +57,13 @@ class FlatLayout:
         return row
 
     def views(self, row: torch.Tensor) -> dict:
-        """The parameter tree as views into ``row`` (no copy)."""
-        return tree.build((path, row[off:off + math.prod(shape)].view(shape))
-                          for path, shape, off in self.entries)
+        """The parameter tree as views into ``row`` (no copy): a (D,) row,
+        or (..., D) rows whose leading axes (e.g. a fleet's) lead every
+        leaf."""
+        lead = tuple(row.shape[:-1])
+        return tree.build(
+            (path, row[..., off:off + math.prod(shape)].view(lead + shape))
+            for path, shape, off in self.entries)
 
     def grad_leaves(self, xrow: torch.Tensor, grow: torch.Tensor) -> dict:
         """Parameters for one node's backward pass: every leaf a view into

@@ -68,8 +68,7 @@ def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
                                   "ported yet (ROADMAP.md Queue 1 item 3)")
     if gossip_impl not in GOSSIP_IMPLS:
         raise ValueError(f"unknown gossip_impl {gossip_impl!r}")
-    layout = coll.FlatLayout(
-        model.shapes, align=compression.group if compression else 1)
+    layout = flat_layout(model, compression)
 
     def _mix(Ws, mat):
         with torch.no_grad():
@@ -131,6 +130,14 @@ def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
         return _to_train(es), {"loss": loss}
 
     return init_state, warm_start, step
+
+
+def flat_layout(model, compression=None) -> coll.FlatLayout:
+    """Where each parameter leaf lives in a row of the flat (n, D) state
+    that :func:`make_train_step` trains: every leaf aligned to the
+    compression group when compressing."""
+    return coll.FlatLayout(model.shapes,
+                           align=compression.group if compression else 1)
 
 
 def _to_engine(s: TrainState) -> engine.EngineState:

@@ -2,7 +2,8 @@
 
 The spec tree, its JSON and ``spec_hash`` are the JAX package's (a copy), so
 one spec file describes the same run in both packages; ``run(spec,
-device=...)`` trains it with the port on the given device.
+device=...)`` trains it with the port on the given device, and serves the
+trained fleet when the spec enables a serve phase.
 """
 
 from .build import Built, Result, build, resolve_device, run  # noqa: F401
@@ -14,6 +15,8 @@ from .registry import (  # noqa: F401
     LOCAL_OPTS,
     MODEL_KINDS,
     OBS_METRICS,
+    ROUTING_POLICIES,
+    SERVE_DTYPES,
     TOPOLOGIES,
     build_compression,
     build_topology,

@@ -14,24 +14,29 @@ telemetry recorder) and the pieces of the runtime ``model.kind`` selects:
   regression driven by :func:`repro_torch.core.driver.run_algorithm`, so
   far on the sampled-client ``random-sampled`` family only.
 
-``run`` trains.  The device is a runtime argument, not a spec field, so a
-spec hashes the same in both packages.  It defaults to ``"cuda"``; without
-a GPU that raises unless the caller asked for the CPU.
+``run`` trains, then, when ``spec.serve`` enables it, serves the first
+``serve.fleet`` trained node models with continuous batching
+(:func:`repro_torch.serve.serve_fleet`, what ``launch/serve.py`` runs).
+The device is a runtime argument, not a spec field, so a spec hashes the
+same in both packages.  It defaults to ``"cuda"``; without a GPU that
+raises unless the caller asked for the CPU.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import time
 from typing import Any, NamedTuple, Optional
 
 import torch
 
-from .. import configs
+from .. import configs, tree
 from ..core import algorithms as alg, compress, driver, engine
 from ..data import logreg_dataset, logreg_loss_and_grad, token_stream_for
 from ..dist import collectives as coll, steps as dsteps
 from ..models import build as build_model
+from ..obs import console as obs_console
 from . import registry
 from .spec import ExperimentSpec
 
@@ -40,13 +45,16 @@ class Result(NamedTuple):
     """``history``: one dict per logged step (loss, consensus, sec) for
     ``arch``; ``(T, eval)`` pairs for ``logreg``.  ``built`` is the realized
     scenario; ``telemetry`` the mixing-telemetry recorder when the scenario
-    has one (the edge-list families)."""
+    has one (the edge-list families).  ``serve`` is the
+    :class:`repro_torch.serve.ServeResult` of the post-training serve phase
+    when ``spec.serve`` enables one, else None."""
 
     state: Any
     history: list
     spec: ExperimentSpec
     built: "Built" = None
     telemetry: Any = None
+    serve: Any = None
 
 
 @dataclasses.dataclass
@@ -105,6 +113,11 @@ class Built:
             out["senders_per_round"] = {
                 "min": int(snd.min()), "max": int(snd.max()),
                 "mean": round(float(snd.mean()), 1)}
+        sv = self.spec.serve
+        if sv.enabled:
+            out["serve"] = {"requests": sv.requests,
+                            "fleet": sv.fleet or self.spec.run.nodes,
+                            "batch": sv.batch, "routing": sv.routing}
         return out
 
 
@@ -173,6 +186,20 @@ def _validate(spec: ExperimentSpec) -> None:
         raise ValueError(f"compression.group={c.group}: must be >= 1")
     if c.warmup < 0:
         raise ValueError(f"compression.warmup={c.warmup}: must be >= 0")
+    s = spec.serve
+    if s.requests < 0:
+        raise ValueError(f"serve.requests={s.requests}: must be >= 0")
+    if s.enabled:
+        if m.kind != "arch":
+            raise ValueError("serve.requests > 0 needs the 'arch' runtime: "
+                             "serving decodes a trained transformer fleet "
+                             f"(model.kind={m.kind!r})")
+        if s.batch < 1 or s.max_new < 1 or s.prompt_len < 1:
+            raise ValueError("serve.batch/max_new/prompt_len must be >= 1 "
+                             f"(got {s.batch}/{s.max_new}/{s.prompt_len})")
+        if not 0 <= s.fleet <= r.nodes:
+            raise ValueError(f"serve.fleet={s.fleet}: must be 0 (= all "
+                             f"run.nodes) or <= run.nodes={r.nodes}")
 
 
 def _check_ported(spec: ExperimentSpec) -> None:
@@ -206,7 +233,6 @@ def _check_ported(spec: ExperimentSpec) -> None:
         (spec.data.hetero_alpha is not None,
          "data.hetero_alpha", 1 if logreg else 9),
         (bool(r.checkpoint or r.restore), "run.checkpoint / restore", 10),
-        (spec.serve.enabled, "serve", 11),
     ]
     for used, what, item in unported:
         if used:
@@ -263,6 +289,8 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Built:
         if spec.model.preset == "reduced":
             cfg = cfg.reduced()
         built.cfg, built.model = cfg, build_model(cfg)
+        built.state_dim = sum(math.prod(shape)
+                              for _, shape in tree.items(built.model.shapes))
         built.stream = token_stream_for(
             cfg, n, R, spec.data.batch, spec.data.seq, seed=rs.seed,
             active_vocab=spec.data.active_vocab, device=dev)
@@ -280,14 +308,20 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Built:
 
 
 def run(spec: ExperimentSpec, *, device="cuda", quiet: bool = False) -> Result:
-    """Build and train ``spec`` end to end on ``device``.  Float32 matrix
-    products run in full f32 (TF32 off), as the reference's numerics need."""
+    """Build and train ``spec`` end to end on ``device``, then serve the
+    trained fleet when ``spec.serve`` enables a serve phase.  Float32
+    matrix products run in full f32 (TF32 off), as the reference's
+    numerics need."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     built = build(spec, device=device)
     if spec.model.kind == "arch":
-        return _run_arch(built, quiet=quiet)
-    return _run_logreg(built, quiet=quiet)
+        res = _run_arch(built, quiet=quiet)
+    else:
+        res = _run_logreg(built, quiet=quiet)
+    if spec.serve.enabled:
+        res = res._replace(serve=_run_serve(built, res.state, quiet=quiet))
+    return res
 
 
 def _run_logreg(built: Built, *, quiet: bool = False) -> Result:
@@ -350,3 +384,24 @@ def _run_arch(built: Built, *, quiet: bool = False) -> Result:
         extra_fn=lambda k: built.stream.batch_at(k + 1), record=record,
         sync=sync)
     return Result(state=state, history=history, spec=spec, built=built)
+
+
+def _run_serve(built: Built, state, *, quiet: bool = False):
+    """The post-training serve phase: the first ``serve.fleet`` node copies
+    of the trained flat state, as views of its rows (no copy), served with
+    continuous batching (:func:`repro_torch.serve.serve_fleet`).  As in the
+    reference, the model's kernel policy is the trained config's:
+    ``use_pallas`` is not set for serving."""
+    from ..serve import serve_fleet
+
+    sv = built.spec.serve
+    F = sv.fleet or built.spec.run.nodes
+    layout = dsteps.flat_layout(built.model, built.rule.compression)
+    res = serve_fleet(built.model, layout.views(state.x[:F]), sv)
+    con = obs_console.Console(quiet=quiet)
+    tp = res.throughput
+    con.print(f"served {tp['requests']} requests over fleet {res.fleet}  "
+              f"decode {tp['decode_tok_s']:.0f} tok/s  "
+              f"p50 {tp['latency_p50_ms']:.1f}ms  "
+              f"p95 {tp['latency_p95_ms']:.1f}ms")
+    return res

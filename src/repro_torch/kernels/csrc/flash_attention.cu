@@ -40,7 +40,9 @@
 //   columns with the matching swizzle (128 B, or 64 B), two boxes per tile
 //   at hd 128; the wgmma descriptors name the same swizzle.  Blocks take the
 //   heads fastest and the q-tiles from the last (the longest causal walk)
-//   to the first.
+//   to the first.  At hd 256 (recurrentgemma-2b) the tiles halve: a block
+//   of 160 threads, one consumer warpgroup of 64 query rows, 64-key tiles
+//   in a 3-stage ring (see Cfg); the rest is the same code.
 // * f32: the SIMT kernel of the first port.  wgmma on f32 is TF32, too
 //   coarse for the f32 tolerance; a block of 128 threads holds a 64-row
 //   q-tile and 64-key K and V tiles in shared memory, products as f32 FMAs.
@@ -62,9 +64,11 @@
 // the mean of v over all Sk keys from the reference, so a q-tile holding
 // such a row (only possible with a window and Sq > Sk) visits every tile.
 //
-// What bounds it on this card: operations.  At the serve path's prefill
-// (1, 1920, 16, 64) bf16, causal, the QK^T and PV products are 7.55 GFLOP,
-// 7.6 us at the 989 TFLOP/s of bf16 wgmma, against ~16 MB moved (4.7 us).
+// What bounds it on this card: operations.  At the qwen1.5-0.5b serve
+// path's prefill (1, 1920, 16, 64) bf16, causal, the QK^T and PV products
+// are 7.55 GFLOP, 7.6 us at the 989 TFLOP/s of bf16 wgmma, against ~16 MB
+// moved (4.7 us); at recurrentgemma-2b's (1, 3968, 10 over 1 KV head, 256)
+// bf16 with a 2048-key window, 61.8 GFLOP, 62.5 us, against ~22 MB.
 //
 // Plain C interface, built by nvcc and loaded with ctypes (kernels/build.py);
 // the TMA descriptors are encoded on the host by cuTensorMapEncodeTiled,
@@ -261,24 +265,35 @@ __global__ void __launch_bounds__(kThreads)
 
 namespace tc {
 
-constexpr int kBM = 128;            // query rows per block
-constexpr int kBN = 128;            // keys per tile
-constexpr int kStages = 2;          // K / V ring
-constexpr int kConsumers = 256;     // two warpgroups of 64 rows
-constexpr int kThreads = kConsumers + 32;   // + the producer warp
-
+// The tiling by head_dim.  Up to hd 128: 128-row q-tiles of two consumer
+// warpgroups, 128-key tiles, a 2-stage ring.  At hd 256 a 128 x 256 tile is
+// 64 KB and an O accumulator of 64 rows x 256 f32 takes 128 registers a
+// thread, which beside a 64 x 128 S fragment exceeds the 168 registers that
+// 288 threads leave: one consumer warpgroup of 64 rows, 64-key tiles (an S
+// fragment of 32 registers) and a 3-stage ring (Q 32 KB + 3 x (K + V) of
+// 32 KB each = 224 KB).
 template <int HD>
 struct Cfg {
+  static constexpr bool WIDE = HD > 128;
+  static constexpr int BM = WIDE ? 64 : 128;        // query rows per block
+  static constexpr int BN = WIDE ? 64 : 128;        // keys per tile
+  static constexpr int STAGES = WIDE ? 3 : 2;       // K / V ring
+  static constexpr int CONSUMERS = 2 * BM;          // a warpgroup / 64 rows
+  static constexpr int THREADS = CONSUMERS + 32;    // + the producer warp
+  static constexpr int NS = BN / 2;                 // S fragment per thread
+  static constexpr int KSTEPS = BN / 16;            // k-steps of PV
   static constexpr int BC = HD < 64 ? HD : 64;      // columns per TMA box
   static constexpr int NB = HD / BC;                // boxes per tile
   static constexpr int ROW_BYTES = BC * 2;          // one swizzle row
-  static constexpr int BOX_BYTES = kBN * ROW_BYTES; // kBM == kBN rows
+  static constexpr int BOX_BYTES = BN * ROW_BYTES;  // BM == BN rows
   static constexpr int TILE_BYTES = NB * BOX_BYTES;
   static constexpr uint64_t LAYOUT = ROW_BYTES == 128 ? 1 : 2;  // B128, B64
   static constexpr int SBO = 8 * ROW_BYTES;         // next 8-row group
-  // Q, K and V per stage, 9 mbarriers; 1024 to align the tiles
+  // Q, K and V per stage, 4 STAGES + 1 mbarriers; 1024 to align the tiles
   static constexpr int SMEM_BYTES =
-      1024 + TILE_BYTES * (1 + 2 * kStages) + 128;
+      1024 + TILE_BYTES * (1 + 2 * STAGES) + 128;
+  static_assert(BM == BN, "Q and K tiles share the TMA box");
+  static_assert(SMEM_BYTES <= 232448, "a block's shared memory");
 };
 
 // A wgmma shared-memory descriptor: start address, leading byte offset 16
@@ -338,6 +353,25 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
+// D (64 x 64, f32) {+}= A (64 x 16) . B^T (16 x 64), A and B in shared
+// memory, both K-major.  scale_d = 0 overwrites D.
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da,
+                                                 uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
 // D (64 x 64, f32) += A (64 x 16, bf16 in registers) . B (16 x 64), B in
 // shared memory, MN-major (its 64 columns contiguous).
 __device__ __forceinline__ void wgmma_m64n64k16_rs(float (&d)[32],
@@ -385,8 +419,10 @@ struct Rows {
 // One tile's raw scores s (q.k) to p = 2^(s scale log2(e) - m_new), in
 // place: masks (a whole tile, every key valid for every row, takes none),
 // row max over the quad, m, l (this thread's columns only; the quad's sum
-// is taken at the end) and the rows' alpha = 2^(m_prev - m_new).
-__device__ __forceinline__ void softmax_tile(float (&s)[64], Rows& r,
+// is taken at the end) and the rows' alpha = 2^(m_prev - m_new).  N = the
+// tile's keys / 2 fragment values, 4 per block of 8 keys.
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&s)[N], Rows& r,
                                              float& alpha_a, float& alpha_b,
                                              bool whole, int k0, int row_a,
                                              int cq, int Sk, int causal,
@@ -395,7 +431,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], Rows& r,
   if (whole) {
     // max(s) c == max(s c) for c > 0: scale the max, fold c into the exp
 #pragma unroll
-    for (int j = 0; j < 16; ++j) {
+    for (int j = 0; j < N / 4; ++j) {
       mx_a = fmaxf(mx_a, fmaxf(s[4 * j], s[4 * j + 1]));
       mx_b = fmaxf(mx_b, fmaxf(s[4 * j + 2], s[4 * j + 3]));
     }
@@ -403,7 +439,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], Rows& r,
     mx_b *= c;
   } else {
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
+    for (int j = 0; j < N / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         float& x = s[4 * j + e];
@@ -431,7 +467,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], Rows& r,
   const float cs = whole ? c : 1.f;   // the masked scores are scaled
   float sum_a = 0.f, sum_b = 0.f;
 #pragma unroll
-  for (int j = 0; j < 16; ++j) {
+  for (int j = 0; j < N / 4; ++j) {
     s[4 * j] = ex2(fmaf(s[4 * j], cs, -mn_a));
     s[4 * j + 1] = ex2(fmaf(s[4 * j + 1], cs, -mn_a));
     s[4 * j + 2] = ex2(fmaf(s[4 * j + 2], cs, -mn_b));
@@ -444,7 +480,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[64], Rows& r,
 }
 
 template <int HD>
-__global__ void __launch_bounds__(kThreads, 1)
+__global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
     flash_attention_tc_kernel(const __grid_constant__ CUtensorMap tq,
                               const __grid_constant__ CUtensorMap tk,
                               const __grid_constant__ CUtensorMap tv,
@@ -452,7 +488,9 @@ __global__ void __launch_bounds__(kThreads, 1)
                               int H, int KV, int causal, int window,
                               float scale_log2) {
   using Cf = Cfg<HD>;
-  constexpr int BC = Cf::BC, NB = Cf::NB;
+  constexpr int BC = Cf::BC, NB = Cf::NB, kBM = Cf::BM, kBN = Cf::BN;
+  constexpr int kStages = Cf::STAGES, kConsumers = Cf::CONSUMERS;
+  constexpr int KSTEPS = Cf::KSTEPS;
   extern __shared__ __align__(1024) unsigned char smem_raw[];
   unsigned char* base =
       smem_raw + ((1024 - (smem_addr(smem_raw) & 1023)) & 1023);
@@ -529,12 +567,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int x = 0; x < NB; ++x)
 #pragma unroll
       for (int i = 0; i < BC / 2; ++i) oacc[x][i] = 0.f;
-    float s[64];           // S of one tile, then its p
-    uint32_t pa[8][4];     // p as bf16 A fragments: keys 16 kk .. 16 kk + 15
+    float s[Cf::NS];       // S of one tile, then its p
+    uint32_t pa[KSTEPS][4];   // p as bf16 A fragments: keys 16 kk .. + 15
     Rows rows = {kNegInf, kNegInf, 0.f, 0.f};
     float alpha_a, alpha_b;
 
-    // S = Q K_i^T (64 x 128 per warpgroup), HD / 16 k-steps
+    // S = Q K_i^T (64 x kBN per warpgroup), HD / 16 k-steps
     auto issue_qk = [&](int i) {
       const uint32_t k_addr = smem_addr(sK(i % kStages));
       wg_fence();
@@ -542,17 +580,21 @@ __global__ void __launch_bounds__(kThreads, 1)
       for (int ks = 0; ks < HD / 16; ++ks) {
         const uint32_t off =
             (ks * 16 / BC) * Cf::BOX_BYTES + (ks * 16 % BC) * 2;
-        wgmma_m64n128k16_ss(s, desc(q_addr + off, Cf::SBO, Cf::LAYOUT),
-                            desc(k_addr + off, Cf::SBO, Cf::LAYOUT), ks > 0);
+        const uint64_t da = desc(q_addr + off, Cf::SBO, Cf::LAYOUT);
+        const uint64_t db = desc(k_addr + off, Cf::SBO, Cf::LAYOUT);
+        if constexpr (kBN == 128)
+          wgmma_m64n128k16_ss(s, da, db, ks > 0);
+        else
+          wgmma_m64n64k16_ss(s, da, db, ks > 0);
       }
       wg_commit();
     };
-    // O += P V_i: 8 k-steps of 16 keys, V's rows 16 kk .. in each box
+    // O += P V_i: KSTEPS k-steps of 16 keys, V's rows 16 kk .. in each box
     auto issue_pv = [&](int i) {
       const uint32_t v_addr = smem_addr(sK(i % kStages)) + Cf::TILE_BYTES;
       wg_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < KSTEPS; ++kk)
 #pragma unroll
         for (int x = 0; x < NB; ++x) {
           const uint64_t db =
@@ -571,7 +613,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll
       for (int x = 0; x < NB; ++x) reg_fence(oacc[x]);
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
+      for (int kk = 0; kk < KSTEPS; ++kk)
 #pragma unroll
         for (int e = 0; e < 4; ++e)
           asm volatile("" : "+r"(pa[kk][e])::"memory");
@@ -586,7 +628,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     };
     auto pack_p = [&]() {
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
+      for (int kk = 0; kk < KSTEPS; ++kk) {
         pa[kk][0] = pack_bf16(s[8 * kk], s[8 * kk + 1]);
         pa[kk][1] = pack_bf16(s[8 * kk + 2], s[8 * kk + 3]);
         pa[kk][2] = pack_bf16(s[8 * kk + 4], s[8 * kk + 5]);
@@ -691,10 +733,10 @@ EncodeTiled encode_tiled() {
 }
 
 // The (hd, heads, S, B) view of a contiguous (B, S, heads, hd) bf16 tensor,
-// cut in boxes of `box` columns x 128 rows of one head and batch; rows past
-// S read as zeros.
+// cut in boxes of `box` columns x `rows` rows of one head and batch; rows
+// past S read as zeros.
 bool tensor_map(CUtensorMap* map, const void* ptr, int hd, int heads, int S,
-                int B, int box) {
+                int B, int box, int rows) {
   const EncodeTiled encode = encode_tiled();
   if (!encode) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)hd, (cuuint64_t)heads,
@@ -702,7 +744,7 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int hd, int heads, int S,
   const cuuint64_t strides[3] = {(cuuint64_t)hd * 2,
                                  (cuuint64_t)heads * hd * 2,
                                  (cuuint64_t)S * heads * hd * 2};
-  const cuuint32_t boxes[4] = {(cuuint32_t)box, 1, (cuuint32_t)kBN, 1};
+  const cuuint32_t boxes[4] = {(cuuint32_t)box, 1, (cuuint32_t)rows, 1};
   const cuuint32_t unit[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
                 const_cast<void*>(ptr), dims, strides, boxes, unit,
@@ -717,16 +759,17 @@ template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    int B, int Sq, int Sk, int H, int KV, int causal,
                    int window, float scale, cudaStream_t stream) {
-  constexpr int smem = Cfg<HD>::SMEM_BYTES;
+  using Cf = Cfg<HD>;
+  constexpr int smem = Cf::SMEM_BYTES;
   cudaError_t err = allow_smem<flash_attention_tc_kernel<HD>>(smem);
   if (err != cudaSuccess) return err;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, HD, H, Sq, B, Cfg<HD>::BC) ||
-      !tensor_map(&tk, k, HD, KV, Sk, B, Cfg<HD>::BC) ||
-      !tensor_map(&tv, v, HD, KV, Sk, B, Cfg<HD>::BC))
+  if (!tensor_map(&tq, q, HD, H, Sq, B, Cf::BC, Cf::BM) ||
+      !tensor_map(&tk, k, HD, KV, Sk, B, Cf::BC, Cf::BN) ||
+      !tensor_map(&tv, v, HD, KV, Sk, B, Cf::BC, Cf::BN))
     return cudaErrorInvalidValue;
-  const dim3 grid(H, (Sq + kBM - 1) / kBM, B);
-  flash_attention_tc_kernel<HD><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid(H, (Sq + Cf::BM - 1) / Cf::BM, B);
+  flash_attention_tc_kernel<HD><<<grid, Cf::THREADS, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(o), Sq, Sk, H, KV, causal,
       window, scale * 1.4426950408889634f);
   return cudaGetLastError();
@@ -753,8 +796,8 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // q: (B, Sq, H, hd), k and v: (B, Sk, KV, hd), o: (B, Sq, H, hd), all
 // contiguous, 16-byte aligned and of one dtype: f32 (dtype 0, the SIMT
-// kernel) or bf16 (dtype 1, the tensor-core kernel); hd 32, 64 or 128; KV
-// divides H.  window 0 = none.  Launches on `stream` and returns the
+// kernel) or bf16 (dtype 1, the tensor-core kernel); hd 32, 64, 128 or
+// 256; KV divides H.  window 0 = none.  Launches on `stream` and returns the
 // launch's cudaError_t (0 = queued).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
@@ -770,10 +813,12 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     if (hd == 32) return (int)launch_f32<32>(FLASH_ARGS);
     if (hd == 64) return (int)launch_f32<64>(FLASH_ARGS);
     if (hd == 128) return (int)launch_f32<128>(FLASH_ARGS);
+    if (hd == 256) return (int)launch_f32<256>(FLASH_ARGS);
   } else if (dtype == 1) {
     if (hd == 32) return (int)tc::launch<32>(FLASH_ARGS);
     if (hd == 64) return (int)tc::launch<64>(FLASH_ARGS);
     if (hd == 128) return (int)tc::launch<128>(FLASH_ARGS);
+    if (hd == 256) return (int)tc::launch<256>(FLASH_ARGS);
   }
 #undef FLASH_ARGS
   return (int)cudaErrorInvalidValue;
@@ -785,7 +830,7 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
 extern "C" int flash_attention_resources(int hd, int dtype, int* out) {
 #define FLASH_CASE(HD)                                                    \
   if (hd == HD) {                                                         \
-    out[4] = dtype == 0 ? kThreads : tc::kThreads;                        \
+    out[4] = dtype == 0 ? kThreads : tc::Cfg<HD>::THREADS;                \
     return dtype == 0                                                     \
                ? (int)kernel_resources<flash_attention_f32_kernel<HD>>(   \
                      smem_floats<HD>() * (int)sizeof(float), out)         \
@@ -793,7 +838,7 @@ extern "C" int flash_attention_resources(int hd, int dtype, int* out) {
                      tc::Cfg<HD>::SMEM_BYTES, out);                        \
   }
   if (dtype == 0 || dtype == 1) {
-    FLASH_CASE(32) FLASH_CASE(64) FLASH_CASE(128)
+    FLASH_CASE(32) FLASH_CASE(64) FLASH_CASE(128) FLASH_CASE(256)
   }
 #undef FLASH_CASE
   return (int)cudaErrorInvalidValue;

@@ -7,8 +7,9 @@ kpos[c] (-1 = empty).  Slot c is valid when kpos[c] >= 0, kpos[c] <= pos
 and, with a window, kpos[c] > pos - window.  The kernel
 (``csrc/decode_attention.cu``) splits the cache of each (batch, KV head)
 over a cluster of :func:`splits_for` blocks, streams it once and combines
-the splits in distributed shared memory, in one launch; see the note at the
-top of the source.
+the splits in distributed shared memory, in one launch: with FMAs, or for
+bf16 at hd 256 on the tensor cores (:func:`tensor_cores`); see the note at
+the top of the source.
 
 Dispatch is by where the tensors lie, never by a fallback: CUDA tensors
 launch the kernel (and anything the kernel does not take raises), CPU
@@ -30,10 +31,9 @@ import torch
 from . import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128)
+HEAD_DIMS = (32, 64, 128, 256)
 MAX_G = 16                      # query rows per KV head the kernel takes
 BLOCK = 256                     # the JAX kernel's default block_k
-TILE = 64                       # cache slots per tile of the kernel
 MAX_SPLITS = 8                  # blocks per cluster (the portable most)
 _MAX_GRID = 65_535              # B rides the grid's y dimension
 
@@ -62,23 +62,40 @@ def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
-def splits_for(B: int, J: int, C: int, sms: int) -> int:
+def tile_for(hd: int) -> int:
+    """Cache slots per tile of the kernel for ``hd``: 64, or 32 at hd 256
+    (a stage's k and v then take 32 KB in bf16)."""
+    return 32 if hd > 128 else 64
+
+
+def splits_for(B: int, J: int, C: int, sms: int, hd: int) -> int:
     """How many blocks (one cluster) share the cache of one (batch, KV
     head): doubled from 1 while B·J·splits stays within ``sms`` (the SMs of
-    the card), up to MAX_SPLITS, each split a whole number of TILE-slot
-    tiles.  At the serve path's decode (B 1, J 16, C 2048, 132 SMs): 8."""
-    s = 1
+    the card), up to MAX_SPLITS, each split a whole number of tiles.  At
+    both serve paths' decode (qwen1.5: B 1, J 16, C 2048, hd 64;
+    recurrentgemma: B 1, J 1, C 2048, hd 256; 132 SMs): 8.  No split count
+    costs shared memory: each block keeps its own state."""
+    s, tile = 1, tile_for(hd)
     while (2 * s <= MAX_SPLITS and B * J * 2 * s <= sms
-           and C % (2 * s * TILE) == 0):
+           and C % (2 * s * tile) == 0):
         s *= 2
     return s
 
 
-def launch_geometry(B: int, J: int, C: int, sms: int) -> dict:
+def tensor_cores(hd: int, dtype: torch.dtype) -> bool:
+    """Whether (hd, dtype) takes the tensor-core kernel (bf16 at hd 256:
+    the G <= 16 query rows as the M of mma.sync) or the SIMT one."""
+    return dtype == torch.bfloat16 and hd == 256
+
+
+def launch_geometry(B: int, J: int, C: int, hd: int, dtype: torch.dtype,
+                    sms: int) -> dict:
     """The grid, block and cluster the kernel launches with: J·splits x B
     blocks of 128 threads, the splits of one (b, j) in one cluster."""
-    splits = splits_for(B, J, C, sms)
-    return {"grid": (J * splits, B), "block": 128, "cluster": splits}
+    splits = splits_for(B, J, C, sms, hd)
+    return {"grid": (J * splits, B), "block": 128, "cluster": splits,
+            "tile": tile_for(hd),
+            "route": "tensor cores" if tensor_cores(hd, dtype) else "simt"}
 
 
 def resources(hd: int, dtype: torch.dtype) -> dict:
@@ -121,8 +138,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      window: int = 0) -> torch.Tensor:
     """q: (B, 1, J, G, hd); k, v: (B, C, J, hd); kpos: (C,) int32; pos: the
     query's absolute position (a host int) -> (B, 1, J·G, hd) in q's dtype.
-    The kernel takes f32 or bf16 (q, k, v of one dtype), hd 32, 64 or 128
-    and G <= 16; the plain version on the CPU takes any float dtype."""
+    The kernel takes f32 or bf16 (q, k, v of one dtype), hd 32, 64, 128 or
+    256 and G <= 16; the plain version on the CPU takes any float dtype and
+    hd (the JAX kernel takes any)."""
     _check_shapes(q, k, v, kpos)
     if window < 0:
         raise ValueError(f"window={window} must be >= 0 (0 = none)")
@@ -162,7 +180,7 @@ def _launch(q, k, v, kpos, pos, window):
     q, k, v, kpos = (_aligned(t) for t in (q, k, v, kpos))
     o = torch.empty((B, 1, J * G, hd), dtype=q.dtype, device=q.device)
     lib = _lib()
-    splits = splits_for(B, J, C, _sm_count(q.device.index))
+    splits = splits_for(B, J, C, _sm_count(q.device.index), hd)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = lib.decode_attention_launch(

@@ -1,8 +1,9 @@
-"""GQA attention: projections, chunked full-causal attention in plain torch
-ops (no fused attention operator), the ring-buffer KV cache and single-token
-decode against it, the port of the JAX package's ``models/attention.py``
-(its causal paths; the sliding-window and bidirectional ones are not
-ported).
+"""GQA attention: projections, chunked causal attention (full or within a
+sliding window) and the exact block-local sliding-window attention in plain
+torch ops (no fused attention operator), the ring-buffer KV cache and
+single-token decode against it, the port of the JAX package's
+``models/attention.py`` (its causal paths; the bidirectional and cross ones
+are not ported).
 
 Shapes: x (B, S, D); q (B, S, KV, G, hd) with G = H // KV; k, v (B, S, KV, hd).
 Masked scores take the finite value ``NEG_INF`` = -1e30 and the softmax runs
@@ -73,24 +74,71 @@ def _sdpa(q, k, v, mask, scale):
     return ref.masked_softmax_pv(s, mask, v)
 
 
-def _pos_mask(q_pos, k_pos, causal):
+def _pos_mask(q_pos, k_pos, causal, window=0):
     m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
                    device=q_pos.device)
     if causal:
         m &= k_pos[None, :] <= q_pos[:, None]
+    if window:
+        m &= k_pos[None, :] > q_pos[:, None] - window
     return m[None, None, None]  # (1,1,1,Sq,Sk)
 
 
-def attend_full(q, k, v, q_pos, k_pos, *, causal=True, q_chunk=1024):
+def attend_full(q, k, v, q_pos, k_pos, *, causal=True, window=0,
+                q_chunk=1024):
     """Attention over query chunks of ``q_chunk``; peak activation
     O(q_chunk * Sk).  Chunking changes no value: each query row's softmax
-    is its own."""
+    is its own.  With ``window`` w, key k is also masked for row q when
+    k <= q − w."""
     B, Sq, J, G, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
     outs = [_sdpa(q[:, c:c + q_chunk], k, v,
-                  _pos_mask(q_pos[c:c + q_chunk], k_pos, causal), scale)
+                  _pos_mask(q_pos[c:c + q_chunk], k_pos, causal, window),
+                  scale)
             for c in range(0, Sq, q_chunk)]
     return torch.cat(outs, dim=1).reshape(B, Sq, J * G, hd)
+
+
+def attend_sliding_block(q, k, v, q_pos, *, window):
+    """Exact sliding-window causal attention in O(S · 2w): queries in blocks
+    of w attend to their own and the previous key block (the reference's
+    ``attend_sliding_block``; its route for S > window with ``use_pallas``
+    off).  S is padded to a whole number of blocks: padded queries sit at
+    position −10w and are sliced away, padded keys carry position −1 and
+    are masked, as is the block before the first."""
+    B, S, J, G, hd = q.shape
+    w = window
+    scale = 1.0 / math.sqrt(hd)
+    pad = (-S) % w
+    if pad:
+        q = torch.cat([q, q.new_zeros((B, pad, J, G, hd))], dim=1)
+        k = torch.cat([k, k.new_zeros((B, pad, J, hd))], dim=1)
+        v = torch.cat([v, v.new_zeros((B, pad, J, hd))], dim=1)
+        q_pos = torch.cat([q_pos, q_pos.new_full((pad,), -10 * w)])
+    Sp = q.shape[1]
+    nb = Sp // w
+    qb = q.reshape(B, nb, w, J, G, hd)
+    kb = k.reshape(B, nb, w, J, hd)
+    vb = v.reshape(B, nb, w, J, hd)
+    # the previous key block (block −1 = zeros, masked out by position)
+    k2 = torch.cat([torch.cat([torch.zeros_like(kb[:, :1]), kb[:, :-1]], 1),
+                    kb], dim=2)                          # (B, nb, 2w, J, hd)
+    v2 = torch.cat([torch.cat([torch.zeros_like(vb[:, :1]), vb[:, :-1]], 1),
+                    vb], dim=2)
+    qp = q_pos.reshape(nb, w)
+    # key positions come from the block structure (padded keys at −1)
+    ar = torch.arange(Sp, device=q.device)
+    kpb = torch.where(ar < S, ar, -1).reshape(nb, w)
+    kp = torch.cat([torch.cat([kpb.new_full((1, w), -1), kpb[:-1]], 0), kpb],
+                   dim=1)                                # (nb, 2w)
+    mask = ((kp[:, None, :] <= qp[:, :, None])
+            & (kp[:, None, :] > qp[:, :, None] - w) & (kp[:, None, :] >= 0))
+    mask = mask[None, :, None, None]                     # (1, nb, 1, 1, w, 2w)
+    s = torch.einsum("bnqjgh,bnkjh->bnjgqk", qb, k2).to(torch.float32) * scale
+    s = torch.where(mask, s, torch.full((), ref.NEG_INF, device=s.device))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bnjgqk,bnkjh->bnqjgh", p.to(v2.dtype), v2)
+    return o.reshape(B, Sp, J * G, hd)[:, :S]
 
 
 class _FlashForwardOnly(torch.autograd.Function):

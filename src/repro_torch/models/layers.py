@@ -1,10 +1,12 @@
-"""Shared layer primitives: rmsnorm, swiglu MLP, tied embedding, RoPE.
+"""Shared layer primitives: rmsnorm, the swiglu and geglu MLPs, tied
+embedding, RoPE.
 
 Functional like the JAX package's ``models/layers.py``: ``init_*`` builds a
 params dict (same leaf names and layouts), the apply functions are plain
 functions of tensors.  Numerics follow the reference: the norm runs in f32
-with eps 1e-6, RoPE rotates split halves (not interleaved pairs), and the
-unembedding reuses the embedding matrix.
+with eps 1e-6, RoPE rotates split halves (not interleaved pairs), the
+unembedding reuses the embedding matrix, and geglu's GeLU is the tanh
+approximation, ``jax.nn.gelu``'s default (PyTorch's default is the erf form).
 """
 
 from __future__ import annotations
@@ -47,10 +49,15 @@ def init_mlp(gen, d_model: int, d_ff: int, dtype, device) -> dict:
             "wg": _dense_init(gen, (d_model, d_ff), d_model, dtype, device)}
 
 
-def apply_mlp(p: dict, x: torch.Tensor) -> torch.Tensor:
-    """swiglu: (silu(x wg) * x wi) wo."""
-    h = F.silu(x @ p["wg"]) * (x @ p["wi"])
-    return h @ p["wo"]
+def apply_mlp(p: dict, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
+    """swiglu: (silu(x wg) * x wi) wo; geglu: (gelu(x wg) * x wi) wo."""
+    if act == "swiglu":
+        g = F.silu(x @ p["wg"])
+    elif act == "geglu":
+        g = F.gelu(x @ p["wg"], approximate="tanh")
+    else:
+        raise ValueError(f"unknown activation {act!r}")
+    return (g * (x @ p["wi"])) @ p["wo"]
 
 
 # ---------------------------------------------------------------------------

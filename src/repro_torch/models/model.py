@@ -2,13 +2,15 @@
 server and the tests share, and ``params_from_jax`` carries a JAX parameter
 tree (or serve cache) across.
 
-The port runs the dense decoder (qwen1.5-0.5b's family) and the mamba stack
-(falcon-mamba-7b's family) in every mode.  ``use_pallas`` routes the dense
-decoder's attention to the Hopper ``flash_attention`` (prefill, and a
-train-mode forward that cannot be differentiated, as in the reference) and
-``decode_attention`` (decode), and mamba's recurrence to
-``linear_recurrence``; every other configuration raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+The port runs the dense decoder (qwen1.5-0.5b's family), the mamba stack
+(falcon-mamba-7b's family) and the hybrid of RG-LRU and local attention
+(recurrentgemma-2b's family) in every mode.  ``use_pallas`` routes
+attention to the Hopper ``flash_attention`` (prefill, and a train-mode
+forward that cannot be differentiated, as in the reference) and
+``decode_attention`` (decode), both with the config's sliding window, and
+the mamba and RG-LRU recurrences to ``linear_recurrence``; every other
+configuration raises ``NotImplementedError`` naming the ROADMAP.md item
+that ports it.
 """
 
 from __future__ import annotations
@@ -35,7 +37,8 @@ class Model(NamedTuple):
 
 # The families the port runs, (arch_type, pattern), each with use_pallas on
 # or off.
-PORTED = {("dense", ("attn",)), ("ssm", ("mamba",))}
+PORTED = {("dense", ("attn",)), ("ssm", ("mamba",)),
+          ("hybrid", ("rglru", "rglru", "attn"))}
 
 
 def _check_supported(cfg) -> None:
@@ -46,18 +49,17 @@ def _check_supported(cfg) -> None:
             f"{cfg.pattern!r} is not ported yet (the port runs "
             f"{sorted(PORTED)}; ROADMAP.md Queue 1 item 9)")
     unsupported = {
-        "window": (cfg.window, 0),
-        "logit_softcap": (cfg.logit_softcap, 0.0),
-        "mlp_act": (cfg.mlp_act, "swiglu"),
-        "norm": (cfg.norm, "rmsnorm"),
-        "tie_embeddings": (cfg.tie_embeddings, True),
-        "frontend": (cfg.frontend, ""),
+        "logit_softcap": (cfg.logit_softcap, (0.0,)),
+        "mlp_act": (cfg.mlp_act, ("swiglu", "geglu")),
+        "norm": (cfg.norm, ("rmsnorm",)),
+        "tie_embeddings": (cfg.tie_embeddings, (True,)),
+        "frontend": (cfg.frontend, ("",)),
     }
     for field, (have, ported) in unsupported.items():
-        if have != ported:
+        if have not in ported:
             raise NotImplementedError(
                 f"{cfg.name}: {field}={have!r} is not ported yet (the port "
-                f"runs {field}={ported!r}; ROADMAP.md Queue 1 item 9)")
+                f"runs {field} in {ported!r}; ROADMAP.md Queue 1 item 9)")
 
 
 def build(cfg) -> Model:
@@ -86,8 +88,9 @@ def build(cfg) -> Model:
 def params_from_jax(params) -> dict:
     """The JAX package's parameter tree or serve cache (nested dicts of
     arrays, e.g. after ``jax.device_get``) as the port's: the same tree,
-    leaf layouts and dtypes (mamba's A_log stays f32; bf16 stays bf16, bit
-    for bit), as CPU tensors.  A copy, no transpose."""
+    the remainder stack ``rem`` included, the same leaf layouts and dtypes
+    (mamba's A_log and rglru's lam stay f32; bf16 stays bf16, bit for bit),
+    as CPU tensors.  A copy, no transpose."""
     return tree.map(_tensor, params)
 
 

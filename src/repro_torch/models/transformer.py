@@ -3,22 +3,28 @@ serve steps (prefill, decode), the port of the JAX package's
 ``models/transformer.py``.
 
 Layers are grouped into pattern units (``cfg.pattern``): the dense decoder's
-unit is one ``"attn"`` layer, falcon-mamba's one ``"mamba"`` layer.
-Parameters keep the JAX layout: ``params["units"]["0_attn"]`` (or
-``"0_mamba"``) holds every unit's leaves stacked on a leading layer axis, and
-the serve cache ``cache["units"]["0_mamba"]`` likewise.  The forward also
-takes ``params["units"]`` as a list of per-layer dicts of a one-layer
-pattern; the trainer passes that form, whose leaves are separate tensors, so
-each layer's gradient lands in its own slice of the flat gradient buffer
-(see :func:`repro_torch.dist.collectives.FlatLayout.grad_leaves`).
+unit is one ``"attn"`` layer, falcon-mamba's one ``"mamba"`` layer,
+recurrentgemma's (``"rglru"``, ``"rglru"``, ``"attn"``).  Parameters keep the
+JAX layout: ``params["units"]["0_attn"]`` (or ``"0_mamba"``, ...) holds every
+unit's leaves stacked on a leading layer axis, and the serve cache
+``cache["units"]["0_mamba"]`` likewise.  The num_layers % len(pattern)
+remainder layers (recurrentgemma's last two rglru layers) form a second,
+unstacked stack, ``params["rem"]["0_rglru"]`` ... and ``cache["rem"]``,
+walked after the units.  The forward also takes ``params["units"]`` as a
+list of per-layer dicts of a one-layer pattern; the trainer passes that
+form, whose leaves are separate tensors, so each layer's gradient lands in
+its own slice of the flat gradient buffer (see
+:func:`repro_torch.dist.collectives.FlatLayout.grad_leaves`).
 
-Both kinds serve: an ``"attn"`` layer's cache is the ring-buffer KV cache
-of :mod:`repro_torch.models.attention`, a mamba layer's its conv and SSM
-state.  With ``cfg.use_pallas`` an attention layer's prefill (and train-mode
-forward, which then cannot be differentiated, as in the reference) runs the
-``flash_attention`` wrapper and its decode the ``decode_attention`` wrapper.
-Unlike the reference, prefill and decode write the new cache into the
-``cache`` they are given and return it.
+Every kind serves: an ``"attn"`` layer's cache is the ring-buffer KV cache
+of :mod:`repro_torch.models.attention`, a mamba or rglru layer's its conv and
+recurrence state.  With ``cfg.use_pallas`` an attention layer's prefill (and
+train-mode forward, which then cannot be differentiated, as in the
+reference) runs the ``flash_attention`` wrapper and its decode the
+``decode_attention`` wrapper, both with the config's window; without it, a
+windowed prefill longer than the window takes the block-local sliding
+attention.  Unlike the reference, prefill and decode write the new cache
+into the ``cache`` they are given and return it.
 """
 
 from __future__ import annotations
@@ -28,11 +34,21 @@ import torch
 from .. import tree
 from ..kernels import ops
 from . import attention as attn
-from . import layers, ssm
+from . import layers, rglru, ssm
 
 
 def unit_names(cfg) -> list:
-    return [f"{i}_{kind}" for i, kind in enumerate(cfg.pattern)]
+    return layer_names(cfg.pattern)
+
+
+def layer_names(pattern) -> list:
+    return [f"{i}_{kind}" for i, kind in enumerate(pattern)]
+
+
+def rem_pattern(cfg) -> tuple:
+    """The remainder stack's kinds: the first num_layers % len(pattern) of
+    the pattern (empty for most configs)."""
+    return tuple(cfg.pattern[:cfg.units_and_rem[1]])
 
 
 def _init_one_layer(gen, cfg, kind, dtype, device) -> dict:
@@ -45,20 +61,28 @@ def _init_one_layer(gen, cfg, kind, dtype, device) -> dict:
     if kind == "mamba":
         return {"ln1": layers.init_norm(cfg, dtype, device),
                 "mamba": ssm.init_mamba(gen, cfg, dtype, device)}
+    if kind == "rglru":
+        return {"ln1": layers.init_norm(cfg, dtype, device),
+                "rec": rglru.init_rglru(gen, cfg, dtype, device),
+                "ln2": layers.init_norm(cfg, dtype, device),
+                "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                                       device)}
     raise ValueError(f"unknown layer kind {kind!r}")
 
 
-def _init_unit(gen, cfg, dtype, device) -> dict:
+def _init_unit(gen, cfg, dtype, device, pattern=None) -> dict:
+    pattern = cfg.pattern if pattern is None else pattern
     return {name: _init_one_layer(gen, cfg, kind, dtype, device)
-            for name, kind in zip(unit_names(cfg), cfg.pattern)}
+            for name, kind in zip(layer_names(pattern), pattern)}
 
 
 def empty_params(cfg, dtype, device, lead: tuple = ()) -> dict:
     """An uninitialised parameter tree, each leaf in the dtype the init
-    gives it (mamba's A_log is f32 whatever ``dtype``), with extra leading
-    axes ``lead`` (e.g. a fleet axis)."""
+    gives it (mamba's A_log and rglru's lam are f32 whatever ``dtype``),
+    with extra leading axes ``lead`` (e.g. a fleet axis)."""
     units = cfg.units_and_rem[0]
     unit = _init_unit(None, cfg, dtype, "meta")
+    rem = rem_pattern(cfg)
     top = {"embed": layers.init_embed(None, cfg.vocab_size, cfg.d_model,
                                       dtype, "meta"),
            "final_norm": layers.init_norm(cfg, dtype, "meta")}
@@ -69,6 +93,9 @@ def empty_params(cfg, dtype, device, lead: tuple = ()) -> dict:
 
     params = tree.map(alloc, top)
     params["units"] = tree.map(lambda t: alloc(t, units), unit)
+    if rem:
+        params["rem"] = tree.map(alloc, _init_unit(None, cfg, dtype, "meta",
+                                                   rem))
     return params
 
 
@@ -87,6 +114,9 @@ def init_params(gen, cfg, dtype=torch.float32, device="cpu",
     for u in range(cfg.units_and_rem[0]):
         tree.map(lambda dst, src: dst[u].copy_(src), out["units"],
                  _init_unit(gen, cfg, dtype, device))
+    if rem_pattern(cfg):
+        tree.map(lambda dst, src: dst.copy_(src), out["rem"],
+                 _init_unit(gen, cfg, dtype, device, rem_pattern(cfg)))
     tree.map(lambda dst, src: dst.copy_(src), out["embed"],
              layers.init_embed(gen, cfg.vocab_size, cfg.d_model, dtype,
                                device))
@@ -133,14 +163,17 @@ def _apply_attn_layer(p, x, cfg, rope, positions, mode, cache, pos):
     else:
         if cfg.use_pallas:
             o = attn.flash_attend(qf, k, v, window=cfg.window)
+        elif cfg.window and S > cfg.window:
+            o = attn.attend_sliding_block(q, k, v, positions,
+                                          window=cfg.window)
         else:
             o = attn.attend_full(q, k, v, positions, positions, causal=True,
-                                 q_chunk=cfg.q_chunk)
+                                 window=cfg.window, q_chunk=cfg.q_chunk)
         if mode == "prefill":
             attn.cache_prefill(cache, k, v, positions)
     x = x + attn.out_proj(p["attn"], o, cfg)
     h = layers.apply_norm(p["ln2"], x)
-    return x + layers.apply_mlp(p["mlp"], h)
+    return x + layers.apply_mlp(p["mlp"], h, cfg.mlp_act)
 
 
 def _apply_layer(p, x, cfg, kind, rope, positions, mode, cache, pos):
@@ -156,6 +189,16 @@ def _apply_layer(p, x, cfg, kind, rope, positions, mode, cache, pos):
         if mode != "train":
             tree.map(lambda dst, src: dst.copy_(src), cache, new)
         return x + y
+    if kind == "rglru":
+        h = layers.apply_norm(p["ln1"], x)
+        y, new = rglru.rglru_forward(
+            p["rec"], h, cfg, state=cache if mode != "train" else None,
+            chunk=cfg.scan_chunk)
+        if mode != "train":
+            tree.map(lambda dst, src: dst.copy_(src), cache, new)
+        x = x + y
+        h = layers.apply_norm(p["ln2"], x)
+        return x + layers.apply_mlp(p["mlp"], h, cfg.mlp_act)
     raise ValueError(kind)
 
 
@@ -168,22 +211,29 @@ def _init_layer_cache(cfg, kind, batch, max_len, dtype, device):
         return attn.init_cache(cfg, batch, max_len, dtype, device)
     if kind == "mamba":
         return ssm.init_mamba_cache(cfg, batch, dtype, device)
+    if kind == "rglru":
+        return rglru.init_rglru_cache(cfg, batch, dtype, device)
     raise ValueError(kind)
 
 
 def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cpu") -> dict:
     """Empty serve cache, the reference's tree: ``{"units": {name: leaves
-    stacked on the layer axis}, "rem": {}}``.  An attention layer's KV cache
-    holds ``max_len`` slots (kpos -1 = empty); a mamba layer's cache does
-    not grow with ``max_len``."""
+    stacked on the layer axis}, "rem": {name: leaves}}`` (``rem`` empty
+    without remainder layers).  An attention layer's KV cache holds
+    C = max_len slots, or min(window, max_len) as a ring (kpos -1 = empty);
+    a mamba or rglru layer's cache does not grow with ``max_len``."""
     units = cfg.units_and_rem[0]
     stacked = {
         name: tree.map(lambda t: t[None].repeat((units,) + (1,) * t.dim()),
                        _init_layer_cache(cfg, kind, batch, max_len, dtype,
                                          device))
         for name, kind in zip(unit_names(cfg), cfg.pattern)}
-    return {"units": stacked, "rem": {}}
+    rem = rem_pattern(cfg)
+    return {"units": stacked,
+            "rem": {name: _init_layer_cache(cfg, kind, batch, max_len, dtype,
+                                            device)
+                    for name, kind in zip(layer_names(rem), rem)}}
 
 
 # ---------------------------------------------------------------------------
@@ -210,6 +260,11 @@ def forward(params, cfg, tokens: torch.Tensor, *, mode: str = "train",
                  if cache is not None else None)
             x = _apply_layer(up[name], x, cfg, kind, rope, positions, mode, c,
                              pos)
+    rem = rem_pattern(cfg)
+    for name, kind in zip(layer_names(rem), rem):
+        c = cache["rem"][name] if cache is not None else None
+        x = _apply_layer(params["rem"][name], x, cfg, kind, rope, positions,
+                         mode, c, pos)
     if last_only:
         x = x[:, -1:]
     x = layers.apply_norm(params["final_norm"], x)

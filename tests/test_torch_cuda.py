@@ -24,7 +24,11 @@ tensor-core route of ``flash_attention``, every head_dim at Sq 16, 128 and
 384 with G 1 and 4, a window, rows with no valid key, reruns bit-equal, and
 a bf16 call it refuses that no other kernel serves; for ``decode_attention``,
 clusters of 1, 2 and 8 blocks, caches whose splits hold no valid slot, and
-reruns bit-equal.
+reruns bit-equal.  At recurrentgemma-2b's head_dim 256 (held at its serve
+shapes by ``chip_smoke.py``): the f32 flash kernel at a sequence that is not
+a multiple of the window, decode split over the most blocks a cluster takes
+in both dtypes, and both wrappers refusing a head_dim the JAX kernels take
+(96).
 
 These need an NVIDIA GPU and skip elsewhere; the file imports neither jax
 nor the JAX package, so it runs on a machine that has only torch:
@@ -440,11 +444,12 @@ def _flash_case(rng, B, Sq, Sk, H, KV, hd, causal, window):
 @pytest.mark.cuda
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("Sq", [16, 128, 384])
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 def test_flash_attention_tensor_core_route(hd, Sq, G):
     """Every head_dim (its own TMA box and swizzle: 64 B at hd 32, 128 B at
-    64, two boxes at 128), a q-tile padded past Sq (16), one tile and three,
-    MHA and G = 4, causal and not."""
+    64, two boxes at 128, four boxes and 64-row tiles at 256), a q-tile
+    padded past Sq (16), one tile and three, MHA and G = 4, causal and
+    not."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
     rng = np.random.default_rng(hd + Sq + G)
@@ -453,7 +458,7 @@ def test_flash_attention_tensor_core_route(hd, Sq, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [32, 64, 128])
+@pytest.mark.parametrize("hd", [32, 64, 128, 256])
 def test_flash_attention_tensor_core_window_and_keyless_rows(hd):
     """A window off the 128-key tiles, and with Sq > Sk rows that have no
     valid key, which average v over all Sk keys."""
@@ -472,9 +477,10 @@ def test_flash_attention_tensor_core_window_and_keyless_rows(hd):
 
 @pytest.mark.cuda
 def test_flash_attention_bf16_refusal_is_not_served_by_the_f32_kernel():
-    """The library's bf16 entry takes hd 32, 64 and 128 only: hd 96 in bf16
-    returns an error and writes nothing (the SIMT kernel, which is for f32,
-    does not take it over); the wrapper raises before it for both routes."""
+    """The library's bf16 entry takes hd 32, 64, 128 and 256 only: hd 96
+    in bf16 returns an error and writes nothing (the SIMT kernel, which is
+    for f32, does not take it over); the wrapper raises before it for both
+    routes."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
     from repro_torch.kernels import flash_attention as fa_mod
@@ -522,7 +528,7 @@ def test_decode_attention_cluster_sizes(B, C, J, splits):
     from repro_torch.kernels import decode_attention as da_mod
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     if sms == 132:
-        assert da_mod.splits_for(B, J, C, sms) == splits
+        assert da_mod.splits_for(B, J, C, sms, 64) == splits
     rng = np.random.default_rng(C + J)
     kpos = torch.arange(C, device="cuda", dtype=torch.int32)
     _decode_case(rng, B, C, J, 2, 64, kpos, C - 1)
@@ -544,3 +550,83 @@ def test_decode_attention_empty_splits(filled):
     if not filled:
         torch.testing.assert_close(got[:, 0].float(), v.float().mean(1),
                                    rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("window", [256, 100])
+def test_flash_attention_hd256_f32_window_off_the_sequence(window):
+    """The f32 (SIMT) kernel at recurrentgemma's head_dim 256 and G = 10
+    over one KV head, S = 640, which is not a multiple of the window:
+    equal to its plain version at the f32 tolerance, a rerun bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    rng = np.random.default_rng(window)
+    S, H, KV, hd = 640, 10, 1, 256
+    assert S % window
+    q = _cuda_normal(rng, (1, S, H, hd), torch.float32)
+    k = _cuda_normal(rng, (1, S, KV, hd), torch.float32)
+    v = _cuda_normal(rng, (1, S, KV, hd), torch.float32)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, window=window)
+    again = flash_attention(q, k, v, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 2
+    tol = ATTN_TOL[torch.float32]
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v, window=window),
+                               rtol=tol, atol=tol)
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_hd256_at_the_largest_split(dtype):
+    """recurrentgemma's decode (one KV head, G = 10, hd 256) on a wrapped
+    2048-slot ring with its 2048-token window, split over the most blocks a
+    cluster takes (8): each block keeps its own state, so the kernel's
+    shared memory does not grow with the split count and fits the 227 KB a
+    block may use in both dtypes."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    from repro_torch.kernels import decode_attention as da_mod
+    B, C, J, G, hd, window, pos = 1, 2048, 1, 10, 256, 2048, 4000
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    assert da_mod.splits_for(B, J, C, sms, hd) == da_mod.MAX_SPLITS == 8
+    res = da_mod.resources(hd, dtype)
+    assert res["static_smem"] + res["dynamic_smem"] <= 232_448
+    assert res["local_bytes"] == 0
+    rng = np.random.default_rng(hd)
+    q = _cuda_normal(rng, (B, 1, J, G, hd), dtype)
+    k = _cuda_normal(rng, (B, C, J, hd), dtype)
+    v = _cuda_normal(rng, (B, C, J, hd), dtype)
+    c = torch.arange(C, device="cuda")
+    base = pos - C + 1
+    kpos = ((c - base % C) % C + base).int()
+    got = decode_attention(q, k, v, kpos, pos, window=window)
+    torch.cuda.synchronize()
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(
+        got, ref.decode_attention_ref(q, k, v, kpos, pos, window=window),
+        rtol=tol, atol=2e-3 if dtype == torch.bfloat16 else tol)
+    assert torch.equal(got, decode_attention(q, k, v, kpos, pos,
+                                             window=window))
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_refuse_hd_96_which_the_reference_takes():
+    """The JAX kernels take any head_dim; the port's kernels take 32, 64,
+    128 and 256, and a CUDA call at hd 96 raises, naming head_dim, before
+    any launch (the plain version, the CPU route, takes it)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros(1, 128, 2, 96, device="cuda", dtype=dtype)
+        q1 = torch.zeros(1, 1, 2, 1, 96, device="cuda", dtype=dtype)
+        kpos = torch.arange(128, device="cuda", dtype=torch.int32)
+        before = (flash_attention.launches, decode_attention.launches)
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_attention(x, x, x)
+        with pytest.raises(ValueError, match="head_dim"):
+            decode_attention(q1, x, x, kpos, 127)
+        assert (flash_attention.launches, decode_attention.launches) == before
+    cpu = torch.zeros(1, 128, 2, 96)
+    assert flash_attention(cpu, cpu, cpu).shape == (1, 128, 2, 96)

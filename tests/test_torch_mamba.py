@@ -205,17 +205,20 @@ def test_init_fills_a_fleets_views_in_place():
 
 
 def test_attention_layers_do_not_serve_yet():
-    """The dense decoder serves (tests/test_torch_attention.py); attention
-    with a sliding window or a logit softcap (recurrentgemma's) does not
-    yet, with use_pallas on or off."""
+    """The dense decoder serves (tests/test_torch_attention.py), with a
+    sliding window too (tests/test_torch_hybrid.py); attention with a logit
+    softcap does not yet, with use_pallas on or off."""
     cfg = configs.get("qwen1.5-0.5b").reduced(layers=1, d_model=32, d_ff=64,
                                               vocab=64)
     build(cfg).init_cache(1, 8, torch.float32)
-    for field, value in (("window", 4), ("logit_softcap", 30.0)):
-        for use_pallas in (False, True):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-                build(dataclasses.replace(cfg, use_pallas=use_pallas,
-                                          **{field: value}))
+    for use_pallas in (False, True):
+        windowed = build(dataclasses.replace(cfg, use_pallas=use_pallas,
+                                             window=4))
+        assert windowed.init_cache(1, 8, torch.float32)["units"]["0_attn"][
+            "k"].shape[2] == 4
+        with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
+            build(dataclasses.replace(cfg, use_pallas=use_pallas,
+                                      logit_softcap=30.0))
 
 
 def test_mamba_training_is_not_ported():

@@ -1,8 +1,9 @@
 """The port's fleet serving against the JAX package's: the traffic module
 (a verbatim copy) bit for bit, ``serve_fleet`` on the same reduced
 falcon-mamba fleet with ``use_pallas`` on (the JAX kernel in interpret
-mode) giving every request the same tokens, continuous batching equal to
-serving each request alone, and slots bound to views of the fleet."""
+mode) giving every request the same tokens, in f32 and, with the kernel
+route and without, in bf16, continuous batching equal to serving each
+request alone, and slots bound to views of the fleet."""
 
 import dataclasses
 import json
@@ -88,6 +89,30 @@ def test_serve_fleet_matches_reference(fleets, routing):
     assert set(got.throughput) == set(want.throughput)
     for k in ("requests", "fleet", "batch"):
         assert got.throughput[k] == want.throughput[k]
+
+
+@pytest.mark.parametrize("use_pallas", [True, False],
+                         ids=["use_pallas", "jnp"])
+def test_serve_fleet_matches_reference_in_bf16(fleets, use_pallas):
+    """The chip's serve dtype: both engines cast the f32 fleet to bf16
+    (A_log too, as the reference's astype does) and serve 6 requests of 16
+    + 8 tokens, with the kernel route (the JAX kernel in interpret mode)
+    and the chunked scan: every request decodes the same tokens on the
+    same node."""
+    _, jfleet, _, fleet = fleets
+    jcfg = dataclasses.replace(jconfigs.get("falcon-mamba-7b").reduced(),
+                               use_pallas=use_pallas)
+    cfg = dataclasses.replace(configs.get("falcon-mamba-7b").reduced(),
+                              use_pallas=use_pallas)
+    spec = dict(SERVE, requests=6, max_new=8, dtype="bf16",
+                routing="round-robin")
+    want = jserve_fleet(jbuild(jcfg), jfleet, jexp.ServeSpec(**spec))
+    got = serve_fleet(build(cfg), fleet, exp.ServeSpec(**spec))
+    assert len(got.completed) == 6
+    for g, w in zip(got.completed, want.completed):
+        assert len(g["tokens"]) == 8
+        assert {k: v for k, v in g.items() if k != "latency_ms"} == \
+            {k: v for k, v in w.items() if k != "latency_ms"}
 
 
 def _solo(model, params, req, sv):
