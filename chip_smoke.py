@@ -49,6 +49,9 @@ and then drives the main paths through the train CLI's own functions:
   wrapped; two requests are served again one at a time and must give the
   same tokens.
 
+``linear_recurrence`` is checked bit-equal on each of its three routes
+(a ring of time tiles filled by TMA or by cp.async, and the loop) and
+prints its route, geometry and compiled resources at both serve shapes.
 Slices 1 and 2 launch their kernel 2 times per step (the x and h windows),
 path B 4 times (one per round), the falcon-mamba serve path 64 times per
 prefill (one per layer; decode feeds one token and takes no kernel), the
@@ -795,7 +798,8 @@ def time_skernel(torch, sparse_gossip, ref, driver, plan, x, rounds) -> dict:
           f"{[round(v, 6) for v in timing['per_round_library_ms']]}; edges "
           f"of the longest segment {longest}; edges of the longest warp "
           f"walk {walks}; launches the profiler did not record, per timing "
-          f"{timing['lost']}", flush=True)
+          f"{timing['lost']}; sessions that recorded none and were run "
+          f"again {timing['empty_sessions']}", flush=True)
     return res
 
 
@@ -933,44 +937,81 @@ def lequal(torch, what, got, want) -> float:
     return err
 
 
+# (B, S, C, dtype, offset) beyond check_lkernel's grid: recurrentgemma's C
+# and ragged neighbours (2564 takes TMA in f32 and cp.async in bf16, 4099
+# cp.async in f32 and the loop in bf16) and falcon's at a short S; the ring's
+# tails at C = 2560 (S 1, 63 and 65 about one 64-step tile, 3968 the serve
+# prompt: 62 tiles through an 8-stage ring); B = 3; views offset by one
+# element (not 16-byte aligned: cp.async in f32, the loop in bf16 and at
+# falcon's width)
+LKERNEL_CASES = (
+    [(1, 70, C, dt, 0) for C in (2560, 2564, 4099, 131_072)
+     for dt in ("float32", "bfloat16")]
+    + [(1, S, 2560, dt, 0) for S in (1, 63, 65, 3968)
+       for dt in ("float32", "bfloat16")]
+    + [(3, 130, 2560, dt, 0) for dt in ("float32", "bfloat16")]
+    + [(B, S, C, dt, 1) for B, S, C in ((3, 65, 2560), (1, 70, 131_072))
+       for dt in ("float32", "bfloat16")])
+
+
 def check_lkernel(torch, linear_recurrence, ref):
     """linear_recurrence against its plain version over S 1/7/128/300 (7
-    and 300 leave a tail after the kernel's 8-step load batches), C
-    1/5/512/4099 (odd widths take the one-channel path), B 1/3, f32 and
-    bf16 inputs, a in (0, 1) as mamba's exp(dt·A) is: bit-equal, and a
-    rerun gives the same bits."""
+    and 300 leave a tail after the loop's 8-step load batches and the
+    ring's 64-step tiles), C 1/5/512/4099 (bf16 at an odd C takes the
+    loop), B 1/3, f32 and bf16 inputs, a in (0, 1) as
+    mamba's exp(dt·A) is, then the LKERNEL_CASES: bit-equal, and a rerun
+    gives the same bits.  Fails unless the cases reach all three routes
+    (the TMA ring, the cp.async ring, the loop)."""
     gen = torch.Generator(device="cuda").manual_seed(6)
-    cases = 0
-    for B in (1, 3):
-        for S in (1, 7, 128, 300):
-            for C in (1, 5, 512, 4099):
-                for dtype in (torch.float32, torch.bfloat16):
-                    a = torch.rand(B, S, C, device="cuda",
-                                   generator=gen).to(dtype)
-                    b = torch.randn(B, S, C, device="cuda",
-                                    generator=gen).to(dtype)
-                    got = linear_recurrence.linear_recurrence(a, b)
-                    what = f"B={B} S={S} C={C} {dtype}"
-                    lequal(torch, what, got, ref.linear_recurrence_ref(a, b))
-                    lequal(torch, what + " rerun",
-                           linear_recurrence.linear_recurrence(a, b), got)
-                    cases += 1
-    print(f"kernel check: linear_recurrence bit-equal to plain on {cases} "
-          "cases (B 1/3, S 1/7/128/300, C 1/5/512/4099, f32 and bf16, a in "
-          "(0, 1)); reruns bit-equal", flush=True)
+    cases = [(B, S, C, dt, 0) for B in (1, 3) for S in (1, 7, 128, 300)
+             for C in (1, 5, 512, 4099) for dt in ("float32", "bfloat16")]
+    routes = {}
+    for B, S, C, dt, off in cases + LKERNEL_CASES:
+        dtype = getattr(torch, dt)
+        n = B * S * C + off
+        a = torch.rand(n, device="cuda", generator=gen).to(dtype)[off:]
+        b = torch.randn(n, device="cuda", generator=gen).to(dtype)[off:]
+        a, b = a.view(B, S, C), b.view(B, S, C)
+        geo = linear_recurrence.geometry_for(a, b)
+        got = linear_recurrence.linear_recurrence(a, b)
+        what = (f"B={B} S={S} C={C} {dt}{' offset view' if off else ''} "
+                f"({geo['route']}, cb {geo['cb']}, {geo['stages']} stages)")
+        lequal(torch, what, got, ref.linear_recurrence_ref(a, b))
+        lequal(torch, what + " rerun",
+               linear_recurrence.linear_recurrence(a, b), got)
+        routes[geo["route"]] = routes.get(geo["route"], 0) + 1
+    if set(routes) != {"tma", "cp.async", "loop"}:
+        fail(f"linear_recurrence check reached the routes {routes}, not all "
+             "three")
+    print(f"kernel check: linear_recurrence bit-equal to plain on "
+          f"{len(cases)} cases (B 1/3, S 1/7/128/300, C 1/5/512/4099, f32 "
+          f"and bf16, a in (0, 1)) and {len(LKERNEL_CASES)} more (C "
+          f"2560/2564/4099/131072, S 1/63/65/3968, B 3, offset views); "
+          f"reruns bit-equal; cases per route {routes}", flush=True)
 
 
 def time_lkernel(torch, linear_recurrence, ref, shape=LINREC_MAIN,
                  what: str = "one falcon-mamba prefill") -> dict:
     """linear_recurrence at ``shape`` (B, S, C) f32 (one falcon-mamba
     prefill's (1, 2048, 131072), or one recurrentgemma rglru layer's (1,
-    3968, 2560)): bit-equal to the plain version and on a rerun, then
-    timed beside its bound and the plain version.  No single PyTorch call
+    3968, 2560)): its route, geometry and compiled resources printed,
+    bit-equal to the plain version and on a rerun, then timed beside its
+    bound and the plain version.  No single PyTorch call
     computes a linear recurrence, so there is no library time."""
     B, S, C = shape
     gen = torch.Generator(device="cuda").manual_seed(7)
     a = torch.rand(B, S, C, device="cuda", generator=gen)
     b = torch.randn(B, S, C, device="cuda", generator=gen)
+    geometry = linear_recurrence.geometry_for(a, b)
+    resources = linear_recurrence.resources(geometry, a.dtype)
+    if resources["dynamic_smem"] != geometry["smem"] \
+            or resources["threads"] != geometry["block"]:
+        fail(f"linear_recurrence at {shape}: the wrapper's geometry "
+             f"{geometry} and the compiled kernel's launch {resources} "
+             "disagree")
+    print(f"linear_recurrence f32 at {shape} ({what}): route "
+          f"{geometry['route']}, geometry {geometry}, compiled {resources}",
+          flush=True)
     got = linear_recurrence.linear_recurrence(a, b)
     err = lequal(torch, f"at {what}'s shape", got,
                  ref.linear_recurrence_ref(a, b))
@@ -994,7 +1035,9 @@ def time_lkernel(torch, linear_recurrence, ref, shape=LINREC_MAIN,
     res.update(max_abs_err=err, library_ms=None,
                bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               shape=f"a, b ({B},{S},{C}) f32 -> h_all f32, h_last ({B},{C})")
+               shape=f"a, b ({B},{S},{C}) f32 -> h_all f32, h_last ({B},{C})",
+               variant=geometry["route"], geometry=geometry,
+               resources=resources)
     print(f"linear_recurrence at {res['shape']}: bit-equal to plain, rerun "
           "bit-equal", flush=True)
     print(f"linear_recurrence at {res['shape']}: kernel {res['ms']:.4f} ms  "
@@ -1004,7 +1047,7 @@ def time_lkernel(torch, linear_recurrence, ref, shape=LINREC_MAIN,
     return res
 
 
-def device_ms(torch, fn, reps: int) -> float:
+def device_ms(torch, fn, reps: int, sessions: int = 3) -> float:
     """Mean device ms of ``fn`` per call: the time of the CUDA kernels it
     runs under torch.profiler over ``reps`` calls after a warm-up call.
     Unlike ``timed`` it leaves out the gaps while the host issues the next
@@ -1014,20 +1057,28 @@ def device_ms(torch, fn, reps: int) -> float:
     recorded count over ``reps``, rounded up), summed over the kernels: a
     launch the profiler did not record does not lower the time.
     ``device_ms.lost`` keeps how many launches were not recorded, and
-    ``device_ms.lost_total`` their sum over the process."""
+    ``device_ms.lost_total`` their sum over the process.  A session that
+    recorded no kernel at all is run again, up to ``sessions`` in all
+    (``device_ms.empty_sessions`` counts them over the process); if every
+    one is empty the run fails."""
     import torch.profiler as tp
     fn()
     torch.cuda.synchronize()
-    with tp.profile(activities=[tp.ProfilerActivity.CPU,
-                                tp.ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.count > 0]
-    if not events:
-        fail(f"device_ms: the profiler recorded no kernel in {reps} calls")
+    for _ in range(sessions):
+        with tp.profile(activities=[tp.ProfilerActivity.CPU,
+                                    tp.ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.count > 0]
+        if events:
+            break
+        device_ms.empty_sessions += 1
+    else:
+        fail(f"device_ms: the profiler recorded no kernel in {reps} calls, "
+             f"in each of {sessions} sessions")
     us, lost = 0.0, 0
     for e in events:
         per_call = -(-e.count // reps)
@@ -1039,6 +1090,7 @@ def device_ms(torch, fn, reps: int) -> float:
 
 
 device_ms.lost_total = 0
+device_ms.empty_sessions = 0
 
 
 def acompare(torch, what, got, want, serve: str = "") -> float:
@@ -1468,6 +1520,7 @@ def serve_path(torch, exp, serve, ops, linear_recurrence, ref, model, fleet,
              f"{SERVE['max_new']} tokens: {done}")
     a, b = captured[0]
     held_gb = (a.nbytes + b.nbytes) / 1e9
+    route = linear_recurrence.geometry_for(a, b)["route"]
     got = linear_recurrence.linear_recurrence(a, b)
     lequal(torch, "on the serve path's first layer inputs", got,
            ref.linear_recurrence_ref(a, b))
@@ -1481,7 +1534,7 @@ def serve_path(torch, exp, serve, ops, linear_recurrence, ref, model, fleet,
           f"launches {launches}  nodes {[c['node'] for c in done]}  tokens of "
           f"rid 0 {done[0]['tokens']}", flush=True)
     print(f"kernel check: linear_recurrence bit-equal to plain on the serve "
-          f"path's first layer inputs {shape}", flush=True)
+          f"path's first layer inputs {shape} (route {route})", flush=True)
     return {"launches": launches["linear_recurrence"], "peak_gb": peak_gb,
             "completed": done}
 
@@ -1582,7 +1635,8 @@ def attention_serve_path(torch, exp, serve, ops, flash_attention,
             linear_recurrence.linear_recurrence(a, b),
             ref.linear_recurrence_ref(a, b))
         checks += (f"; linear_recurrence bit-equal to plain on its first "
-                   f"rglru layer's inputs {tuple(a.shape)}")
+                   f"rglru layer's inputs {tuple(a.shape)} {a.dtype} (route "
+                   f"{linear_recurrence.geometry_for(a, b)['route']})")
         del a, b
     del captured, q, k, v, kpos
     torch.cuda.empty_cache()
@@ -1778,7 +1832,8 @@ def main():
     dkern_rg = time_dkernel(torch, decode_attention, ref, DECODE_RG,
                             RG_WINDOW, "one recurrentgemma decode layer")
     print(f"device_ms: launches the profiler did not record in the kernel "
-          f"timings above: {device_ms.lost_total}", flush=True)
+          f"timings above: {device_ms.lost_total}; sessions that recorded "
+          f"none and were run again: {device_ms.empty_sessions}", flush=True)
     check_small_run(torch, exp)
     check_small_compressed_run(torch, exp)
 
@@ -1897,7 +1952,8 @@ def main():
          "max_abs_err": lkern["max_abs_err"], "ms": lkern["ms"],
          "plain_ms": lkern["plain_ms"], "bound_ms": lkern["bound_ms"],
          "bound_by": lkern["bound_by"], "library_ms": lkern["library_ms"],
-         "shape": lkern["shape"]},
+         "shape": lkern["shape"], "variant": lkern["variant"],
+         "geometry": lkern["geometry"], "resources": lkern["resources"]},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:74",
@@ -1943,6 +1999,9 @@ def main():
             bound_by=kern["bound_by"], library_ms=kern["library_ms"],
             shape=kern["shape"])
         row[unit] = rgserved["launches"][name] / per
+        if "geometry" in kern:
+            row.update({k: kern[k] for k in ("variant", "geometry",
+                                             "resources")})
         if "wrapper_host_us" in kern:
             row.update(wrapper_host_us=kern["wrapper_host_us"],
                        timed=base["timed"])

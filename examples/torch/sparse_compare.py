@@ -14,9 +14,10 @@ out by that tree's ``segment_layout``: the kernel's device time and that of
 calls each; kernel, library, library, kernel), that of the plain version
 (5 calls), and the wrapper's host microseconds per call
 (``chip_smoke.host_us``, 200 calls).  Prints one JSON line of the means,
-the per-round kernel and library times and edge counts, and the launches
-the profiler did not record in each timing; ``chip_smoke.py`` takes its
-times from it.  To compare an earlier
+the per-round kernel and library times and edge counts, the launches
+the profiler did not record in each timing and the profiler sessions that
+recorded none and were run again; ``chip_smoke.py`` takes its times from
+it.  To compare an earlier
 commit with this one, unpack it with ``git archive`` into a directory git
 ignores and run the two in turns in one process each: earlier, this, this,
 earlier.  Needs an NVIDIA GPU.
@@ -103,7 +104,7 @@ def main(argv=None) -> dict:
     res = {"src": args.src, **{k: sum(v) / len(v) for k, v in per.items()},
            "per_round_ms": per["ms"],
            "per_round_library_ms": per["library_ms"], "edges": edges,
-           "lost": lost}
+           "lost": lost, "empty_sessions": cs.device_ms.empty_sessions}
     res["device"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True

@@ -72,7 +72,7 @@
 //
 // Plain C interface, built by nvcc and loaded with ctypes (kernels/build.py);
 // the TMA descriptors are encoded on the host by cuTensorMapEncodeTiled,
-// looked up at run time (cudaGetDriverEntryPointByVersion), so the library
+// looked up at run time (hopper_common.cuh's encode_tiled), so the library
 // links no libcuda.
 
 #include <cuda.h>
@@ -704,32 +704,6 @@ __global__ void __launch_bounds__(Cfg<HD>::THREADS, 1)
               oacc[x][4 * j + 2] * inv_b, oacc[x][4 * j + 3] * inv_b);
       }
   }
-}
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
 }
 
 // The (hd, heads, S, B) view of a contiguous (B, S, heads, hd) bf16 tensor,

@@ -1,16 +1,18 @@
 // Device and host helpers shared by the Hopper kernels (flash_attention.cu,
-// decode_attention.cu, sparse_segment_mix.cu): conversions between the
-// input dtype (f32 or bf16) and f32, the vectorised load of f32 tiles into
-// shared memory (the f32 flash kernel), the asynchronous copies Hopper
-// offers (cp.async with commit / wait groups, mbarriers, and TMA tile loads
-// that complete on an mbarrier), the dynamic shared-memory attribute and a
-// kernel's compiled resources.
+// decode_attention.cu, sparse_segment_mix.cu, linear_recurrence.cu):
+// conversions between the input dtype (f32 or bf16) and f32, the vectorised
+// load of f32 tiles into shared memory (the f32 flash kernel), the
+// asynchronous copies Hopper offers (cp.async with commit / wait groups or
+// completing on an mbarrier, mbarriers, and TMA tile loads that complete on
+// an mbarrier), the host lookup of cuTensorMapEncodeTiled, the dynamic
+// shared-memory attribute and a kernel's compiled resources.
 //
 // Included by each source (kernels/build.py rebuilds a source's library when
 // a header it includes changes).
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -126,6 +128,15 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// 4 bytes to dst: the first `bytes` (0 or 4) from src, the rest zeros.  dst
+// and src 4-byte aligned; src is not read where bytes is 0.
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src,
+                                                int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
 
 // ---- mbarrier --------------------------------------------------------------
 
@@ -153,6 +164,13 @@ __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
           smem_addr(bar)),
       "r"(bytes)
       : "memory");
+}
+// Arrive on bar once every cp.async this thread issued before has landed;
+// the arrival is one of the count the barrier was initialised with.
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   smem_addr(bar))
+               : "memory");
 }
 // Block until the phase of parity `parity` has completed.  A wait that
 // polls 2^26 times (a second or more; a tile takes microseconds) traps, so
@@ -190,7 +208,81 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* tmap,
       : "memory");
 }
 
+// One box of a 3-D tensor map at coordinates (c0 innermost, c1, c2) into
+// shared memory at dst; completes `bytes` on bar (see arrive_expect_tx).
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* tmap,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// The box of a 3-D tensor map at (c0, c1, c2) from shared memory at src
+// (elements past the tensor's bounds are not written), in this thread's
+// current bulk group.  The threads that wrote src make their writes visible
+// to the copy with proxy_fence_async() before they synchronise with this
+// thread.
+__device__ __forceinline__ void tma_store_3d(const void* tmap,
+                                             const void* src, int c0, int c1,
+                                             int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(tmap)),
+      "r"(smem_addr(src)), "r"(c0), "r"(c1), "r"(c2)
+      : "memory");
+}
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's bulk groups are still reading
+// their shared-memory source.
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+// Wait until at most N of this thread's bulk groups are still in flight.
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+// Order this thread's generic-proxy shared-memory writes before later
+// async-proxy (TMA) accesses to them.
+__device__ __forceinline__ void proxy_fence_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- host ----------------------------------------------------------------
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime (no -lcuda);
+// null where the driver does not have it.
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (!fn) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
 
 // Let `Kernel` take `bytes` of dynamic shared memory: the attribute is set
 // once per device (of the first 32) and kernel, not on every launch.

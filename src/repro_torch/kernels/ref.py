@@ -139,6 +139,41 @@ def linear_recurrence_ref(a: torch.Tensor, b: torch.Tensor):
     return h_all, h
 
 
+def linear_recurrence_tiled_ref(a: torch.Tensor, b: torch.Tensor,
+                                geometry: dict):
+    """The Hopper kernel's walk on the CPU, as a
+    :func:`repro_torch.kernels.linear_recurrence.launch_geometry` dict lays
+    it out: grid (gx, B) blocks of ``cb`` channels each, the time axis in
+    tiles of ``tile_t`` steps staged in a ring of ``stages`` stages, steps
+    and channels past S and C staged as zeros (as TMA's and cp.async's zero
+    fill leave them), the last tile's tail of S mod tile_t steps, and each
+    step's product and sum as two f32 ops.  All blocks run at once here:
+    they share nothing.  Bit-equal to :func:`linear_recurrence_ref`."""
+    B, S, C = a.shape
+    cb, T, stages = geometry["cb"], geometry["tile_t"], geometry["stages"]
+    gx, gy = geometry["grid"]
+    if gy != B or not (gx - 1) * cb < C <= gx * cb:
+        raise ValueError(f"geometry {geometry} does not cover (B, C) = "
+                         f"{(B, C)} once")
+    tiles = -(-S // T)
+    padded = []
+    for x in (a, b):
+        p = torch.zeros((B, tiles * T, gx * cb), dtype=x.dtype)
+        p[:, :S, :C] = x
+        padded.append(p.view(B, tiles, T, gx, cb))
+    ring = torch.zeros((stages, 2, B, T, gx, cb), dtype=a.dtype)
+    h = torch.zeros((B, gx, cb), dtype=torch.float32)
+    h_all = torch.empty((B, S, C), dtype=torch.float32)
+    for k in range(tiles):
+        s = k % stages    # tile k - stages has been consumed: reuse its stage
+        ring[s, 0], ring[s, 1] = padded[0][:, k], padded[1][:, k]
+        for j in range(min(T, S - k * T)):
+            h = (ring[s, 0, :, j].to(torch.float32) * h
+                 + ring[s, 1, :, j].to(torch.float32))
+            h_all[:, k * T + j] = h.reshape(B, gx * cb)[:, :C]
+    return h_all, h.reshape(B, gx * cb)[:, :C].clone()
+
+
 def masked_softmax_pv(s: torch.Tensor, mask: torch.Tensor,
                       v: torch.Tensor) -> torch.Tensor:
     """softmax over keys of the f32 scores ``s`` (B, J, G, Sq, Sk) with

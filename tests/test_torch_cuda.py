@@ -12,10 +12,11 @@ path's rounds): both variants on a state whose rows are not 16-byte
 aligned, in f32 and bf16 and at a ragged D, reruns giving the same bits,
 the two variants giving the same bits, and the refusals.  For
 ``linear_recurrence`` (held bit-equal to its plain version by
-``chip_smoke.py`` at small and ragged shapes, the main shape and the
-serve path's own inputs): a large B·C whose S is not a multiple of the
-kernel's 8-step load batch, in f32 and bf16, inputs that are not 16-byte
-aligned, and its refusals.  For ``flash_attention`` and ``decode_attention``
+``chip_smoke.py`` at small and ragged shapes, the main shapes and the
+serve paths' own inputs): a large B·C whose S is not a multiple of the
+loop's 8-step load batch, in f32 and bf16, inputs that are not 16-byte
+aligned, each of its three routes (the TMA ring, the cp.async ring, the
+loop) at recurrentgemma-2b's C and a ragged one, and its refusals.  For ``flash_attention`` and ``decode_attention``
 (held to their plain versions by ``chip_smoke.py`` at small, ragged-head and
 masked cases and at the qwen1.5-0.5b serve path's shapes): yi-6b's heads (32
 query heads over 4 KV heads of 128, G = 8) with the window off and on,
@@ -262,13 +263,16 @@ def test_linear_recurrence_kernel_is_bit_equal_to_plain(dtype):
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
     gen = torch.Generator(device="cuda").manual_seed(5)
-    B, S, C = 3, 37, 131_076    # 37 = 4 batches of 8 steps and 5 left over
+    # aligned: the TMA ring, 37 steps a partial tile; the view below: the
+    # cp.async ring in f32, the loop in bf16 (37 = 4 batches of its 8 steps
+    # and 5 left over)
+    B, S, C = 3, 37, 131_076
     a = torch.rand(B, S, C, device="cuda", generator=gen).to(dtype)
     b = torch.randn(B, S, C, device="cuda", generator=gen).to(dtype)
     before = linear_recurrence.linear_recurrence.launches
     h_all, h_last = linear_recurrence.linear_recurrence(a, b)
     want_all, want_last = ref.linear_recurrence_ref(a, b)
-    # rows only 4-byte aligned: the one-channel path, the same bits
+    # offset by one element (the cp.async ring or the loop): the same bits
     flat_a = torch.empty(B * S * C + 1, device="cuda", dtype=dtype)
     flat_b = torch.empty_like(flat_a)
     ua = flat_a[1:].view(B, S, C).copy_(a)
@@ -279,6 +283,47 @@ def test_linear_recurrence_kernel_is_bit_equal_to_plain(dtype):
     # the product and the sum rounded separately in both: bit-equal
     for got in ((h_all, h_last), (u_all, u_last)):
         assert torch.equal(got[0], want_all) and torch.equal(got[1], want_last)
+
+
+# (B, S, C, offset in elements, dtype, the route launch_geometry picks):
+# recurrentgemma-2b's C over 5 tiles (the last one partial) and a C that is
+# a multiple of 4 but not of 32 (bf16 rows not 16-byte strided: cp.async),
+# each also as a view offset by one element (f32: cp.async; bf16 rows only
+# 2-byte aligned: the loop)
+LINREC_RING_CASES = [
+    (1, 300, 2560, 0, torch.float32, "tma"),
+    (1, 300, 2560, 0, torch.bfloat16, "tma"),
+    (3, 65, 2564, 0, torch.float32, "tma"),
+    (3, 65, 2564, 0, torch.bfloat16, "cp.async"),
+    (1, 300, 2560, 1, torch.float32, "cp.async"),
+    (1, 300, 2560, 1, torch.bfloat16, "loop"),
+    (3, 65, 2564, 1, torch.float32, "cp.async"),
+    (3, 65, 2564, 1, torch.bfloat16, "loop"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,C,offset,dtype,route", LINREC_RING_CASES)
+def test_linear_recurrence_ring_routes_are_bit_equal(B, S, C, offset, dtype,
+                                                     route):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    gen = torch.Generator(device="cuda").manual_seed(B * S + C + offset)
+    n = B * S * C + offset
+    a = torch.rand(n, device="cuda", generator=gen).to(dtype)[offset:]
+    b = torch.randn(n, device="cuda", generator=gen).to(dtype)[offset:]
+    a, b = a.view(B, S, C), b.view(B, S, C)
+    assert linear_recurrence.geometry_for(a, b)["route"] == route
+    before = linear_recurrence.linear_recurrence.launches
+    got = linear_recurrence.linear_recurrence(a, b)
+    again = linear_recurrence.linear_recurrence(a, b)
+    want = ref.linear_recurrence_ref(a, b)
+    torch.cuda.synchronize()
+    assert linear_recurrence.linear_recurrence.launches == before + 2
+    # each step's product and sum rounded separately, in order: bit-equal,
+    # and a rerun gives the same bits
+    for g in (got, again):
+        assert torch.equal(g[0], want[0]) and torch.equal(g[1], want[1])
 
 
 @pytest.mark.cuda
