@@ -47,7 +47,15 @@ and then drives the main paths through the train CLI's own functions:
   window) of every prefill through ``flash_attention`` and of every decode
   step through ``decode_attention`` against a 2048-slot ring that has
   wrapped; two requests are served again one at a time and must give the
-  same tokens.
+  same tokens;
+* the paper's §6 on the dense host runtime, through the twins of the
+  reference's examples under ``examples/torch/``: the quickstart
+  (MC-DSGT <= DSGD on ``sun``), Figure 2 at its default budget (both
+  protocols, the whole step-size grid; mnist-24's verdict must be "beats"
+  and covtype-binary's must not be "LOSES to"), MC-DSGT on the MNIST
+  protocol with int8 and sign gossip and DSGT on its Dirichlet partition,
+  and the sampled-clients example at n = 100,000, whose manifest must equal
+  the checked-in one.  No kernel runs there: the counts stay at 0.
 
 ``linear_recurrence`` is checked bit-equal on each of its three routes
 (a ring of time tiles filled by TMA or by cp.async, and the loop) and
@@ -154,6 +162,20 @@ SERVE_CLI_ARGV = ["--arch", "qwen1.5-0.5b", "--preset", "full", "--nodes",
                   "--steps", str(SERVE_CLI_STEPS), "--requests", "8",
                   "--serve-batch", "4", "--prompt-len", "128", "--max-new",
                   "16", "--dtype", "bf16"]
+# The paper's §6 on the dense host runtime: the twins of the reference's
+# quickstart, Figure 2 and sampled-clients examples (examples/torch/), then
+# MC-DSGT (R=2) on Figure 2's MNIST protocol (configs/logreg_paper.py) with
+# compressed gossip and DSGT on its Dirichlet partition, S6_STEPS each.
+# None of it reaches a kernel (the reference's logreg runtime reaches no
+# Pallas kernel either).  The telemetry bytes of the compressed runs: 4
+# rounds a step, all 16 nodes send, 784 entries and 4 group scales
+# (tests/test_torch_logreg.py pins them on the CPU).
+S6_STEPS = 20
+# Figure 2's grid: dsgd and dsgt at 2 step sizes each, mc_dsgt at the
+# distinct ones of {g, g R/2, g R}: 2 for MNIST (R=2), 3 for COVTYPE (R=4)
+FIG2_RUNS = 13
+S6_BYTES_TOTAL = {"int8": 1_024_000, "sign": 145_920}
+S6_MANIFEST = "experiments/manifests/sampled_clients_100k.json"
 # H100 SXM dense bf16 tensor-core peak and L2 size (NVIDIA data sheet): the
 # attention kernels' operations are bf16 products on the main path, and
 # their inputs (8-16 MB) would stay in L2 from one timed call to the next,
@@ -1758,6 +1780,175 @@ def profile_serve(torch, model, fleet, tree, sv: dict, kernels: tuple):
                                      for k, ms, c in top), flush=True)
 
 
+def load_twin(name: str):
+    """``examples/torch/<name>.py``, the port's twin of a reference
+    example, as a module (``repro_torch`` already on the path)."""
+    import importlib.util
+    path = ROOT / "examples" / "torch" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(f"twin_{name}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+class RunTimer:
+    """Wraps ``exp.run`` while a twin runs: each call's spec, wall seconds
+    (its build included, the device synchronized by the loop) and final
+    eval, so the twins' own code stays the reference's."""
+
+    def __init__(self, exp):
+        self.exp, self.runs = exp, []
+
+    def __enter__(self):
+        inner = self.inner = self.exp.run
+
+        def run(spec, **kw):
+            t0 = time.perf_counter()
+            res = inner(spec, **kw)
+            self.runs.append((spec, time.perf_counter() - t0, res.history))
+            return res
+
+        self.exp.run = run
+        return self
+
+    def __exit__(self, *exc):
+        self.exp.run = self.inner
+
+    def per(self, key) -> dict:
+        """{key(spec): (seconds, steps)} summed over the runs."""
+        out = {}
+        for spec, sec, _ in self.runs:
+            s, n = out.get(key(spec), (0.0, 0))
+            out[key(spec)] = (s + sec, n + spec.run.steps)
+        return out
+
+
+def logreg_phase(torch, exp, counters) -> dict:
+    """The paper's §6 on the card through the twins of the reference's
+    examples: (a) the quickstart's three algorithms at equal budget, its
+    assertion MC-DSGT <= DSGD; (b) Figure 2 at its default 400-round
+    budget, both protocols and the whole step-size grid (13 runs), CSVs
+    into a temporary directory: mnist-24 must read "beats", covtype-binary
+    anything but "LOSES to"; (c) MC-DSGT (R=2) on the MNIST protocol with
+    int8 and sign gossip (group 256, error feedback), finite, with the
+    pinned telemetry bytes; (d) DSGT on the MNIST protocol's Dirichlet
+    partition (alpha 0.1), finite; (e) the sampled-clients twin at n =
+    100,000, its manifest equal to the checked-in one key for key; (f) no
+    kernel launched over (a)-(e)."""
+    import os
+    import tempfile
+    for c in counters.values():
+        c.launches = 0
+    t_phase = time.perf_counter()
+    qs = load_twin("quickstart")
+    with RunTimer(exp) as rt:
+        t0 = time.perf_counter()
+        try:
+            results = qs.main(["--quiet"])
+        except AssertionError as e:
+            fail(f"§6 quickstart: {e}")
+        wall = time.perf_counter() - t0
+    per = rt.per(lambda spec: spec.algorithm.name)
+    for name, g in results.items():
+        sec, steps = per[name]
+        print(f"§6 (a) quickstart {name}: grad_sq {g:.6g} at T={qs.T_BUDGET}"
+              f"  {steps} steps {sec:.3f} s ({sec / steps * 1e3:.4f} ms/step,"
+              " build included)", flush=True)
+    print(f"§6 (a) quickstart: MC-DSGT <= DSGD holds "
+          f"({results['mc_dsgt']:.6g} <= {results['dsgd']:.6g}); wall "
+          f"{wall:.3f} s", flush=True)
+
+    fig = load_twin("paper_figure2")
+    with tempfile.TemporaryDirectory() as out, RunTimer(exp) as rt:
+        t0 = time.perf_counter()
+        curves = fig.main(["--out", out, "--quiet"])
+        wall_fig = time.perf_counter() - t0
+        csvs = sorted(os.listdir(out))
+    if csvs != ["figure2_covtype-binary.csv", "figure2_mnist-24.csv"]:
+        fail(f"§6 Figure 2 wrote {csvs}")
+    if len(rt.runs) != FIG2_RUNS:
+        fail(f"§6 Figure 2 ran {len(rt.runs)} cells, not the grid's "
+             f"{FIG2_RUNS}")
+    per = rt.per(lambda spec: spec.model.d)
+    verdicts = {}
+    for lc in (fig.MNIST, fig.COVTYPE):
+        word, mc, dsgd = fig.verdict(curves[lc.name])
+        verdicts[lc.name] = word
+        sec, steps = per[lc.d]
+        print(f"§6 (b) Figure 2 {lc.name}: MC-DSGT {word} DSGD ({mc:.6g} vs "
+              f"{dsgd:.6g}); finals "
+              f"{ {k: v[-1][1] for k, v in curves[lc.name].items()} }; "
+              f"{steps} steps in {sec:.3f} s ({sec / steps * 1e3:.4f} "
+              "ms/step, builds included)", flush=True)
+    if verdicts[fig.MNIST.name] != "beats":
+        fail(f"§6 Figure 2 mnist-24: MC-DSGT {verdicts[fig.MNIST.name]} "
+             "DSGD; the reference's verdict is 'beats'")
+    if verdicts[fig.COVTYPE.name] == "LOSES to":
+        fail("§6 Figure 2 covtype-binary: MC-DSGT LOSES to DSGD")
+    print(f"§6 (b) Figure 2: wall {wall_fig:.3f} s for {FIG2_RUNS} runs",
+          flush=True)
+
+    mnist = exp.with_field(fig.SPECS["mnist_mc_dsgt"], "run.steps", S6_STEPS)
+    for scheme in ("int8", "sign"):
+        spec = exp.with_field(mnist, "compression.scheme", scheme)
+        t0 = time.perf_counter()
+        res = exp.run(spec, device="cuda", quiet=True)
+        sec = time.perf_counter() - t0
+        evals = [v for _, v in res.history]
+        if not all(math.isfinite(v) for v in evals) or not bool(
+                res.state.x.isfinite().all()):
+            fail(f"§6 (c) MNIST MC-DSGT {scheme}: not finite: {evals}")
+        got = res.telemetry.bytes_total
+        if got != S6_BYTES_TOTAL[scheme]:
+            fail(f"§6 (c) MNIST MC-DSGT {scheme}: telemetry bytes {got}, "
+                 f"want {S6_BYTES_TOTAL[scheme]}")
+        print(f"§6 (c) MNIST MC-DSGT R=2 {scheme} gossip: grad_sq "
+              f"{evals[-1]:.6g} at T={res.history[-1][0]}  bytes_total {got}"
+              f"  {S6_STEPS} steps {sec:.3f} s", flush=True)
+    spec = exp.with_overrides(fig.base_spec(fig.MNIST), {
+        "algorithm.name": "dsgt", "algorithm.gamma": 0.5,
+        "run.steps": S6_STEPS, "data.hetero_alpha": 0.1})
+    res = exp.run(spec, device="cuda", quiet=True)
+    evals = [v for _, v in res.history]
+    if not all(math.isfinite(v) for v in evals):
+        fail(f"§6 (d) MNIST DSGT on Dirichlet data: not finite: {evals}")
+    print(f"§6 (d) MNIST DSGT, Dirichlet(0.1) partition: grad_sq "
+          f"{evals[-1]:.6g} at T={res.history[-1][0]}", flush=True)
+
+    sc = load_twin("sampled_clients")
+    want = json.loads((ROOT / S6_MANIFEST).read_text())
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as out:
+        os.chdir(out)   # the spec names its telemetry file relatively
+        try:
+            t0 = time.perf_counter()
+            res = sc.main(["--quiet"])
+            wall_sc = time.perf_counter() - t0
+            got = json.loads(Path(sc.TELEMETRY + ".spec.json").read_text())
+            telem = json.loads(Path(sc.TELEMETRY).read_text())
+        finally:
+            os.chdir(cwd)
+    for key in ("format", "spec", "spec_hash", "realized"):
+        if got.get(key) != want[key]:
+            fail(f"§6 (e) sampled-clients manifest {key!r}: {got.get(key)} "
+                 f"!= {S6_MANIFEST}'s {want[key]}")
+    if len(telem["history"]) != sc.STEPS:
+        fail(f"§6 (e) telemetry file holds {len(telem['history'])} records")
+    print(f"§6 (e) sampled clients n={sc.N:,} k={sc.K}: manifest == "
+          f"{S6_MANIFEST} (edges/round {got['realized']['edges_per_round']},"
+          f" senders/round {got['realized']['senders_per_round']}); "
+          f"grad_sq {res.history[-1][1]:.6g}  bytes_total "
+          f"{res.telemetry.bytes_total}  wall {wall_sc:.3f} s", flush=True)
+
+    launches = {k: c.launches for k, c in counters.items()}
+    if any(launches.values()):
+        fail(f"§6 phase launched kernels: {launches}")
+    wall = time.perf_counter() - t_phase
+    print(f"§6 (f) kernel launches over the phase: {launches}; phase wall "
+          f"{wall:.3f} s", flush=True)
+    return {"wall_s": wall, "verdicts": verdicts}
+
+
 def main_path(torch, train, argv, counter, name: str) -> dict:
     """Drive one main path through the train CLI with ``counter`` (a
     kernel wrapper's launch count) set to 0 just before it and read just
@@ -1909,6 +2100,10 @@ def main():
     profile_serve(torch, model, fleet, tree, RGSERVE,
                   ("linear_recurrence", "flash_attention", "decode_attention"))
     del model, fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    logreg_phase(torch, exp, counters)
 
     rows = [
         {"name": "gossip_mix", "route": "cuda",

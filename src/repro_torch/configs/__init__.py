@@ -3,7 +3,8 @@
 The port trains the dense qwen1.5-0.5b and serves it, the mamba
 falcon-mamba-7b and the hybrid recurrentgemma-2b; the other architectures of
 the JAX package's registry come with their model families (ROADMAP.md
-Queue 1)."""
+Queue 1).  ``logreg_paper`` (a copy) holds the paper's §6 protocols, which
+are not architectures and register nothing."""
 from .base import INPUT_SHAPES, InputShape, ModelConfig  # noqa: F401
 
 _REGISTRY = {}
@@ -30,4 +31,9 @@ def names() -> list:
 
 
 def _load_all():
-    from . import falcon_mamba_7b, qwen1_5_0_5b, recurrentgemma_2b  # noqa: F401
+    from . import (  # noqa: F401
+        falcon_mamba_7b,
+        logreg_paper,
+        qwen1_5_0_5b,
+        recurrentgemma_2b,
+    )

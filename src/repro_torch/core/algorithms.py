@@ -10,10 +10,12 @@ route of a :class:`repro_torch.sparse.SparseGossipPlan`.
 
 :func:`from_rule` and :func:`plan_step` bind an engine
 :class:`~repro_torch.core.engine.UpdateRule` to the host runtime (the
-paper's logistic regression, :func:`repro_torch.core.driver.run_algorithm`):
-a ``grad_fn(x, gen)`` oracle, which draws its samples from the
-``torch.Generator`` ``gen``, and the step's dense weight window or a staged
-edge plan.
+paper's logistic regression, :func:`run` / :func:`repro_torch.core.driver.
+run_algorithm`): a ``grad_fn(x, gen)`` oracle, which draws its samples from
+the ``torch.Generator`` ``gen``, and the step's dense weight window or a
+staged edge plan, either one behind the error-feedback compressed window
+when the rule compresses.  :func:`dsgd`, :func:`dsgt` and :func:`mc_dsgt`
+are the paper's three rules (Table 1).
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from . import engine
+from . import compress, driver, engine
 
 GradFn = Callable[[torch.Tensor, torch.Generator], torch.Tensor]
 
@@ -125,17 +127,21 @@ def _grad_op(rule: engine.UpdateRule, grad_fn: GradFn,
 def from_rule(rule: engine.UpdateRule) -> DecentralizedAlgorithm:
     """Bind an UpdateRule to the host runtime: the dense multi-consensus
     mixer over the step's weight window and a ``grad_fn(x, gen)`` oracle.
-    ``init(x0)`` copies ``x0``: the engine updates its state in place, and
-    the caller's tensor must survive the run.  (The reference's local
-    optimizer hook comes with ROADMAP.md Queue 1 item 2.)"""
-    if rule.compression is not None:
-        raise NotImplementedError("compression on the host runtime is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 1)")
+    A compressing rule mixes through the error-feedback window
+    (:func:`repro_torch.core.compress.make_compressed_mixer`) around one
+    window matrix per round.  ``init(x0)`` copies ``x0``: the engine updates
+    its state in place, and the caller's tensor must survive the run.  (The
+    reference's local optimizer hook comes with ROADMAP.md Queue 1 item
+    2.)"""
 
     def _ops(grad_fn, weights, gen):
+        cmix = None
+        if rule.compression is not None:
+            cmix = compress.make_compressed_mixer(
+                lambda idx, m: mix(weights[idx], m), rule.compression)
         return engine.EngineOps(
             mix=lambda off, r, x: multi_consensus(weights[off:off + r], x),
-            grad=_grad_op(rule, grad_fn, gen))
+            grad=_grad_op(rule, grad_fn, gen), cmix=cmix)
 
     def init(x0: torch.Tensor) -> AlgoState:
         return engine.init_state(rule, x0.clone())
@@ -172,9 +178,70 @@ def plan_step(algo: DecentralizedAlgorithm, plan):
 
     def pstep(state: AlgoState, grad_fn: GradFn, tensors, t: int,
               gen: torch.Generator) -> AlgoState:
+        cmix = None
+        if rule.compression is not None:
+            cmix = compress.make_compressed_mixer(
+                lambda idx, m: mixer(tensors, t + idx, 1, m),
+                rule.compression)
         ops = engine.EngineOps(
             mix=lambda off, r, x: mixer(tensors, t + off, r, x),
-            grad=_grad_op(rule, grad_fn, gen))
+            grad=_grad_op(rule, grad_fn, gen), cmix=cmix)
         return engine.step(rule, state, ops)[0]
 
     return pstep
+
+
+# -- The paper's rules, one line each (Table 1). --
+
+def dsgd(gamma: float) -> DecentralizedAlgorithm:
+    """DSGD [12]: x^{k+1} = W^k (x^k - gamma * g^k)."""
+    return from_rule(engine.make_rule("dsgd", gamma))
+
+
+def dsgt(gamma: float) -> DecentralizedAlgorithm:
+    """DSGT [40]: x^{k+1} = W (x^k - gamma h^k);
+    h^{k+1} = W (h^k + g^{k+1} - g^k).  Two gossip rounds per step."""
+    return from_rule(engine.make_rule("dsgt", gamma))
+
+
+def mc_dsgt(gamma: float, R: int) -> DecentralizedAlgorithm:
+    """Multi-Consensus DSGT (Algorithm 1): R-sample gradient accumulation
+    and R gossip rounds per consensus phase; ``weights`` is the (2R, n, n)
+    stack [W^{2kR}, ..., W^{(2k+2)R - 1}] (first R mix x, last R mix h)."""
+    return from_rule(engine.make_rule("mc_dsgt", gamma, R=R))
+
+
+def _item2(name: str):
+    def factory(*args, **kwargs):
+        raise NotImplementedError(f"algo {name!r} is not ported yet "
+                                  "(ROADMAP.md Queue 1 item 2)")
+    factory.__name__ = name
+    return factory
+
+
+# the reference's other factories come with their update rules
+d2, local_sgd, personalized, gt_local = map(
+    _item2, ("d2", "local_sgd", "personalized", "gt_local"))
+
+
+def warm_start(algo: DecentralizedAlgorithm, state: AlgoState,
+               grad_fn: GradFn, gen: torch.Generator) -> AlgoState:
+    """Tracker initialization (Algorithm 1's h^0 for the tracking rules)
+    -- delegates to the engine."""
+    return algo.warm(state, grad_fn, gen)
+
+
+def run(algo: DecentralizedAlgorithm, x0: torch.Tensor, grad_fn: GradFn,
+        weight_schedule, num_steps: int, gen: torch.Generator,
+        eval_fn: Optional[Callable] = None, eval_every: int = 1,
+        gossip_impl: str = "dense", telemetry=None):
+    """Host training loop over a weight schedule, the reference's
+    ``algorithms.run`` with a ``torch.Generator`` where it takes a key:
+    delegates to :func:`repro_torch.core.driver.run_algorithm`.  Returns
+    (final_state, history), history the ``(T, eval_fn(x̄))`` pairs every
+    ``eval_every`` steps and at the last, T the gossip/oracle budget
+    consumed so far (the paper's Figure 2 x-axis)."""
+    return driver.run_algorithm(algo, x0, grad_fn, weight_schedule,
+                                num_steps, gen, eval_fn=eval_fn,
+                                eval_every=eval_every,
+                                gossip_impl=gossip_impl, telemetry=telemetry)

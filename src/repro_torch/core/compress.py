@@ -6,7 +6,8 @@ with a per-node error-feedback residual carried into the next round's
 payload.  The port keeps the state flat for the whole run, and its
 :class:`repro_torch.dist.collectives.FlatLayout` aligns every leaf to a
 multiple of ``group`` (what the reference's ``flatten_grouped`` builds
-around each mix), so everything here works on the (n, D) matrix directly:
+around each mix), so everything here works on the (n, D) matrix directly
+(the host runtime's (n, d) state is padded to the group round by round):
 
 * :class:`CompressionConfig` -- the runtime config a ``CompressionSpec``
   lowers to;
@@ -78,10 +79,28 @@ def make_compressed_mixer(mix_round: Callable[[int, torch.Tensor],
     ``cmix(offset, rounds, mat, res, on) -> (mat, res)``.
 
     ``mix_round(idx, mat)`` applies ONE gossip round (window index ``idx``
-    = offset + r) to an (n, D) matrix.  ``res`` is the (n, D) residual, D a
-    multiple of ``cfg.group``; it is updated in place, so the engine's
-    residual keeps its storage.  ``on`` is the warmup gate: False mixes at
-    full precision and leaves ``res`` untouched."""
+    = offset + r) to an (n, D) matrix.  ``res`` is the (n, D) residual,
+    updated in place, so the engine's residual keeps its storage.  ``on``
+    is the warmup gate: False mixes at full precision and leaves ``res``
+    untouched.
+
+    When D is not a multiple of ``cfg.group`` (the host runtime's d = 784
+    or 54 at group 256), each round quantizes ``mat + res`` zero-padded to
+    the next multiple, as the reference's ``flatten_grouped`` pads it: the
+    pad's zeros count in the last group's scale (sign's mean |g|).  Only the
+    D real columns gossip and reach the residual.  The arch trainer's flat
+    layout is aligned already and takes no pad and no copy."""
+
+    def quantize(buf: torch.Tensor):
+        D = buf.shape[1]
+        pad = (-D) % cfg.group
+        if not pad:
+            return kernels_ref.quantize_dequantize_ref(
+                buf, scheme=cfg.scheme, group=cfg.group)
+        deq, err = kernels_ref.quantize_dequantize_ref(
+            torch.nn.functional.pad(buf, (0, pad)), scheme=cfg.scheme,
+            group=cfg.group)
+        return deq[:, :D].contiguous(), err[:, :D]
 
     def cmix(offset: int, rounds: int, mat: torch.Tensor, res: torch.Tensor,
              on: bool) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -90,8 +109,7 @@ def make_compressed_mixer(mix_round: Callable[[int, torch.Tensor],
                 mat = mix_round(offset + r, mat)
             return mat, res
         for r in range(rounds):
-            deq, err = kernels_ref.quantize_dequantize_ref(
-                mat + res, scheme=cfg.scheme, group=cfg.group)
+            deq, err = quantize(mat + res)
             if cfg.error_feedback:
                 res.copy_(err)
             mat = mix_round(offset + r, deq)

@@ -1,2 +1,8 @@
-from .synthetic import (TokenStream, logreg_dataset,  # noqa: F401
-                        logreg_loss_and_grad, token_stream_for)
+from .synthetic import (  # noqa: F401
+    TokenStream,
+    dirichlet_partition,
+    logreg_dataset,
+    logreg_dataset_dirichlet,
+    logreg_loss_and_grad,
+    token_stream_for,
+)

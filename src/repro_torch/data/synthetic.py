@@ -8,8 +8,9 @@ Its tokens come from a ``torch.Generator`` seeded by (seed, step); the JAX
 package's ``jax.random`` stream cannot be replayed in torch, so tests that
 compare the two packages hand both the same numpy batches.
 
-:func:`logreg_dataset` makes the JAX package's numpy data bit for bit and
-moves it to the device; :func:`logreg_loss_and_grad` gives the §6
+:func:`logreg_dataset` and :func:`logreg_dataset_dirichlet` (with
+:func:`dirichlet_partition`) make the JAX package's numpy data bit for bit
+and move it to the device; :func:`logreg_loss_and_grad` gives the §6
 objective's gradients in closed form.  Its stochastic oracle draws minibatch
 indices from a ``torch.Generator`` on the data's device, which the JAX
 package's ``jax.random.randint`` stream cannot replay.
@@ -51,6 +52,66 @@ def token_stream_for(cfg, n_nodes: int, rounds: int, batch: int, seq: int,
     return TokenStream(vocab_size=cfg.vocab_size, n_nodes=n_nodes,
                        rounds=rounds, batch=batch, seq=seq, seed=seed,
                        active_vocab=active_vocab, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Dirichlet node partitions (federated non-iid protocol)
+# ---------------------------------------------------------------------------
+
+def dirichlet_partition(labels: np.ndarray, n_nodes: int, alpha: float,
+                        seed: int = 0) -> list:
+    """Partition a labelled pool across nodes with Dirichlet(alpha) class
+    proportions (Hsu et al.): for each class, sample p ~ Dir(alpha * 1_n)
+    and deal that class's examples to nodes in proportion p.  Every example
+    is assigned to exactly one node; every node receives at least one
+    example (the emptiest node steals from the fullest if a draw starves
+    it).  Returns a list of ``n_nodes`` index arrays.  The JAX package's
+    numpy, bit for bit.
+    """
+    labels = np.asarray(labels)
+    rng = np.random.default_rng(np.random.SeedSequence((seed, 0xD117)))
+    parts = [[] for _ in range(n_nodes)]
+    for cls in np.unique(labels):
+        idx = np.flatnonzero(labels == cls)
+        rng.shuffle(idx)
+        p = rng.dirichlet([alpha] * n_nodes)
+        cuts = (np.cumsum(p) * len(idx)).astype(int)[:-1]
+        for node, chunk in enumerate(np.split(idx, cuts)):
+            parts[node].extend(chunk.tolist())
+    for node in range(n_nodes):  # no node may be empty
+        if not parts[node]:
+            donor = int(np.argmax([len(p) for p in parts]))
+            parts[node].append(parts[donor].pop())
+    return [np.sort(np.asarray(p, dtype=int)) for p in parts]
+
+
+def logreg_dataset_dirichlet(n_nodes: int, m: int, d: int, *, alpha: float,
+                             margin: float = 1.0, seed: int = 0,
+                             device="cpu"):
+    """§6-style binary data partitioned by :func:`dirichlet_partition`
+    instead of the fixed 80/20 split: the label skew per node is governed
+    by ``alpha`` (small = near-single-class nodes).  Each node holds ``m``
+    samples drawn with replacement from its Dirichlet share so shapes stay
+    (n_nodes, m, d) / (n_nodes, m) like :func:`logreg_dataset`.  The numpy
+    draws are the JAX package's, bit for bit; the arrays move to ``device``
+    last.
+    """
+    rng = np.random.default_rng(seed)
+    total = n_nodes * m
+    w_star = rng.normal(size=d) / np.sqrt(d)
+    y_all = np.where(rng.random(total) < 0.5, 1.0, -1.0)
+    base = rng.normal(size=(total, d)).astype(np.float32)
+    proj = base @ w_star
+    base += np.outer((margin * y_all - proj) * 0.9, w_star) / (w_star @ w_star)
+    parts = dirichlet_partition(y_all, n_nodes, alpha, seed=seed)
+    feats = np.zeros((n_nodes, m, d), np.float32)
+    labels = np.zeros((n_nodes, m), np.float32)
+    for i, part in enumerate(parts):
+        take = rng.choice(part, size=m, replace=True)
+        feats[i] = base[take]
+        labels[i] = y_all[take]
+    return (torch.from_numpy(feats).to(device),
+            torch.from_numpy(labels).to(device))
 
 
 # ---------------------------------------------------------------------------

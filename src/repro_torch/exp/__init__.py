@@ -3,10 +3,27 @@
 The spec tree, its JSON and ``spec_hash`` are the JAX package's (a copy), so
 one spec file describes the same run in both packages; ``run(spec,
 device=...)`` trains it with the port on the given device, and serves the
-trained fleet when the spec enables a serve phase.
+trained fleet when the spec enables a serve phase.  The reproducibility
+manifests (:mod:`repro_torch.exp.manifest`, a copy) are the reference's
+files: one written by either package loads in the other.
 """
 
-from .build import Built, Result, build, resolve_device, run  # noqa: F401
+from .build import (  # noqa: F401
+    Built,
+    Result,
+    build,
+    resolve_device,
+    run,
+    weights_per_step,
+)
+from .manifest import (  # noqa: F401
+    check_restore_spec,
+    diff_specs,
+    load_manifest,
+    manifest_path,
+    resolved_manifest,
+    write_manifest,
+)
 from .registry import (  # noqa: F401
     ALGORITHMS,
     CHANNELS,

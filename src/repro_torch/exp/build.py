@@ -11,12 +11,16 @@ telemetry recorder) and the pieces of the runtime ``model.kind`` selects:
   :func:`repro_torch.dist.steps.make_train_step` on the driver's loop (what
   ``launch/train.py`` runs);
 * ``logreg`` — the host runtime: the paper's §6 non-convex logistic
-  regression driven by :func:`repro_torch.core.driver.run_algorithm`, so
-  far on the sampled-client ``random-sampled`` family only.
+  regression driven by :func:`repro_torch.core.driver.run_algorithm`, on
+  the dense topologies (one matrix product per round) and on the
+  sampled-client ``random-sampled`` family (an edge plan), with or without
+  compression, on the 80/20 or the Dirichlet partition.
 
-``run`` trains, then, when ``spec.serve`` enables it, serves the first
-``serve.fleet`` trained node models with continuous batching
-(:func:`repro_torch.serve.serve_fleet`, what ``launch/serve.py`` runs).
+``run`` writes the reproducibility manifest next to the telemetry file
+when ``run.telemetry`` names one, trains, then, when ``spec.serve``
+enables it, serves the first ``serve.fleet`` trained node models with
+continuous batching (:func:`repro_torch.serve.serve_fleet`, what
+``launch/serve.py`` runs).
 The device is a runtime argument, not a spec field, so a spec hashes the
 same in both packages.  It defaults to ``"cuda"``; without a GPU that
 raises unless the caller asked for the CPU.
@@ -33,11 +37,13 @@ import torch
 
 from .. import configs, tree
 from ..core import algorithms as alg, compress, driver, engine
-from ..data import logreg_dataset, logreg_loss_and_grad, token_stream_for
+from ..data import (logreg_dataset, logreg_dataset_dirichlet,
+                    logreg_loss_and_grad, token_stream_for)
 from ..dist import collectives as coll, steps as dsteps
 from ..models import build as build_model
 from ..obs import console as obs_console
-from . import registry
+from ..sim import telemetry as sim_telemetry
+from . import manifest as mf, registry
 from .spec import ExperimentSpec
 
 
@@ -45,9 +51,10 @@ class Result(NamedTuple):
     """``history``: one dict per logged step (loss, consensus, sec) for
     ``arch``; ``(T, eval)`` pairs for ``logreg``.  ``built`` is the realized
     scenario; ``telemetry`` the mixing-telemetry recorder when the scenario
-    has one (the edge-list families).  ``serve`` is the
-    :class:`repro_torch.serve.ServeResult` of the post-training serve phase
-    when ``spec.serve`` enables one, else None."""
+    has one (the edge-list family, compression, or ``run.telemetry`` set).
+    ``serve`` is the :class:`repro_torch.serve.ServeResult` of the
+    post-training serve phase when ``spec.serve`` enables one, else
+    None."""
 
     state: Any
     history: list
@@ -119,6 +126,16 @@ class Built:
                             "fleet": sv.fleet or self.spec.run.nodes,
                             "batch": sv.batch, "routing": sv.routing}
         return out
+
+
+def weights_per_step(algorithm) -> int:
+    """Gossip rounds one step of this :class:`AlgorithmSpec` consumes (the
+    paper's budget accounting), derived from the engine rule, so ``steps =
+    T // weights_per_step(a)`` stays right if a rule's round structure
+    changes."""
+    R = algorithm.R if algorithm.name == "mc_dsgt" else 1
+    return engine.make_rule(algorithm.name, gamma=algorithm.gamma,
+                            R=R).weights_per_step
 
 
 def resolve_device(device) -> torch.device:
@@ -205,8 +222,8 @@ def _validate(spec: ExperimentSpec) -> None:
 def _check_ported(spec: ExperimentSpec) -> None:
     """Raise NotImplementedError, naming its ROADMAP.md Queue 1 item, for
     the first scenario axis the spec uses that the port does not run yet.
-    The logreg runtime, ``gossip_impl='auto'`` and channel faults run on
-    the sampled-client (edge-list) family only."""
+    ``gossip_impl='auto'`` and channel faults run on the sampled-client
+    (edge-list) family only."""
     a, r, c = spec.algorithm, spec.run, spec.channel
     sampled = spec.topology.kind in registry.SPARSE_TOPOLOGIES
     logreg = spec.model.kind == "logreg"
@@ -216,22 +233,16 @@ def _check_ported(spec: ExperimentSpec) -> None:
         (arch_pattern != ("attn",),
          f"training model.arch={spec.model.arch!r} (the arch trainer runs "
          "the dense ('attn',) pattern)", 9),
-        (logreg and not sampled,
-         "model.kind='logreg' off the random-sampled topology", 1),
         (a.local_opt != "sgd", f"algorithm.local_opt={a.local_opt!r}", 2),
         (r.gossip_impl == "auto" and not sampled,
          "run.gossip_impl='auto' off the random-sampled topology", 3),
         (spec.obs.enabled, "obs (metrics / profile_dir)", 4),
-        (r.telemetry is not None,
-         "run.telemetry (the telemetry file and its manifest)", 1),
         (any(getattr(c, f) > 0 for f in registry.CHANNELS) and not sampled,
          "channel faults off the random-sampled topology", 5),
-        (logreg and spec.compression.enabled,
-         "compression on the logreg host runtime", 1),
         (a.delay != 0 or a.comm_interval != 1,
          "algorithm.delay / comm_interval", 7),
-        (spec.data.hetero_alpha is not None,
-         "data.hetero_alpha", 1 if logreg else 9),
+        (spec.data.hetero_alpha is not None and not logreg,
+         "data.hetero_alpha (the Dirichlet token streams)", 9),
         (bool(r.checkpoint or r.restore), "run.checkpoint / restore", 10),
     ]
     for used, what, item in unported:
@@ -276,10 +287,15 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Built:
             else None)
     seconds["plan"] = time.perf_counter() - t0
     telem = None
-    if is_sparse:
-        from ..sparse import SparseTelemetryRecorder
-        telem = SparseTelemetryRecorder(sched, wps=wps, every=rs.log_every,
-                                        compression=comp)
+    if rs.telemetry or comp is not None or is_sparse:
+        # the reference's condition, on the axes the port runs (faults only
+        # come with the edge-list family here)
+        if is_sparse:
+            from ..sparse import SparseTelemetryRecorder as _Recorder
+        else:
+            _Recorder = sim_telemetry.TelemetryRecorder
+        telem = _Recorder(sched, wps=wps, every=rs.log_every,
+                          compression=comp)
     built = Built(spec=spec, rule=rule, wps=wps, schedule=sched, device=dev,
                   horizon=horizon, plan=plan, telemetry=telem,
                   seconds=seconds)
@@ -296,7 +312,12 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Built:
             active_vocab=spec.data.active_vocab, device=dev)
     else:
         mr = spec.model
-        H, y = logreg_dataset(n, mr.m, mr.d, seed=rs.seed, device=dev)
+        if spec.data.hetero_alpha is not None:
+            H, y = logreg_dataset_dirichlet(n, mr.m, mr.d,
+                                            alpha=spec.data.hetero_alpha,
+                                            seed=rs.seed, device=dev)
+        else:
+            H, y = logreg_dataset(n, mr.m, mr.d, seed=rs.seed, device=dev)
         _, _, stoch, _, gnorm2 = logreg_loss_and_grad(rho=mr.rho)
         batch = spec.data.batch
         built.grad_fn = lambda xs, gen: stoch(xs, H, y, gen, batch)
@@ -309,12 +330,16 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Built:
 
 def run(spec: ExperimentSpec, *, device="cuda", quiet: bool = False) -> Result:
     """Build and train ``spec`` end to end on ``device``, then serve the
-    trained fleet when ``spec.serve`` enables a serve phase.  Float32
+    trained fleet when ``spec.serve`` enables a serve phase.  The manifest
+    (:mod:`repro_torch.exp.manifest`) is written next to the telemetry file
+    before the run, so an interrupted run stays attributable.  Float32
     matrix products run in full f32 (TF32 off), as the reference's
     numerics need."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     built = build(spec, device=device)
+    if spec.run.telemetry:
+        mf.write_manifest(spec.run.telemetry, spec, realized=built.realized)
     if spec.model.kind == "arch":
         res = _run_arch(built, quiet=quiet)
     else:
@@ -336,6 +361,8 @@ def _run_logreg(built: Built, *, quiet: bool = False) -> Result:
         rs.steps, gen, eval_fn=built.eval_fn, eval_every=rs.eval_every,
         gossip_impl=rs.gossip_impl, plan=built.plan,
         telemetry=built.telemetry)
+    if rs.telemetry:
+        built.telemetry.dump(rs.telemetry)
     if not quiet:
         for tl in (built.telemetry.history if built.telemetry else []):
             gap = tl["spectral_gap"]
@@ -366,14 +393,24 @@ def _run_arch(built: Built, *, quiet: bool = False) -> Result:
     step_fn = driver.bind_step(
         staged, lambda state, batch, W, t: train_step(state, batch, W))
 
+    telem = built.telemetry
+    con = obs_console.Console(quiet=quiet)
+
     def record(k, t, state, out, dt):
+        tl = (telem.record(k, t, state, out, dt)
+              if telem is not None else None)
         if k % rs.log_every != 0:
             return None
         loss = float(out["loss"])
-        ce = coll.consensus_distance(state.x)
-        if not quiet:
-            print(f"step {k:5d}  T={t:6d}  loss {loss:.4f}  "
-                  f"consensus {ce:.3e}  {dt:.2f}s", flush=True)
+        ce = (tl["consensus"] if tl is not None
+              else coll.consensus_distance(state.x))
+        extra = ""
+        if tl is not None:
+            ed, gap = tl["eff_diameter"], tl["spectral_gap"]
+            extra = (f"  gap {gap if gap is not None else float('nan'):.3f}"
+                     f"  eff_diam {ed if ed is not None else '-'}")
+        con.print(f"step {k:5d}  T={t:6d}  loss {loss:.4f}  "
+                  f"consensus {ce:.3e}{extra}  {dt:.2f}s", flush=True)
         return {"step": k, "loss": loss, "consensus": ce, "sec": dt}
 
     sync = ((lambda: torch.cuda.synchronize(dev)) if dev.type == "cuda"
@@ -383,7 +420,11 @@ def _run_arch(built: Built, *, quiet: bool = False) -> Result:
         start_step=start_step,
         extra_fn=lambda k: built.stream.batch_at(k + 1), record=record,
         sync=sync)
-    return Result(state=state, history=history, spec=spec, built=built)
+    if rs.telemetry:
+        telem.dump(rs.telemetry)
+        con.event("wrote_telemetry", path=rs.telemetry)
+    return Result(state=state, history=history, spec=spec, built=built,
+                  telemetry=telem)
 
 
 def _run_serve(built: Built, state, *, quiet: bool = False):

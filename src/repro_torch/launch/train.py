@@ -17,10 +17,19 @@ CPU).  With ``--compress sign|int8`` the rounds quantize every payload with
 error feedback, and the fused window is the Hopper ``quantized_gossip_mix``
 kernel.
 
-``--arch logreg --topology random-sampled`` runs the paper's logistic
-regression on the host runtime: a sampled cohort of a large fleet gossips
-over an edge-list plan each round (``--gossip-impl auto``), the whole fleet's
-data and state on the device.
+``--arch logreg`` runs the paper's §6 logistic regression on the host
+runtime, one matrix product per round on the dense topologies (``sun``,
+``random-sun``, ``ring``, ...), or, with ``--topology random-sampled``, a
+sampled cohort of a large fleet gossiping over an edge-list plan each round
+(``--gossip-impl auto``), the whole fleet's data and state on the device.
+``--compress``, ``--hetero-alpha`` (the Dirichlet partition) and
+``--telemetry`` (the telemetry file and its manifest) apply to it.
+
+Example (Figure 2's MNIST shapes, MC-DSGT R=2, int8 gossip, telemetry):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch logreg \
+        --logreg-d 784 --logreg-m 512 --batch 32 --topology random-sun \
+        --nodes 16 --algo mc_dsgt --R 2 --gamma 0.5 --compress int8 \
+        --steps 20 --telemetry telem.json
 
 Example (qwen1.5-0.5b at full width, 4 nodes stacked on one H100; add
 ``--compress int8`` for int8 gossip):

@@ -11,8 +11,8 @@ batched endpoint.
   (admit/route/prefill/decode/evict over a slot table), each slot decoding
   against views of its routed node's parameters.
 
-Entry point: :func:`serve_fleet`.  ``exp.run``'s serve phase and the serve
-CLI are not ported yet (ROADMAP.md Queue 1 item 11).
+Entry point: :func:`serve_fleet`, which ``exp.run``'s serve phase and the
+serve CLI (:mod:`repro_torch.launch.serve`) call.
 """
 
 from .engine import SERVE_DTYPES, ServeResult, serve_fleet  # noqa: F401

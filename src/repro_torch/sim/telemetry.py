@@ -73,11 +73,19 @@ TELEMETRY_FIELDS = {
 }
 
 
+_CHUNK_BYTES = 1 << 28
+
+
 def consensus_distance(x: torch.Tensor) -> float:
     """||x - x̄||_F of a node-stacked tensor (node axis 0), in f32 like the
-    reference.  Reduces on the device: one scalar crosses to the host."""
+    reference.  Reduces on the device over blocks of rows of at most
+    ``_CHUNK_BYTES``: a temporary never holds a second copy of a large
+    state (7.4 GB for the arch trainer's), and one scalar crosses to the
+    host."""
     xb = x.mean(dim=0, keepdim=True)
-    return float(((x - xb) ** 2).sum()) ** 0.5
+    rows = max(1, _CHUNK_BYTES // max(1, x[0].numel() * x.element_size()))
+    sq = sum(torch.linalg.vector_norm(c - xb) ** 2 for c in x.split(rows))
+    return float(sq) ** 0.5
 
 
 def windowed_spectral_gap(mats: np.ndarray) -> float:

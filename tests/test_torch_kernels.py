@@ -104,6 +104,10 @@ def _imports(path: Path):
 
 def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
+    twins = sorted((REPO / "examples" / "torch").glob("*.py"))
+    assert {p.name for p in twins} >= {"quickstart.py", "paper_figure2.py",
+                                       "sampled_clients.py"}
+    files += twins
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
     port = REPO / "src" / "repro_torch"

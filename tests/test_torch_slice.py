@@ -276,7 +276,8 @@ def test_default_device_raises_without_gpu(monkeypatch):
 
 @pytest.mark.parametrize("flags", [["--algo", "d2"], ["--gossip-impl", "auto"],
                                    ["--hetero-alpha", "0.1"],
-                                   ["--arch", "logreg"],
+                                   ["--arch", "logreg", "--metrics",
+                                    "m.jsonl"],
                                    ["--local-opt", "adam"],
                                    ["--link-drop", "0.1"], ["--delay", "1"],
                                    ["--checkpoint", "unused.msgpack"],

@@ -360,12 +360,13 @@ def test_telemetry_recorders_match_reference():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"model.kind": "logreg"}, "item 1"),                      # off sampled
+    ({"model.kind": "logreg", "topology.kind": "waypoint-mobility"},
+     "item 5"),
     ({"run.gossip_impl": "auto"}, "item 3"),
     ({"channel.link_drop": 0.1}, "item 5"),
-    ({"sampled": True, "run.telemetry": "t.json"}, "item 1"),
-    ({"sampled": True, "compression.scheme": "int8"}, "item 1"),
-    ({"sampled": True, "data.hetero_alpha": 0.1}, "item 1"),
+    ({"model.kind": "logreg", "run.gossip_impl": "auto"}, "item 3"),  # sun
+    ({"model.kind": "logreg", "obs.metrics": "m.jsonl"}, "item 4"),
+    ({"sampled": True, "algorithm.local_opt": "momentum"}, "item 2"),
     ({"sampled": True, "algorithm.delay": 1}, "item 7"),
     ({"sampled": True, "obs.metrics": "m.jsonl"}, "item 4"),
     ({"sampled": True, "algorithm.local_opt": "adam"}, "item 2"),

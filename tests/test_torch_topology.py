@@ -1,5 +1,5 @@
-"""The port's numpy copies of ``core/topology.py`` and ``core/gossip.py``,
-and its topology registry, against the JAX package's: weight stacks must be
+"""The port's verbatim copies (``core/topology.py``, ``core/gossip.py``,
+configs, ``exp/manifest.py``), and its topology registry, against the JAX package's: weight stacks must be
 bit-identical."""
 
 from pathlib import Path
@@ -21,7 +21,9 @@ SRC = Path(__file__).resolve().parents[1] / "src"
 
 @pytest.mark.parametrize("module", ["core/topology.py", "core/gossip.py",
                                     "configs/base.py",
-                                    "configs/qwen1_5_0_5b.py"])
+                                    "configs/qwen1_5_0_5b.py",
+                                    "configs/logreg_paper.py",
+                                    "exp/manifest.py"])
 def test_copies_are_verbatim(module):
     assert (SRC / "repro_torch" / module).read_text() == \
         (SRC / "repro" / module).read_text()
