@@ -55,7 +55,18 @@ and then drives the main paths through the train CLI's own functions:
   and covtype-binary's must not be "LOSES to"), MC-DSGT on the MNIST
   protocol with int8 and sign gossip and DSGT on its Dirichlet partition,
   and the sampled-clients example at n = 100,000, whose manifest must equal
-  the checked-in one.  No kernel runs there: the counts stay at 0.
+  the checked-in one.  No kernel runs there: the counts stay at 0;
+* gossip planning and the federated/local-update rules: the reference's
+  FedAvg run (``--algo local_sgd --topology federated --gossip-impl auto``)
+  at full width over the plan 2×empty+1×complete (0 launches); MC-DSGT on
+  ``ring``, every plan round dense, through ``gossip_impl='auto'`` with
+  ``auto_dense='pallas'`` and through ``'pallas'`` from one init (2
+  ``gossip_mix`` launches a step in each, final states equal bit for bit),
+  then ``'sun'`` against ``'auto'`` on the theorem-3 schedule (equal); gt_local
+  with adam on ``hierarchical`` pods of 2 at full width; and on the host
+  runtime the ``examples/torch/federated.py`` twin, logreg on pods of 4
+  (``two_level`` rounds), d2 on ``sun`` and personalized on ``random-sun``
+  (0 launches).
 
 ``linear_recurrence`` is checked bit-equal on each of its three routes
 (a ring of time tiles filled by TMA or by cp.async, and the loop) and
@@ -69,8 +80,9 @@ qwen serve path ``flash_attention`` 24 times per prefill and
 path ``linear_recurrence`` 18 and ``flash_attention`` 8 times per prefill
 and ``decode_attention`` 8 times per slot and token; the counts are set to
 0 just before a path and read just after it.  It prints the card, its
-total wall time, one JSON line of per-kernel numbers (the last three rows:
-the recurrentgemma shapes), and last ``{"ok": true, "device": {...}}``.
+total wall time, one JSON line of per-kernel numbers (a second
+``gossip_mix`` row for the planning path, then the last three rows: the
+recurrentgemma shapes), and last ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero; so does a machine without a CUDA device or
 a directory without the repository.
 """
@@ -176,6 +188,27 @@ S6_STEPS = 20
 FIG2_RUNS = 13
 S6_BYTES_TOTAL = {"int8": 1_024_000, "sign": 145_920}
 S6_MANIFEST = "experiments/manifests/sampled_clients_100k.json"
+# Gossip planning and the federated/local-update rules: the reference's
+# federated run (repro/launch/train.py:24-25) at full width, FedAvg over
+# the plan 2×empty+1×complete; MC-DSGT R=2 on ring (every plan round dense)
+# through gossip_impl 'auto' with auto_dense 'pallas' and through 'pallas',
+# PLAN_STEPS each, then 'sun' against 'auto' on the theorem-3 schedule,
+# SUN_STEPS each (one full-width model shared); gt_local with adam on
+# hierarchical pods of 2 (matching rounds and a complete round); the
+# federated twin, logreg on hierarchical pods of 4 (two_level rounds), d2 on
+# sun and personalized on random-sun on the host runtime.
+FEDAVG_ARGV = ["--arch", "qwen1.5-0.5b", "--preset", "full", "--nodes", "4",
+               "--topology", "federated", "--local-steps", "2", "--algo",
+               "local_sgd", "--gossip-impl", "auto", "--steps", "6"]
+GT_ADAM_ARGV = ["--arch", "qwen1.5-0.5b", "--preset", "full", "--nodes",
+                "4", "--topology", "hierarchical", "--pods", "2", "--algo",
+                "gt_local", "--local-opt", "adam", "--gossip-impl", "auto",
+                "--steps", "4"]
+HIER_ARGV = ["--arch", "logreg", "--topology", "hierarchical", "--nodes",
+             "16", "--pods", "4", "--algo", "mc_dsgt", "--R", "2",
+             "--gossip-impl", "auto", "--steps", "20", "--quiet"]
+PLAN_STEPS = 3
+SUN_STEPS = 2
 # H100 SXM dense bf16 tensor-core peak and L2 size (NVIDIA data sheet): the
 # attention kernels' operations are bf16 products on the main path, and
 # their inputs (8-16 MB) would stay in L2 from one timed call to the next,
@@ -1791,13 +1824,258 @@ def load_twin(name: str):
     return mod
 
 
+def plan_label(plan) -> str:
+    """A plan's kinds as run lengths, e.g. 2×empty+1×complete."""
+    return "+".join(f"{plan.kinds.count(k)}×{k}"
+                    for k in dict.fromkeys(plan.kinds))
+
+
+def planned_cli_run(torch, train, exp, argv, counters, what: str) -> dict:
+    """``train.main(argv)`` on the card with every count from 0: finite
+    losses and consensus, no kernel launched (the plan's rounds are
+    structured or the einsum, as the reference's 'auto' default);
+    prints the plan, s/step and the peak."""
+    for c in counters.values():
+        c.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    with RunTimer(exp) as rt:
+        history = train.main(list(argv))
+    launches = {k: c.launches for k, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    plan = rt.results[-1].built.plan
+    if not history or not all(math.isfinite(h["loss"])
+                              and math.isfinite(h["consensus"])
+                              for h in history):
+        fail(f"{what}: history not finite: {history}")
+    if any(launches.values()):
+        fail(f"{what} launched kernels: {launches}")
+    secs = [h["sec"] for h in history]
+    print(f"{what}: python -m repro_torch.launch.train {' '.join(argv)}",
+          flush=True)
+    print(f"{what}: plan {plan_label(plan)} ({plan.dispatch})  losses "
+          f"{[h['loss'] for h in history]}  step s {secs}  peak device "
+          f"memory {peak_gb:.3f} GB ({held_gb:.3f} GB held before the run)"
+          f"  launches {launches}", flush=True)
+    return {"plan": plan_label(plan), "secs": secs, "peak_gb": peak_gb}
+
+
+def planned_steps(torch, exp, driver, dsteps, built, params, steps: int,
+                  counters, **kw):
+    """``steps`` full-width MC-DSGT steps of ``dsteps.make_train_step(...,
+    **kw)`` from ``params`` on ``built``'s schedule, plan and batches,
+    staged and looped by the driver as ``exp.run`` does; every count from 0
+    just before the loop.  Returns (state, launches, step seconds)."""
+    impl = kw["gossip_impl"]
+    init, warm, step = dsteps.make_train_step(
+        built.model, built.cfg, algo="mc_dsgt", gamma=built.rule.gamma, R=2,
+        plan=built.plan, **kw)
+    state = warm(init(params, built.spec.run.nodes),
+                 built.stream.batch_at(0))
+    if impl == "auto":
+        staged = driver.stage(built.schedule, wps=built.wps, device="cuda",
+                              impl="auto", plan=built.plan)
+        step_fn = driver.bind_step(staged, step)
+    else:
+        masks = staged = None
+        if impl == "sun":
+            # the sun impl takes the window's center masks (the plan's)
+            masks = torch.from_numpy(built.plan.tensors()["center_mask"])
+            staged = driver.StagedGossip(masks.cuda(), built.plan.period,
+                                         built.wps)
+        else:
+            staged = driver.stage(built.schedule, wps=built.wps,
+                                  device="cuda")
+        step_fn = driver.bind_step(
+            staged, lambda state, batch, W, t: step(state, batch, W))
+    torch.cuda.synchronize()
+    for c in counters.values():
+        c.launches = 0
+    secs = []
+    state, _ = driver.run_loop(
+        step_fn, state, steps=steps, wps=built.wps, period=staged.period,
+        extra_fn=lambda k: built.stream.batch_at(k + 1),
+        record=lambda k, t, s, out, dt: secs.append(dt) or None,
+        sync=torch.cuda.synchronize)
+    # a sum is finite only if every entry is, and makes no temporary of the
+    # state's size (isfinite() would make three, 11 GB at full width)
+    if not all(math.isfinite(float(t.sum()))
+               for t in (state.x, state.h, state.g_prev)):
+        fail(f"planned steps ({kw}) gave a non-finite state")
+    return state, {k: c.launches for k, c in counters.items()}, secs
+
+
+def states_equal(torch, what, a, b):
+    """x, h and g_prev of two runs equal bit for bit."""
+    for f in ("x", "h", "g_prev"):
+        if not torch.equal(getattr(a, f), getattr(b, f)):
+            diff = float((getattr(a, f) - getattr(b, f)).abs().max())
+            fail(f"{what}: {f} differs (max |diff| {diff})")
+
+
+def mixing_equality(torch, exp, driver, dsteps, counters) -> dict:
+    """Planning (b) and (c): MC-DSGT R=2 at full width from one init and
+    the same batches, through two gossip impls each, their final states
+    compared bit for bit."""
+    out = {}
+    base = exp.with_overrides(exp.ExperimentSpec(), {
+        "model.preset": "full", "run.nodes": 4, "algorithm.R": 2,
+        "run.gossip_impl": "auto", "topology.kind": "ring"})
+    built = exp.build(base, device="cuda")
+    if set(built.plan.kinds) != {"dense"}:
+        fail(f"planning (b): ring plan {built.plan.kinds} is not all dense")
+    params = built.model.init(torch.Generator(device="cuda").manual_seed(0),
+                              torch.float32, "cuda")
+    runs = {}
+    for name, kw in (("auto+pallas", dict(gossip_impl="auto",
+                                          auto_dense="pallas")),
+                     ("pallas", dict(gossip_impl="pallas"))):
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        held = "the parameters" + (", the first run's state" if runs else "")
+        state, launches, secs = planned_steps(
+            torch, exp, driver, dsteps, built, params, PLAN_STEPS, counters,
+            **kw)
+        if launches["gossip_mix"] != 2 * PLAN_STEPS or \
+                sum(launches.values()) != 2 * PLAN_STEPS:
+            fail(f"planning (b) {name}: launches {launches}; "
+                 f"{PLAN_STEPS} MC-DSGT steps need 2 gossip_mix each")
+        runs[name] = state
+        print(f"planning (b) mc_dsgt R=2 on ring ({plan_label(built.plan)}) "
+              f"via {name}: step s {secs}  peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 1e9:.3f} GB "
+              f"({held_gb:.3f} GB held before the run: {held})  launches "
+              f"{launches}", flush=True)
+        out[name] = {"launches": launches["gossip_mix"], "secs": secs,
+                     "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del state
+    states_equal(torch, "planning (b) auto+pallas vs pallas",
+                 runs["auto+pallas"], runs["pallas"])
+    print("planning (b): final x, h, g_prev of auto+pallas == pallas, bit "
+          "for bit", flush=True)
+    runs.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    sun = exp.build(exp.with_field(base, "topology.kind", "sun"),
+                    device="cuda")
+    delta = sun.plan.rounds[0].delta
+    for name, kw in (("sun", dict(gossip_impl="sun", sun_delta=delta)),
+                     ("auto", dict(gossip_impl="auto"))):
+        state, launches, secs = planned_steps(
+            torch, exp, driver, dsteps, sun, params, SUN_STEPS, counters,
+            **kw)
+        if any(launches.values()):
+            fail(f"planning (c) {name} launched kernels: {launches}")
+        runs[name] = state
+        print(f"planning (c) mc_dsgt R=2 on sun ({plan_label(sun.plan)}) via "
+              f"{name}: step s {secs}", flush=True)
+        del state
+    states_equal(torch, "planning (c) sun vs auto", runs["sun"],
+                 runs["auto"])
+    print("planning (c): final x, h, g_prev of sun == auto, bit for bit",
+          flush=True)
+    del runs, params, built, sun
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def planning_phase(torch, train, exp, alg, driver, dsteps, data, counters
+                   ) -> dict:
+    """Gossip planning and the federated/local-update rules on the card:
+    (a) the reference's FedAvg run at full width (plan 2×empty+1×complete,
+    0 launches); (b) MC-DSGT on ring through 'auto' with auto_dense
+    'pallas' and through 'pallas', PLAN_STEPS steps each from one init and
+    the same batches: gossip_mix 2 launches a step in each, the final x, h,
+    g_prev equal bit for bit; (c) 'sun' against 'auto' on the theorem-3
+    schedule, SUN_STEPS steps each, equal; (d) gt_local with adam on
+    hierarchical pods at full width, finite, its peak; (e) on the host
+    runtime the federated twin, logreg on hierarchical pods of 4 (a plan
+    of two_level rounds), d2 on sun and personalized on random-sun, 0
+    launches."""
+    t_phase = time.perf_counter()
+    out = {"fedavg": planned_cli_run(torch, train, exp, FEDAVG_ARGV,
+                                     counters, "planning (a) FedAvg")}
+    if out["fedavg"]["plan"] != "2×empty+1×complete":
+        fail(f"planning (a): plan {out['fedavg']['plan']}")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    out.update(mixing_equality(torch, exp, driver, dsteps, counters))
+
+    out["gt_adam"] = planned_cli_run(torch, train, exp, GT_ADAM_ARGV,
+                                     counters, "planning (d) gt_local+adam")
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    fed = load_twin("federated").main(["--quiet"])
+    print(f"planning (e) federated twin: {fed}  wall "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    if fed["schedules"]["fedavg(local=4)"]["plan"] != "4xempty+1xcomplete":
+        fail(f"planning (e): federated twin plans {fed['schedules']}")
+    with RunTimer(exp) as rt:
+        hist = train.main(list(HIER_ARGV))
+    plan = rt.results[-1].built.plan
+    if "two_level" not in plan.kinds or not all(
+            math.isfinite(v) for _, v in hist):
+        fail(f"planning (e) hierarchical: plan {plan.kinds}, evals {hist}")
+    print(f"planning (e) logreg mc_dsgt on hierarchical n=16 pods 4: plan "
+          f"{plan_label(plan)}  grad_sq {hist[-1][1]:.6g} at "
+          f"T={hist[-1][0]}  {rt.runs[-1][1]:.3f} s", flush=True)
+    d2 = exp.run(exp.with_overrides(exp.ExperimentSpec(), {
+        "model.kind": "logreg", "topology.kind": "sun", "run.nodes": 16,
+        "algorithm.name": "d2", "algorithm.gamma": 0.2,
+        "run.gossip_impl": "auto", "run.steps": 20}), device="cuda",
+        quiet=True)
+    if not all(math.isfinite(v) for _, v in d2.history):
+        fail(f"planning (e) d2 on sun: {d2.history}")
+    print(f"planning (e) logreg d2 on sun (plan {plan_label(d2.built.plan)}):"
+          f" grad_sq {d2.history[-1][1]:.6g} at T={d2.history[-1][0]}",
+          flush=True)
+    n, d = 16, 64
+    sched = exp.build_topology(exp.TopologySpec(kind="random-sun"), n,
+                               horizon=64, seed=0)
+    pplan = sched.plan(0, sched.period, personalized=True)
+    H, y = data.logreg_dataset(n, 256, d, seed=0, device="cuda")
+    loss_i, _, stoch, _, gnorm2 = data.logreg_loss_and_grad(rho=0.1)
+
+    def oracle(xs, gen):
+        """(per-node full-batch losses, minibatch gradients)"""
+        losses = torch.stack([loss_i(xs[i], H[i], y[i]) for i in range(n)])
+        return losses, stoch(xs, H, y, gen, 16)
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    pstate, phist = driver.run_algorithm(
+        alg.personalized(0.3, 2.0), torch.zeros((n, d), device="cuda"),
+        oracle, sched, 40, gen, eval_fn=lambda xb: gnorm2(xb, H, y),
+        eval_every=39, gossip_impl="auto", plan=pplan)
+    spread = float((pstate.x - pstate.x.mean(dim=0)).norm())
+    if not all(math.isfinite(v) for _, v in phist) or not math.isfinite(
+            spread):
+        fail(f"planning (e) personalized: {phist}")
+    launches = {k: c.launches for k, c in counters.items()}
+    if any(launches.values()):
+        fail(f"planning (e) launched kernels: {launches}")
+    wall = time.perf_counter() - t_phase
+    print(f"planning (e) personalized on random-sun (plan "
+          f"{plan_label(pplan)}): grad_sq of x̄ {phist[-1][1]:.6g} at "
+          f"T={phist[-1][0]}, node spread ||x - x̄|| {spread:.4g}; launches "
+          f"over (e) {launches}; phase wall {wall:.3f} s", flush=True)
+    out["wall_s"] = wall
+    return out
+
+
 class RunTimer:
     """Wraps ``exp.run`` while a twin runs: each call's spec, wall seconds
     (its build included, the device synchronized by the loop) and final
     eval, so the twins' own code stays the reference's."""
 
     def __init__(self, exp):
-        self.exp, self.runs = exp, []
+        self.exp, self.runs, self.results = exp, [], []
 
     def __enter__(self):
         inner = self.inner = self.exp.run
@@ -1806,6 +2084,7 @@ class RunTimer:
             t0 = time.perf_counter()
             res = inner(spec, **kw)
             self.runs.append((spec, time.perf_counter() - t0, res.history))
+            self.results.append(res)
             return res
 
         self.exp.run = run
@@ -1981,7 +2260,7 @@ def main():
         fail(f"no src/repro_torch beside {Path(__file__).name}: run it from "
              "the root of a checkout")
     sys.path.insert(0, str(ROOT / "src"))
-    from repro_torch import configs, exp, models, serve, sparse, tree
+    from repro_torch import configs, data, exp, models, serve, sparse, tree
     from repro_torch.core import algorithms as alg, compress, driver, gossip
     from repro_torch.dist import steps
     from repro_torch.kernels import (build, decode_attention,
@@ -2104,6 +2383,10 @@ def main():
     torch.cuda.empty_cache()
 
     logreg_phase(torch, exp, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    planned = planning_phase(torch, train, exp, alg, driver, steps, data,
+                             counters)
 
     rows = [
         {"name": "gossip_mix", "route": "cuda",
@@ -2177,6 +2460,17 @@ def main():
          "torch.profiler, the cache cold in L2; library = "
          "scaled_dot_product_attention with a boolean mask from kpos"},
     ]
+    # gossip_mix on the gossip-planning path: MC-DSGT through
+    # gossip_impl='auto', auto_dense='pallas' on ring (the same kernel at
+    # the same shape as the first row)
+    base = rows[0]
+    rows.append({**{k: base[k] for k in (
+        "name", "route", "source", "replaces", "max_abs_err", "ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "path": "gossip planning: mc_dsgt on ring, auto + auto_dense=pallas",
+        "launches": planned["auto+pallas"]["launches"],
+        "launches_per_step": planned["auto+pallas"]["launches"]
+        / PLAN_STEPS})
     # the same three kernels at recurrentgemma-2b's serve shapes
     rg_n, rg_new = RGSERVE["requests"], RGSERVE["max_new"]
     for name, kern, per, unit in (

@@ -104,24 +104,33 @@ def make_compressed_mixer(mix_round: Callable[[int, torch.Tensor],
 
     def cmix(offset: int, rounds: int, mat: torch.Tensor, res: torch.Tensor,
              on: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+        # a stream or residual stored in a lower precision (the arch
+        # trainer's aux_dtype) runs the window in f32 and is cast back at
+        # its end, as the reference's flatten_grouped / unflatten_grouped do
+        store, res32 = mat.dtype, res.float()
+        mat = mat.float()
         if not on:
             for r in range(rounds):
                 mat = mix_round(offset + r, mat)
-            return mat, res
-        for r in range(rounds):
-            deq, err = quantize(mat + res)
-            if cfg.error_feedback:
-                res.copy_(err)
-            mat = mix_round(offset + r, deq)
-        return mat, res
+        else:
+            for r in range(rounds):
+                deq, err = quantize(mat + res32)
+                if cfg.error_feedback:
+                    res32.copy_(err)
+                mat = mix_round(offset + r, deq)
+        if res32 is not res:
+            res.copy_(res32)
+        return mat.to(store), res
 
     return cmix
 
 
-def init_residual(x0: torch.Tensor, uses_tracker: bool
+def init_residual(x0: torch.Tensor, uses_tracker: bool, dtype=None
                   ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Zeroed (res_x, res_h) error-feedback state shaped like the flat
-    (n, D) state ``x0`` (``res_h`` only for tracking rules: the tracker
-    stream gossips too and carries its own residual)."""
-    return (torch.zeros_like(x0),
-            torch.zeros_like(x0) if uses_tracker else None)
+    (n, D) state ``x0``, in ``dtype`` when given (``res_h`` only for
+    tracking rules: the tracker stream gossips too and carries its own
+    residual)."""
+    def zeros():
+        return torch.zeros_like(x0, dtype=dtype or x0.dtype)
+    return (zeros(), zeros() if uses_tracker else None)

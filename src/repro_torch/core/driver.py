@@ -1,6 +1,6 @@
 """Training driver: stages the gossip window on the device once, gathers
 each step's window by index, warm-starts, and runs the loop — the port of
-the JAX package's ``core/driver.py`` for dense windows and edge-list plans.
+the JAX package's ``core/driver.py`` for dense windows and gossip plans.
 
 The staging contract is the reference's: one period of dense matrices (or
 an edge plan's tensors) crosses to the device once, and step k gathers
@@ -15,23 +15,35 @@ import dataclasses
 import time
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 
 
 @dataclasses.dataclass(frozen=True)
 class StagedGossip:
-    """Device-resident gossip for a whole run: ``arrays`` is the
-    (period, n, n) f32 stack; the bound step gathers ``wps`` rounds."""
+    """Device-resident gossip for a whole run.  ``impl='dense'``:
+    ``arrays`` is the (period, n, n) f32 stack and the bound step gathers
+    ``wps`` rounds.  ``impl='auto'``: ``arrays`` is the staged plan's
+    tensors, which the step receives with its start round ``t``."""
 
-    arrays: torch.Tensor
+    arrays: object
     period: int
     wps: int
+    impl: str = "dense"
 
 
-def stage(schedule, *, wps: int, device="cpu",
-          total: Optional[int] = None) -> StagedGossip:
-    """Stage one full period of ``schedule`` on ``device``; ``total`` caps
-    the window (a host run stages ``min(period, total)`` rounds)."""
+def stage(schedule, *, wps: int, device="cpu", impl: str = "dense",
+          total: Optional[int] = None, plan=None) -> StagedGossip:
+    """Stage ``schedule`` on ``device`` once.  Dense: one full period, or
+    ``min(period, total)`` rounds when ``total`` caps the window (a host
+    run).  ``impl='auto'``: ``plan``'s tensors (default: one planned
+    period).  The step's start round ``t`` is a host int either way, so
+    the reference's ``static_t`` (a jit argument) has no counterpart."""
+    if impl == "auto":
+        if plan is None:
+            plan = schedule.plan(0, schedule.period)
+        return StagedGossip(stage_plan(plan, device=device), plan.period,
+                            wps, "auto")
     period = schedule.period
     if total is not None:
         period = min(period, total)
@@ -40,15 +52,20 @@ def stage(schedule, *, wps: int, device="cpu",
 
 
 def stage_plan(plan, device="cpu") -> dict:
-    """Upload an edge plan's :meth:`tensors` to ``device`` once; the step's
+    """Upload a plan's :meth:`tensors` (a dense :class:`repro_torch.core.
+    gossip.GossipPlan`'s or an edge plan's) to ``device`` once; the step's
     mixer indexes the returned dict by round."""
-    return {k: torch.from_numpy(v).to(device)
+    return {k: torch.from_numpy(np.asarray(v)).to(device)
             for k, v in plan.tensors().items()}
 
 
 def bind_step(staged: StagedGossip, core_step):
-    """``core_step(state, extra, Ws, t)`` with ``Ws`` the step's gathered
-    (wps, n, n) window; returns ``step(state, extra, t)``."""
+    """``core_step(state, extra, gossip, t)``: dense, ``gossip`` is the
+    step's gathered (wps, n, n) window; auto, the staged plan tensors and
+    ``t`` the start round.  Returns ``step(state, extra, t)``."""
+    if staged.impl == "auto":
+        return lambda state, extra, t: core_step(state, extra, staged.arrays,
+                                                 t)
     offsets = torch.arange(staged.wps, device=staged.arrays.device)
 
     def step(state, extra, t):
@@ -100,8 +117,9 @@ def run_algorithm(algo, x0: torch.Tensor, grad_fn, weight_schedule,
     DecentralizedAlgorithm` from ``x0`` (n, d) over a weight schedule.
 
     ``gossip_impl='dense'`` stages one window of dense matrices; ``'auto'``
-    lowers the schedule to its edge plan (``plan`` overrides the default
-    one-period plan) and mixes through
+    lowers the schedule to its plan (``plan`` overrides the default
+    one-period plan), a dense :class:`repro_torch.core.gossip.GossipPlan`
+    or an edge plan, stages its tensors once and mixes through
     :func:`repro_torch.core.algorithms.plan_step`.  ``gen`` is the
     ``torch.Generator`` every oracle sample draws from (warm start first,
     then each step in order), on ``x0``'s device; the JAX package's
@@ -122,11 +140,11 @@ def run_algorithm(algo, x0: torch.Tensor, grad_fn, weight_schedule,
         if plan is None:
             plan = weight_schedule.plan(0, weight_schedule.period)
         pstep = alg.plan_step(algo, plan)
-        tensors = stage_plan(plan, device=x0.device)
-        period = plan.period
-
-        def step(state, extra, t):
-            return pstep(state, grad_fn, tensors, t, gen), None
+        staged = stage(weight_schedule, wps=wps, device=x0.device,
+                       impl="auto", plan=plan)
+        period = staged.period
+        step = bind_step(staged, lambda state, extra, tensors, t: (
+            pstep(state, grad_fn, tensors, t, gen), None))
     else:
         staged = stage(weight_schedule, wps=wps, device=x0.device,
                        total=max(1, num_steps * wps))

@@ -1,15 +1,22 @@
 """Single-source decentralized update-rule engine, the port of the JAX
-package's ``core/engine.py`` for the ``sgd`` and ``tracking`` kinds.
+package's ``core/engine.py``.
 
 An :class:`UpdateRule` names a rule's structure and one generic :func:`step`
 interprets it, with the runtime's gossip and oracle bound in
-:class:`EngineOps` (γ = stepsize, Mix = the step's gossip window, R =
-accumulation/consensus rounds):
+:class:`EngineOps` (γ = stepsize, u = local-optimizer transform, Mix = the
+step's gossip window, R = accumulation/consensus rounds):
 
 ============  =========================================================
-``dsgd``      x ← Mix(x − γ·g(x))                           [12]
+``dsgd``      x ← Mix(x − γ·u(g(x)))                       [12]
+``local_sgd`` x ← Mix(x) − γ·u(g(Mix(x)))        (FedAvg over a
+              federated schedule: empty rounds ⇒ pure local steps)
 ``dsgt``      x ← Mix(x − γ·h);  h ← Mix(h + g − g⁻)        [40]
 ``mc_dsgt``   same, R gossip rounds per mix + R-sample grads (Alg. 1)
+``gt_local``  x ← Mix(x) − γ·h;  h ← Mix(h) + g − g⁻   (DIGing-style
+              tracking with local updates: x and h share ONE round)
+``d2``        x ← Mix(2x − x⁻ − γ(g − g⁻))                  [35]
+``personalized``  x ← P(ℓ)·(x − γ·u(g(x))) with P(ℓ) the loss-proximity
+              reweighting of the round's support (row-stochastic only)
 ============  =========================================================
 
 A rule may carry a :class:`~repro_torch.core.compress.CompressionConfig`:
@@ -22,7 +29,9 @@ engine, which is pure, :func:`step` updates ``x`` and ``h`` in place and
 returns a state holding the same storage (the new oracle sample lands in
 g_prev's buffer): at qwen1.5-0.5b's full width each is 7.4 GB, and a
 functional update would hold two copies of each.  Callers must not reuse a
-state they passed in.
+state they passed in.  Trackers stored in a lower precision (the runtime's
+``cast_aux``, bf16) are updated in the gradient's precision and cast on
+store, as in the reference.
 """
 
 from __future__ import annotations
@@ -34,25 +43,35 @@ import torch
 
 from . import compress
 
-# The JAX package's rule vocabulary; the rules after the first three are
-# ported with ROADMAP.md Queue 1 item 2.
 ALGORITHMS = ("dsgd", "local_sgd", "dsgt", "mc_dsgt", "gt_local", "d2",
               "personalized")
-_KINDS = {"dsgd": "sgd", "dsgt": "tracking", "mc_dsgt": "tracking"}
 
 
 class EngineState(NamedTuple):
-    """``x`` (n, D) iterates; ``h`` the gradient tracker and ``g_prev`` the
-    previous oracle sample (tracking rules, set by :func:`warm_start`;
-    None otherwise); ``k`` the round counter; ``res`` the error-feedback
-    residuals (res_x, res_h) of a compressing rule (res_h None for sgd
-    rules), None otherwise."""
+    """``x`` (n, D) iterates; ``h`` the gradient tracker (tracking rules) or
+    x^{k-1} (difference rules) and ``g_prev`` the previous oracle sample,
+    set by :func:`warm_start` (None otherwise); ``k`` the round counter;
+    ``res`` the error-feedback residuals (res_x, res_h) of a compressing
+    rule (res_h None for rules without a tracker), None otherwise; ``opt``
+    the local optimizer's state (None without one).  The JAX package's
+    field order is (x, h, g_prev, opt, k, res, buf); ``opt`` comes last
+    here so that the port's earlier positional uses keep their meaning."""
 
     x: torch.Tensor
     h: Optional[torch.Tensor]
     g_prev: Optional[torch.Tensor]
     k: int
     res: Optional[tuple] = None
+    opt: Any = None
+
+    @property
+    def opt_state(self) -> Any:
+        """The host layer's name for ``opt`` (the reference's AlgoState)."""
+        return self.opt
+
+
+def _identity_update(g, s):
+    return g, s
 
 
 class EngineOps(NamedTuple):
@@ -64,71 +83,164 @@ class EngineOps(NamedTuple):
     grad(x, out=None) -> (metrics, g)
         One accumulated stochastic-oracle sample per node (Assumption 2),
         an (n, D) matrix, written into ``out`` when given (its old values
-        are discarded); ``metrics`` is runtime-defined.
+        are discarded); ``metrics`` is runtime-defined, and for a
+        personalized rule the per-node (n,) loss vector.
     cmix(offset, rounds, x, res, on) -> (x, res)
         The compressed window for a rule that carries compression: like
         ``mix`` on the quantized payload, threading the stream's residual
         ``res``; ``on`` False (warmup) mixes at full precision and leaves
         ``res`` as it was.
+    local_update(g, opt) -> (update, opt)
+        The local-optimizer hook (None: the identity, the paper's rules).
+    cast_aux(t)
+        The storage cast of the tracker slots (None: the identity; the arch
+        trainer's ``aux_dtype``).  Returns ``t`` itself when it casts
+        nothing.
+    pmix(offset, rounds, x, losses) -> x
+        The personalized window (required when ``rule.personalized``): the
+        rounds of ``mix`` with each round's weights reweighted by the
+        per-node ``losses`` (:func:`personalized_weights`).
     """
 
     mix: Callable[[int, int, torch.Tensor], torch.Tensor]
     grad: Callable[..., Tuple[Any, torch.Tensor]]
     cmix: Optional[Callable] = None
+    local_update: Optional[Callable] = None
+    cast_aux: Optional[Callable] = None
+    pmix: Optional[Callable] = None
 
 
 @dataclasses.dataclass(frozen=True)
 class UpdateRule:
-    """``kind``: ``sgd`` (descend on the fresh gradient) or ``tracking``
-    (descend on the tracker h, h⁰ = node mean of g⁰, the correction mixed
-    with h: h ← Mix(h + g − g⁻), x and h on disjoint R-round windows).
-    ``compression``: quantize every gossip payload (None = full f32)."""
+    """Declarative spec of one rule (the reference's fields; ``delay`` and
+    ``comm_interval`` come with ROADMAP.md Queue 1 item 7).
+
+    kind
+        ``sgd`` (descend on the fresh gradient), ``tracking`` (descend on
+        the tracker h) or ``difference`` (D²'s x/g difference update).
+    mix_before_update
+        False: x ← Mix(x − γu); True: x ← Mix(x) − γu (the federated
+        placement: an ``empty`` round is a pure local step).
+    correction_in_mix
+        tracking only.  True: h ← Mix(h + g − g⁻); False: h ← Mix(h) + g −
+        g⁻ (the correction stays local).
+    shared_round
+        tracking only.  True: x and h consume the same R-round window
+        (weights_per_step = R); False: disjoint windows (2R).
+    tracker_init
+        ``mean``: h⁰ = node mean of g⁰ on every node (Algorithm 1);
+        ``local``: h⁰ = g⁰ per node.
+    compression
+        Quantize every gossip payload (None = full precision).
+    personalized / tau
+        sgd kind only: each step the window's weights are reweighted by
+        per-node loss proximity, α_ij = W_ij·exp(−tau·|ℓ_i − ℓ_j|), rows
+        renormalized (outside Assumption 3 by design).
+    """
 
     name: str
-    kind: str
+    kind: str                          # 'sgd' | 'tracking' | 'difference'
     gamma: float
     R: int = 1
     compression: Optional[compress.CompressionConfig] = None
+    mix_before_update: bool = False
+    correction_in_mix: bool = True
+    shared_round: bool = False
+    tracker_init: str = "mean"
+    supports_local_opt: bool = True
+    personalized: bool = False
+    tau: float = 4.0
+
+    def __post_init__(self):
+        if self.kind not in ("sgd", "tracking", "difference"):
+            raise ValueError(f"unknown rule kind {self.kind!r}")
+        if self.personalized and self.kind != "sgd":
+            raise ValueError("personalized reweighting is defined for the "
+                             "sgd kind only")
+        if self.personalized and self.compression is not None:
+            raise ValueError(
+                "personalized weights are computed in-jit from this step's "
+                "losses and cannot be combined with compression, delayed "
+                "gossip, or comm_interval gating")
+        if self.kind == "difference" and self.R != 1:
+            raise ValueError("difference rules take one oracle sample/step")
+
+    @property
+    def weights_per_step(self) -> int:
+        """Gossip rounds one step consumes (the paper's budget accounting)."""
+        if self.kind == "difference":
+            return 1
+        if self.kind == "tracking" and not self.shared_round:
+            return 2 * self.R
+        return self.R
 
     @property
     def uses_tracker(self) -> bool:
         return self.kind == "tracking"
 
     @property
-    def weights_per_step(self) -> int:
-        """Gossip rounds one step consumes (the paper's budget accounting)."""
-        return 2 * self.R if self.kind == "tracking" else self.R
+    def uses_prev_grad(self) -> bool:
+        return self.kind in ("tracking", "difference")
+
+
+_SPECS = {
+    "dsgd": dict(kind="sgd"),
+    "local_sgd": dict(kind="sgd", mix_before_update=True),
+    "dsgt": dict(kind="tracking", supports_local_opt=True),
+    "mc_dsgt": dict(kind="tracking"),
+    "gt_local": dict(kind="tracking", mix_before_update=True,
+                     correction_in_mix=False, shared_round=True,
+                     tracker_init="local"),
+    "d2": dict(kind="difference", supports_local_opt=False),
+    "personalized": dict(kind="sgd", personalized=True),
+}
 
 
 def make_rule(name: str, gamma: float, R: int = 1,
-              compression: Optional[compress.CompressionConfig] = None
-              ) -> UpdateRule:
-    if name not in ALGORITHMS:
-        raise ValueError(f"unknown algo {name!r} (have {sorted(ALGORITHMS)})")
-    if name not in _KINDS:
-        raise NotImplementedError(f"algo {name!r} is not ported yet (have "
-                                  f"{sorted(_KINDS)}; ROADMAP.md Queue 1 "
-                                  "item 2)")
-    if name == "dsgt" and R != 1:
+              compression: Optional[compress.CompressionConfig] = None,
+              tau: float = 4.0) -> UpdateRule:
+    """The one registry, the reference's: d2 is forced to R = 1."""
+    if name not in _SPECS:
+        raise ValueError(f"unknown algo {name!r} (have {sorted(_SPECS)})")
+    if name in ("dsgt", "d2") and R != 1:
         raise ValueError(f"{name} uses R=1 (MC-DSGT is the R-round variant)")
-    return UpdateRule(name=name, kind=_KINDS[name], gamma=gamma, R=R,
-                      compression=compression)
+    return UpdateRule(name=name, gamma=gamma, R=(1 if name == "d2" else R),
+                      compression=compression, tau=tau, **_SPECS[name])
 
 
-def init_state(rule: UpdateRule, x0: torch.Tensor) -> EngineState:
+def personalized_weights(Ws: torch.Tensor, losses: torch.Tensor,
+                         tau: float) -> torch.Tensor:
+    """Loss-proximity reweighting of an (R, n, n) window: α_ij = W_ij ·
+    exp(−tau·|ℓ_i − ℓ_j|), rows renormalized (row-stochastic by
+    construction, generally not column-stochastic), in f32."""
+    l = losses.to(torch.float32)
+    sim = torch.exp(-tau * (l[:, None] - l[None, :]).abs())
+    W = Ws.to(device=l.device, dtype=torch.float32) * sim[None]
+    den = W.sum(dim=-1, keepdim=True).clamp_min(1e-12)
+    return W / den
+
+
+def init_state(rule: UpdateRule, x0: torch.Tensor, *, opt_init=None,
+               res_dtype=None) -> EngineState:
     """Fresh state at the (n, D) iterate ``x0``: h and g_prev wait for
-    :func:`warm_start`; a compressing rule gets zeroed residuals."""
-    res = (compress.init_residual(x0, rule.uses_tracker)
+    :func:`warm_start`; ``opt_init(x0)`` makes the local optimizer's state;
+    a compressing rule gets zeroed residuals (``res_dtype``: the runtime's
+    tracker storage dtype, as the reference stores them)."""
+    res = (compress.init_residual(x0, rule.uses_tracker, dtype=res_dtype)
            if rule.compression is not None else None)
-    return EngineState(x=x0, h=None, g_prev=None, k=0, res=res)
+    opt = opt_init(x0) if opt_init is not None else None
+    return EngineState(x=x0, h=None, g_prev=None, k=0, res=res, opt=opt)
 
 
 def step(rule: UpdateRule, state: EngineState,
          ops: EngineOps) -> Tuple[EngineState, Any]:
     """One round of ``rule``: (new state, runtime metrics).  Consumes
-    ``state``: its x and h (and residuals) are updated in place."""
+    ``state``: its x and h (and residuals, optimizer state) are updated in
+    place."""
     gamma, R = rule.gamma, rule.R
     comp = rule.compression
+    local_update = ops.local_update or _identity_update
+    cast_aux = ops.cast_aux or (lambda t: t)
     res = None
     if comp is not None:
         if ops.cmix is None:
@@ -138,7 +250,10 @@ def step(rule: UpdateRule, state: EngineState,
             raise ValueError("compression needs residual state: "
                              "init_state materializes EngineState.res")
         res = list(state.res)
-    new_res = lambda: None if res is None else tuple(res)  # noqa: E731
+
+    def done(**kw):
+        return state._replace(k=state.k + 1,
+                              res=None if res is None else tuple(res), **kw)
 
     def mix(stream, off, r, mat):
         """Mix window of ``stream`` (0 = x, 1 = h): compressed with that
@@ -151,29 +266,89 @@ def step(rule: UpdateRule, state: EngineState,
         return mat
 
     if rule.kind == "sgd":
+        if rule.personalized:
+            # the oracle runs first: its per-node losses reweight the mix
+            if ops.pmix is None:
+                raise ValueError(f"rule {rule.name!r} is personalized but "
+                                 "the runtime provided no EngineOps.pmix")
+            metrics, g = ops.grad(state.x)
+            upd, opt = local_update(g, state.opt)
+            x = ops.pmix(0, rule.weights_per_step,
+                         state.x.add_(upd, alpha=-gamma), metrics)
+        elif rule.mix_before_update:
+            x = mix(0, 0, R, state.x)
+            metrics, g = ops.grad(x)
+            upd, opt = local_update(g, state.opt)
+            x = x.add_(upd, alpha=-gamma)
+        else:
+            metrics, g = ops.grad(state.x)
+            upd, opt = local_update(g, state.opt)
+            x = mix(0, 0, R, state.x.add_(upd, alpha=-gamma))
+        return done(x=x, opt=opt), metrics
+
+    if rule.kind == "difference":
+        if state.g_prev is None:
+            raise ValueError("call warm_start first")
         metrics, g = ops.grad(state.x)
-        x = mix(0, 0, R, state.x.add_(g, alpha=-gamma))
-        return state._replace(x=x, k=state.k + 1, res=new_res()), metrics
+        gp = cast_aux(g)
+        # z = 2x − x⁻ − γ(g − g⁻) in x⁻'s buffer; g − g⁻ in g⁻'s buffer, or
+        # in g's when g⁻ is stored cast (g then lives on in its cast copy)
+        z = state.h.neg_().add_(state.x, alpha=2.0)
+        diff = (state.g_prev.neg_().add_(g) if gp is g
+                else g.sub_(state.g_prev))
+        x = mix(0, 0, 1, z.sub_(diff.mul_(gamma)))
+        # x^{k-1} rides in the h slot, uncast to keep the difference exact
+        return done(x=x, h=state.x, g_prev=gp), metrics
 
     if state.h is None:
         raise ValueError("call warm_start first (h requires g at x0)")
-    x = mix(0, 0, R, state.x.add_(state.h, alpha=-gamma))
-    # h + g − g⁻ taken as (h − g⁻) + g: g⁻ leaves h before the new sample
-    # overwrites g⁻'s buffer, so the step holds three (n, D) tensors, not four
-    h = state.h.sub_(state.g_prev)
-    metrics, g = ops.grad(x, state.g_prev)
-    h = mix(1, R, R, h.add_(g))
-    return EngineState(x=x, h=h, g_prev=g, k=state.k + 1,
-                       res=new_res()), metrics
+    if rule.mix_before_update:
+        # the mix first: adam's update, a new (n, D) tensor, then never
+        # lives beside a mix that makes one (the dense einsum's product)
+        x = mix(0, 0, R, state.x)
+        d, opt = local_update(state.h, state.opt)
+        x = x.add_(d, alpha=-gamma)
+    else:
+        d, opt = local_update(state.h, state.opt)
+        x = mix(0, 0, R, state.x.add_(d, alpha=-gamma))
+    del d
+    h_off = 0 if rule.shared_round else R
+    h = state.h if rule.correction_in_mix else mix(1, h_off, R, state.h)
+    if state.g_prev.dtype == x.dtype:
+        # h + g − g⁻ taken as (h − g⁻) + g: g⁻ leaves h before the new
+        # sample overwrites g⁻'s buffer, so the step holds three (n, D)
+        # tensors, not four
+        h = h.sub_(state.g_prev)
+        metrics, g = ops.grad(x, state.g_prev)
+        h = h.add_(g)
+        gp = g
+    else:
+        # trackers stored cast: (h + g) − g⁻ in the gradient's precision,
+        # in g's buffer once its cast copy is taken
+        metrics, g = ops.grad(x)
+        gp = cast_aux(g)
+        h = g.add_(h).sub_(state.g_prev)
+    if rule.correction_in_mix:
+        h = mix(1, h_off, R, h)
+    return done(x=x, h=cast_aux(h), g_prev=gp, opt=opt), metrics
 
 
 def warm_start(rule: UpdateRule, state: EngineState,
                ops: EngineOps) -> EngineState:
-    """Tracker initialization: sgd rules need none; tracking rules query the
-    oracle at x⁰ and set h⁰ to the node mean of g⁰ on every node (Algorithm
-    1), g⁻ = g⁰."""
+    """Tracker/correction initialization, once per rule kind: sgd rules
+    need none; difference rules set x⁻ = x⁰ (a copy, in the h slot) and g⁻
+    = 0, so the first update is one DSGD step; tracking rules query the
+    oracle at x⁰ and set h⁰ per ``rule.tracker_init`` (the node mean of g⁰
+    on every node, or g⁰ itself), g⁻ = g⁰."""
+    cast_aux = ops.cast_aux or (lambda t: t)
     if rule.kind == "sgd":
         return state
+    if rule.kind == "difference":
+        return state._replace(h=state.x.clone(),
+                              g_prev=cast_aux(torch.zeros_like(state.x)))
     _, g0 = ops.grad(state.x)
-    h0 = g0.mean(dim=0, keepdim=True).expand_as(g0).clone()
-    return state._replace(h=h0, g_prev=g0)
+    if rule.tracker_init == "mean":
+        h0 = g0.mean(dim=0, keepdim=True).expand_as(g0).clone()
+    else:
+        h0 = g0.clone()
+    return state._replace(h=cast_aux(h0), g_prev=cast_aux(g0))

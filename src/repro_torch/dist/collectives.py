@@ -114,9 +114,30 @@ def fused_quantized_consensus(Ws: torch.Tensor, mat: torch.Tensor,
     kernel and leaves ``res`` untouched.  Returns (mat, res)."""
     if not on:
         return fused_multi_consensus(Ws, mat), res
+    if mat.dtype != torch.float32 or res.dtype != torch.float32:
+        # a stream or residual stored in bf16 (aux_dtype): the kernel mixes
+        # f32 copies, cast back on store as the reference's unflatten does
+        m32, r32 = mat.float(), res.float()
+        fused_quantized_consensus(Ws, m32, r32, cfg, on)
+        return mat.copy_(m32), res.copy_(r32)
     return ops.quantized_gossip_mix(
         Ws, mat, res, scheme=cfg.scheme, group=cfg.group,
         error_feedback=cfg.error_feedback, out=mat, res_out=res)
+
+
+def tree_cast(t: torch.Tensor, dtype) -> torch.Tensor:
+    """``t`` in ``dtype`` (a new tensor), or ``t`` itself when ``dtype`` is
+    None or already its dtype: the tracker storage cast (``aux_dtype``)."""
+    return t if dtype is None else t.to(dtype)
+
+
+def stage_plan(plan, device="cpu") -> dict:
+    """Upload a :class:`repro_torch.core.gossip.GossipPlan`'s (or an edge
+    plan's) tensors to ``device`` once; delegates to the one staging path,
+    :func:`repro_torch.core.driver.stage_plan`."""
+    from ..core import driver
+
+    return driver.stage_plan(plan, device=device)
 
 
 def consensus_distance(x: torch.Tensor) -> float:

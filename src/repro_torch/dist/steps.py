@@ -3,15 +3,19 @@ of the JAX package's ``dist/steps.py``.
 
 The update arithmetic lives in :mod:`repro_torch.core.engine`; this module
 binds the engine's :class:`EngineOps` to the gossip mixer that
-``gossip_impl`` selects and to the clipped R-microbatch oracle.
-``make_train_step`` returns
+``gossip_impl`` selects, to the clipped R-microbatch oracle, to the local
+optimizer and to the tracker storage cast.  ``make_train_step`` returns
 
 * ``init_state(params, n)`` — n identical copies of ``params`` as the flat
-  (n, D) state;
-* ``warm_start(state, batch)`` — the rule's tracker init;
+  (n, D) state (and the local optimizer's state);
+* ``warm_start(state, batch)`` — the rule's tracker/correction init;
 * ``step(state, batch, weights) -> (state, {"loss": ...})`` — one paper
-  round; ``batch["tokens"]`` is (n, R, b, S) and ``weights`` the
-  (2R, n, n) (tracking) or (R, n, n) (sgd) gossip window.
+  round; ``batch["tokens"]`` is (n, R, b, S) and ``weights`` the step's
+  (wps, n, n) gossip window, or for ``'sun'`` its (wps, n) center masks.
+  Under ``'auto'`` it is ``step(state, batch, plan_tensors, t)``:
+  ``plan_tensors`` is ``plan.tensors()`` staged on the device once and
+  ``t`` the start round (a host int; ``step.gossip_dispatch`` names the
+  plan mixer's mode).
 
 Where the JAX step vmaps the per-node gradient and scans the R
 microbatches, the port loops over both; every node's gradient is
@@ -21,60 +25,101 @@ it enters the tracker, as in the reference; ``clip=None`` is the pure
 update.  Mixing runs under ``torch.no_grad()``: it acts on parameters,
 outside autograd, so no backward kernel is needed.
 
+``gossip_impl``: ``'dense'`` one matrix product per round; ``'sun'`` the
+structured sun rewrite (:func:`repro_torch.core.algorithms.sun_mix`, two
+node-axis sums); ``'pallas'`` all R rounds of a window in one pass of the
+Hopper ``gossip_mix`` kernel; ``'auto'`` a :class:`repro_torch.core.gossip.
+GossipPlan` dispatching every round to its lowering
+(:func:`repro_torch.core.algorithms.make_plan_mixer`), with each run of
+dense rounds through the einsum (``auto_dense='einsum'``) or through
+``gossip_mix`` (``auto_dense='pallas'``).
+
 ``compression`` (a :class:`repro_torch.core.compress.CompressionConfig`)
 quantizes every gossip payload with error feedback: ``'pallas'`` runs all R
 rounds of a window in one pass of the Hopper ``quantized_gossip_mix``
-kernel, ``'dense'`` wraps one matrix product per round in
+kernel, the other impls wrap their per-round mixer in
 :func:`~repro_torch.core.compress.make_compressed_mixer`.  The flat layout
 is then aligned to the compression group, and the state carries the
-residuals ``res`` = (res_x, res_h).
+residuals ``res`` = (res_x, res_h).  ``aux_dtype`` (e.g. ``torch.bfloat16``)
+stores h and g_prev, and the residuals, in that dtype.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Any, NamedTuple, Optional
 
 import torch
 
 from ..core import algorithms as alg, compress, engine
 from . import collectives as coll
 
-GOSSIP_IMPLS = ("dense", "pallas")
+GOSSIP_IMPLS = ("dense", "sun", "pallas", "auto")
 
 
 class TrainState(NamedTuple):
     x: torch.Tensor                 # (n, D) stacked model copies
-    h: Optional[torch.Tensor]       # (n, D) gradient tracker (tracking rules)
+    h: Optional[torch.Tensor]       # (n, D) tracker (tracking) or x^{k-1} (d2)
     g_prev: Optional[torch.Tensor]  # (n, D) previous oracle sample
     step: int                       # round counter
     res: Optional[tuple] = None     # EF residuals (res_x, res_h), compressing
+    opt: Any = None                 # local optimizer state
 
 
 def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
-                    R: int = 1, gossip_impl: str = "dense",
-                    clip: Optional[float] = 1.0,
-                    compression: Optional[compress.CompressionConfig] = None):
+                    R: int = 1, aux_dtype=None, gossip_impl: str = "dense",
+                    sun_delta: Optional[float] = None, local_opt=None,
+                    clip: Optional[float] = 1.0, plan=None,
+                    auto_dense: str = "einsum",
+                    compression: Optional[compress.CompressionConfig] = None,
+                    tau: float = 4.0):
     """Build (init_state, warm_start, step) for one decentralized algorithm.
 
-    gossip_impl: ``'dense'`` (one matrix product per round) or
-    ``'pallas'`` (all R rounds in one pass of the Hopper ``gossip_mix``
-    kernel; the name is the JAX package's spec vocabulary for the fused
-    kernel path).  The JAX package's ``'sun'`` and ``'auto'`` lowerings are
-    not ported yet."""
+    gossip_impl: ``'dense'``, ``'sun'`` (``sun_delta`` must be given; the
+    step's ``weights`` are center masks), ``'pallas'`` (the Hopper
+    ``gossip_mix``; the name is the JAX package's spec vocabulary for the
+    fused kernel path) or ``'auto'`` (``plan`` must be given;
+    ``auto_dense`` ``'einsum'`` or ``'pallas'``).  ``local_opt`` is an
+    :class:`repro_torch.optim.Optimizer`; ``tau`` the personalized rule's
+    temperature.  The reference's mesh, unroll and Pallas block/interpret
+    arguments have no meaning on one device and are not taken."""
     del cfg
-    rule = engine.make_rule(algo, gamma=gamma, R=R, compression=compression)
-    if gossip_impl in ("sun", "auto"):
-        raise NotImplementedError(f"gossip_impl={gossip_impl!r} is not "
-                                  "ported yet (ROADMAP.md Queue 1 item 3)")
+    rule = engine.make_rule(algo, gamma=gamma, R=(1 if algo == "d2" else R),
+                            compression=compression, tau=tau)
     if gossip_impl not in GOSSIP_IMPLS:
         raise ValueError(f"unknown gossip_impl {gossip_impl!r}")
+    if rule.personalized and gossip_impl not in ("dense", "auto"):
+        raise ValueError("personalized weights are reweighted per step in "
+                         "full precision; use gossip_impl 'dense' or 'auto'")
+    if gossip_impl == "sun" and sun_delta is None:
+        raise ValueError("gossip_impl='sun' requires sun_delta")
+    if gossip_impl == "auto" and plan is None:
+        raise ValueError("gossip_impl='auto' requires plan=GossipPlan")
+    if local_opt is not None and not rule.supports_local_opt:
+        raise ValueError(f"algo={algo!r} does not support a local-optimizer "
+                         "hook")
+    if auto_dense not in ("einsum", "pallas"):
+        raise ValueError(f"unknown auto_dense {auto_dense!r}")
     layout = flat_layout(model, compression)
 
-    def _mix(Ws, mat):
+    def _mc(Ws, mat):
+        if gossip_impl == "sun":
+            return alg.sun_multi_consensus(Ws, sun_delta, mat)
+        if gossip_impl == "pallas":
+            return coll.fused_multi_consensus(Ws, mat)
+        return alg.multi_consensus(Ws, mat)
+
+    if gossip_impl == "auto":
+        plan_mix = alg.make_plan_mixer(
+            plan, dense_block=(coll.fused_multi_consensus
+                               if auto_dense == "pallas" else None))
+
+    def _mix_rounds(gossip, t, off, r, mat):
+        """Rounds [t+off, t+off+r): from the staged plan under 'auto', else
+        the step's ``weights`` slice."""
         with torch.no_grad():
-            if gossip_impl == "pallas":
-                return coll.fused_multi_consensus(Ws, mat)
-            return alg.multi_consensus(Ws, mat)
+            if gossip_impl == "auto":
+                return plan_mix(gossip, t + off, r, mat)
+            return _mc(gossip[off:off + r], mat)
 
     def _clip(grow):
         if clip is None:
@@ -84,7 +129,8 @@ def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
 
     def _grads(x, batch, out=None):
         """Per-node R-sample gradient accumulation (clipped): (mean loss,
-        (n, D) gradients, in ``out`` when given)."""
+        (n, D) gradients, in ``out`` when given); for a personalized rule
+        the per-node (n,) losses, pmix's similarity signal."""
         tokens = batch["tokens"]
         g = torch.zeros_like(x) if out is None else out.zero_()
         losses = []
@@ -98,9 +144,10 @@ def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
             g[i].div_(rule.R)
             _clip(g[i])
             losses.append(loss / rule.R)
-        return torch.stack(losses).mean(), g
+        losses = torch.stack(losses)
+        return (losses if rule.personalized else losses.mean()), g
 
-    def _cmix(gossip):
+    def _cmix(gossip, t):
         """The compressed window (the state never requires grad, so the
         quantization needs no ``no_grad``)."""
         if compression is None:
@@ -109,26 +156,62 @@ def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
             return lambda off, r, mat, res, on: coll.fused_quantized_consensus(
                 gossip[off:off + r], mat, res, compression, on)
         return compress.make_compressed_mixer(
-            lambda idx, mat: _mix(gossip[idx:idx + 1], mat), compression)
+            lambda idx, mat: _mix_rounds(gossip, t, idx, 1, mat), compression)
 
-    def _ops(batch, gossip):
+    def _pmix(gossip, t):
+        """The personalized window: the staged per-node rows ``pW`` under
+        'auto', the step's weights slice under 'dense', reweighted by the
+        step's per-node losses."""
+        if not rule.personalized:
+            return None
+
+        def pmix(off, r, mat, losses):
+            if gossip_impl == "auto":
+                pW = gossip["pW"]
+                idx = (t + off + torch.arange(r, device=pW.device)) \
+                    % plan.period
+                Ws = pW.index_select(0, idx)
+            else:
+                Ws = gossip[off:off + r]
+            with torch.no_grad():
+                return alg.multi_consensus(
+                    engine.personalized_weights(Ws, losses, rule.tau), mat)
+        return pmix
+
+    def _ops(batch, gossip, t=0):
         return engine.EngineOps(
-            mix=lambda off, r, mat: _mix(gossip[off:off + r], mat),
+            mix=lambda off, r, mat: _mix_rounds(gossip, t, off, r, mat),
             grad=lambda x, out=None: _grads(x, batch, out),
-            cmix=_cmix(gossip))
+            cmix=_cmix(gossip, t),
+            local_update=local_opt.update if local_opt is not None else None,
+            cast_aux=lambda tr: coll.tree_cast(tr, aux_dtype),
+            pmix=_pmix(gossip, t))
 
     def init_state(params: dict, n: int) -> TrainState:
         x = alg.broadcast_nodes(layout.flatten(params), n)
-        return _to_train(engine.init_state(rule, x))
+        return _to_train(engine.init_state(
+            rule, x, opt_init=local_opt.init if local_opt is not None
+            else None, res_dtype=aux_dtype))
 
     def warm_start(state: TrainState, batch) -> TrainState:
         es = engine.warm_start(rule, _to_engine(state), _ops(batch, None))
         return _to_train(es)
 
-    def step(state: TrainState, batch, weights):
-        es, loss = engine.step(rule, _to_engine(state), _ops(batch, weights))
-        return _to_train(es), {"loss": loss}
+    def core(state: TrainState, batch, gossip, t):
+        es, loss = engine.step(rule, _to_engine(state),
+                               _ops(batch, gossip, t))
+        # a personalized rule's metrics are the per-node losses; the step's
+        # "loss" stays their mean
+        return _to_train(es), {"loss": loss.mean() if rule.personalized
+                               else loss}
 
+    if gossip_impl == "auto":
+        def step(state: TrainState, batch, plan_tensors, t: int):
+            return core(state, batch, plan_tensors, t)
+        step.gossip_dispatch = plan_mix.dispatch
+    else:
+        def step(state: TrainState, batch, weights):
+            return core(state, batch, weights, 0)
     return init_state, warm_start, step
 
 
@@ -141,8 +224,10 @@ def flat_layout(model, compression=None) -> coll.FlatLayout:
 
 
 def _to_engine(s: TrainState) -> engine.EngineState:
-    return engine.EngineState(s.x, s.h, s.g_prev, s.step, res=s.res)
+    return engine.EngineState(s.x, s.h, s.g_prev, s.step, res=s.res,
+                              opt=s.opt)
 
 
 def _to_train(s: engine.EngineState) -> TrainState:
-    return TrainState(x=s.x, h=s.h, g_prev=s.g_prev, step=s.k, res=s.res)
+    return TrainState(x=s.x, h=s.h, g_prev=s.g_prev, step=s.k, res=s.res,
+                      opt=s.opt)

@@ -12,9 +12,15 @@ telemetry recorder) and the pieces of the runtime ``model.kind`` selects:
   ``launch/train.py`` runs);
 * ``logreg`` — the host runtime: the paper's §6 non-convex logistic
   regression driven by :func:`repro_torch.core.driver.run_algorithm`, on
-  the dense topologies (one matrix product per round) and on the
-  sampled-client ``random-sampled`` family (an edge plan), with or without
-  compression, on the 80/20 or the Dirichlet partition.
+  the dense topologies (one matrix product per round, or with
+  ``gossip_impl='auto'`` each round of the gossip plan through its
+  structured lowering) and on the sampled-client ``random-sampled`` family
+  (an edge plan), with or without compression, on the 80/20 or the
+  Dirichlet partition.
+
+Every rule of the reference runs on both runtimes, with its local
+optimizer (``algorithm.local_opt``): the gossip plan is built here with
+the spec's pods and the rule's personalized flag, as in the reference.
 
 ``run`` writes the reproducibility manifest next to the telemetry file
 when ``run.telemetry`` names one, trains, then, when ``spec.serve``
@@ -77,7 +83,8 @@ class Built:
     schedule: Any                 # realized WeightSchedule (post-fault)
     device: torch.device
     horizon: int = 0
-    plan: Any = None              # edge plan (gossip_impl == auto) | None
+    plan: Any = None              # GossipPlan | edge plan (auto) | None
+    local_opt: Any = None         # repro_torch.optim.Optimizer | None
     telemetry: Any = None
     cfg: Any = None
     model: Any = None
@@ -170,6 +177,11 @@ def _validate(spec: ExperimentSpec) -> None:
             raise ValueError(f"{field}={value!r}: unknown "
                              f"(have {sorted(legal)})")
     t, a, r, m = spec.topology, spec.algorithm, spec.run, spec.model
+    if t.pods < 1:
+        raise ValueError(f"topology.pods={t.pods}: must be >= 1")
+    if t.pods > 1 and r.nodes % t.pods:
+        raise ValueError(f"topology.pods={t.pods} must divide "
+                         f"run.nodes={r.nodes}")
     if t.kind in registry.SPARSE_TOPOLOGIES:
         if not 2 <= t.sample_k <= r.nodes:
             raise ValueError(f"topology.sample_k={t.sample_k}: the "
@@ -222,8 +234,7 @@ def _validate(spec: ExperimentSpec) -> None:
 def _check_ported(spec: ExperimentSpec) -> None:
     """Raise NotImplementedError, naming its ROADMAP.md Queue 1 item, for
     the first scenario axis the spec uses that the port does not run yet.
-    ``gossip_impl='auto'`` and channel faults run on the sampled-client
-    (edge-list) family only."""
+    Channel faults run on the sampled-client (edge-list) family only."""
     a, r, c = spec.algorithm, spec.run, spec.channel
     sampled = spec.topology.kind in registry.SPARSE_TOPOLOGIES
     logreg = spec.model.kind == "logreg"
@@ -233,9 +244,6 @@ def _check_ported(spec: ExperimentSpec) -> None:
         (arch_pattern != ("attn",),
          f"training model.arch={spec.model.arch!r} (the arch trainer runs "
          "the dense ('attn',) pattern)", 9),
-        (a.local_opt != "sgd", f"algorithm.local_opt={a.local_opt!r}", 2),
-        (r.gossip_impl == "auto" and not sampled,
-         "run.gossip_impl='auto' off the random-sampled topology", 3),
         (spec.obs.enabled, "obs (metrics / profile_dir)", 4),
         (any(getattr(c, f) > 0 for f in registry.CHANNELS) and not sampled,
          "channel faults off the random-sampled topology", 5),
@@ -263,7 +271,8 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Built:
     # R is mc_dsgt's knob; every other rule is defined at R=1
     R = al.R if al.name == "mc_dsgt" else 1
     comp = registry.build_compression(spec.compression)
-    rule = engine.make_rule(al.name, gamma=al.gamma, R=R, compression=comp)
+    rule = engine.make_rule(al.name, gamma=al.gamma, R=R, compression=comp,
+                            tau=al.tau)
     wps = rule.weights_per_step
     seconds = {}
     t0 = time.perf_counter()
@@ -283,8 +292,10 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Built:
         sched = sparse.realize_sparse_schedule(sched, fault_models)
     seconds["schedule"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    plan = (sched.plan(0, sched.period) if rs.gossip_impl == "auto"
-            else None)
+    pods = spec.topology.pods if spec.topology.pods > 1 else None
+    plan = (sched.plan(0, sched.period, pods=pods,
+                       personalized=rule.personalized)
+            if rs.gossip_impl == "auto" else None)
     seconds["plan"] = time.perf_counter() - t0
     telem = None
     if rs.telemetry or comp is not None or is_sparse:
@@ -297,8 +308,9 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Built:
         telem = _Recorder(sched, wps=wps, every=rs.log_every,
                           compression=comp)
     built = Built(spec=spec, rule=rule, wps=wps, schedule=sched, device=dev,
-                  horizon=horizon, plan=plan, telemetry=telem,
-                  seconds=seconds)
+                  horizon=horizon, plan=plan,
+                  local_opt=registry.build_local_opt(al.local_opt),
+                  telemetry=telem, seconds=seconds)
     t0 = time.perf_counter()
     if spec.model.kind == "arch":
         cfg = configs.get(spec.model.arch)
@@ -351,13 +363,21 @@ def run(spec: ExperimentSpec, *, device="cuda", quiet: bool = False) -> Result:
 
 def _run_logreg(built: Built, *, quiet: bool = False) -> Result:
     """The host runtime: the engine rule bound to the dense window or the
-    edge plan's mixer, driven by :func:`repro_torch.core.driver.
-    run_algorithm`.  The oracle's generator is seeded by ``run.seed`` on
-    the device."""
+    plan's mixer, driven by :func:`repro_torch.core.driver.run_algorithm`.
+    The oracle's generator is seeded by ``run.seed`` on the device.  The
+    logreg oracle returns gradients only, so a personalized rule (whose
+    oracle must also return per-node losses) raises ValueError here, where
+    the reference's raises on unpacking them."""
     spec, rs = built.spec, built.spec.run
+    if built.rule.personalized:
+        raise ValueError("algorithm.name='personalized' needs an oracle "
+                         "returning (per-node losses, grads); the logreg "
+                         "runtime's returns grads only (drive "
+                         "algorithms.personalized through "
+                         "driver.run_algorithm with such an oracle)")
     gen = torch.Generator(device=built.device).manual_seed(rs.seed)
     state, history = driver.run_algorithm(
-        alg.from_rule(built.rule), built.x0, built.grad_fn, built.schedule,
+        alg.from_rule(built.rule, built.local_opt), built.x0, built.grad_fn, built.schedule,
         rs.steps, gen, eval_fn=built.eval_fn, eval_every=rs.eval_every,
         gossip_impl=rs.gossip_impl, plan=built.plan,
         telemetry=built.telemetry)
@@ -377,21 +397,28 @@ def _run_logreg(built: Built, *, quiet: bool = False) -> Result:
 
 
 def _run_arch(built: Built, *, quiet: bool = False) -> Result:
+    """The arch trainer: the engine rule bound by
+    :func:`repro_torch.dist.steps.make_train_step` to the dense window, the
+    fused kernel or (``auto``) the staged plan, on the driver's loop."""
     spec, rs, dev = built.spec, built.spec.run, built.device
     init_state, warm_start, train_step = dsteps.make_train_step(
         built.model, built.cfg, algo=spec.algorithm.name,
         gamma=spec.algorithm.gamma, R=built.rule.R, gossip_impl=rs.gossip_impl,
-        compression=built.rule.compression)
+        plan=built.plan, local_opt=built.local_opt,
+        compression=built.rule.compression, tau=built.rule.tau)
     gen = torch.Generator(device=dev).manual_seed(rs.seed)
     state = init_state(built.model.init(gen, torch.float32, dev), rs.nodes)
     state, start_step = driver.restore_or_warm(
         state, restore=rs.restore,
         warm=lambda s: warm_start(s, built.stream.batch_at(0)))
 
-    # the whole period's gossip stack crosses to the device once
-    staged = driver.stage(built.schedule, wps=built.wps, device=dev)
-    step_fn = driver.bind_step(
-        staged, lambda state, batch, W, t: train_step(state, batch, W))
+    # the whole period's gossip stack (or the plan's tensors) crosses to
+    # the device once
+    auto = rs.gossip_impl == "auto"
+    staged = driver.stage(built.schedule, wps=built.wps, device=dev,
+                          impl="auto" if auto else "dense", plan=built.plan)
+    step_fn = driver.bind_step(staged, train_step if auto else (
+        lambda state, batch, W, t: train_step(state, batch, W)))
 
     telem = built.telemetry
     con = obs_console.Console(quiet=quiet)

@@ -15,6 +15,7 @@ from typing import Callable, Dict
 
 import numpy as np
 
+from .. import optim
 from ..core import compress, engine, gossip, topology as topo
 from ..sim import channel as sim_channel, faults as sim_faults
 from .spec import ChannelSpec, CompressionSpec, TopologySpec
@@ -195,7 +196,11 @@ CHANNEL_MODELS: Dict[str, Callable] = {
 }
 CHANNELS = tuple(CHANNEL_MODELS)
 ALGORITHMS = engine.ALGORITHMS
-LOCAL_OPTS = ("sgd", "momentum", "adam")
+LOCAL_OPTS: Dict[str, Callable | None] = {
+    "sgd": None,  # the paper-pure update: no transform
+    "momentum": optim.momentum,
+    "adam": optim.adam,
+}
 GOSSIP_IMPLS = ("dense", "pallas", "auto")
 MODEL_KINDS = ("arch", "logreg")
 ROUTING_POLICIES = ("user-affinity", "round-robin")
@@ -219,6 +224,15 @@ def build_compression(s: CompressionSpec
     return compress.CompressionConfig(scheme=s.scheme,
                                       error_feedback=s.error_feedback,
                                       warmup=s.warmup, group=s.group)
+
+
+def build_local_opt(name: str):
+    """Instantiate a local-optimizer transform (None for plain sgd)."""
+    if name not in LOCAL_OPTS:
+        raise ValueError(f"unknown local_opt {name!r} "
+                         f"(have {sorted(LOCAL_OPTS)})")
+    factory = LOCAL_OPTS[name]
+    return factory() if factory is not None else None
 
 
 def build_channel_models(s: ChannelSpec, seed: int = 0) -> list:

@@ -21,6 +21,10 @@ Config files round-trip exactly as in train: ``--config PATH`` loads a
 spec JSON as the baseline, explicit flags override it, and
 ``--dump-config`` prints the fully-resolved spec JSON and exits.
 
+``--algo personalized`` (``--tau``) trains the fleet with the
+loss-proximity reweighted mix, so each node's model stays its own, and
+serves those personalized models (user-affinity routing by default).
+
 Example — train a 4-node qwen1.5-0.5b fleet at full width on one H100 and
 serve 8 requests from it in bf16:
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \

@@ -17,13 +17,29 @@ CPU).  With ``--compress sign|int8`` the rounds quantize every payload with
 error feedback, and the fused window is the Hopper ``quantized_gossip_mix``
 kernel.
 
+``--gossip-impl auto`` lowers the schedule to its gossip plan and sends
+every round to its cheapest mix (``sun``, a matching, the complete-graph
+mean, ``two_level`` pods with ``--pods``, an edge list, or a dense round);
+``empty`` rounds cost nothing.  Every update rule of the reference runs:
+``--algo`` dsgd, dsgt, mc_dsgt, d2, local_sgd, gt_local or personalized,
+with ``--local-opt`` sgd, momentum or adam.
+
 ``--arch logreg`` runs the paper's §6 logistic regression on the host
 runtime, one matrix product per round on the dense topologies (``sun``,
-``random-sun``, ``ring``, ...), or, with ``--topology random-sampled``, a
-sampled cohort of a large fleet gossiping over an edge-list plan each round
-(``--gossip-impl auto``), the whole fleet's data and state on the device.
-``--compress``, ``--hetero-alpha`` (the Dirichlet partition) and
-``--telemetry`` (the telemetry file and its manifest) apply to it.
+``random-sun``, ``ring``, ...) or the plan's mixes under ``--gossip-impl
+auto``, or, with ``--topology random-sampled``, a sampled cohort of a large
+fleet gossiping over an edge-list plan each round (``--gossip-impl
+auto``), the whole fleet's data and state on the device.  ``--compress``,
+``--hetero-alpha`` (the Dirichlet partition) and ``--telemetry`` (the
+telemetry file and its manifest) apply to it.  Its oracle returns no
+per-node losses, so ``--algo personalized`` raises there, as in the
+reference.
+
+The reference's federated scenario (FedAvg: local steps, then one global
+average; the plan is 2×empty+1×complete):
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+        --preset full --nodes 4 --topology federated --local-steps 2 \
+        --algo local_sgd --gossip-impl auto --steps 6
 
 Example (Figure 2's MNIST shapes, MC-DSGT R=2, int8 gossip, telemetry):
     PYTHONPATH=src python -m repro_torch.launch.train --arch logreg \

@@ -106,7 +106,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
     files = sorted((REPO / "src" / "repro_torch").rglob("*.py"))
     twins = sorted((REPO / "examples" / "torch").glob("*.py"))
     assert {p.name for p in twins} >= {"quickstart.py", "paper_figure2.py",
-                                       "sampled_clients.py"}
+                                       "sampled_clients.py", "federated.py"}
     files += twins
     files.append(REPO / "chip_smoke.py")
     assert len(files) > 20
@@ -118,7 +118,8 @@ def test_port_imports_neither_jax_nor_the_jax_package():
                    "kernels/linear_recurrence.py", "models/ssm.py",
                    "serve/engine.py", "serve/traffic.py",
                    "kernels/flash_attention.py",
-                   "kernels/decode_attention.py", "models/attention.py"):
+                   "kernels/decode_attention.py", "models/attention.py",
+                   "optim/optimizers.py", "optim/__init__.py"):
         assert port / module in files, module
     for path in files:
         for name in _imports(path):

@@ -130,9 +130,33 @@ def test_run_matches_reference(name, R, kind):
 
 
 def test_unported_factories_raise_item_2():
+    """(Named when the four factories still raised.)  ``d2``,
+    ``local_sgd``, ``personalized`` and ``gt_local`` build the reference's
+    algorithm: name, rounds per step and every rule field, with and
+    without a local optimizer (which d2 refuses in both packages); 2 steps
+    of each on ``sun`` match the reference's (tests/test_torch_rules.py
+    holds them at length)."""
+    from repro import optim as joptim
+    from repro_torch import optim
+    fields = ("name", "kind", "gamma", "R", "mix_before_update",
+              "correction_in_mix", "shared_round", "tracker_init",
+              "supports_local_opt", "personalized", "tau")
     for name in ("d2", "local_sgd", "personalized", "gt_local"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            getattr(alg, name)(0.1)
+        a, b = getattr(alg, name)(0.1), getattr(jalg, name)(0.1)
+        assert (a.name, a.weights_per_step) == (b.name, b.weights_per_step)
+        assert {f: getattr(a.rule, f) for f in fields} == \
+            {f: getattr(b.rule, f) for f in fields}
+        if name == "d2":
+            with pytest.raises(ValueError):
+                alg.from_rule(a.rule, optim.momentum())
+            with pytest.raises(ValueError):
+                jalg.from_rule(b.rule, joptim.momentum())
+        else:
+            assert getattr(alg, name)(0.1, local_opt=optim.adam()).local_opt
+        if name != "personalized":
+            state, hist, js, jhist = _runs(b, a, "sun", d=8, steps=2)
+            np.testing.assert_allclose(state.x.numpy(), np.asarray(js.x),
+                                       rtol=RTOL, atol=ATOL)
 
 
 def _close_up_to_flips(got, want, max_frac, what):

@@ -98,13 +98,25 @@ class _ReferenceStream:
 
 @pytest.fixture(scope="module")
 def served():
-    """The reference CLI and the port's on ARGV.  The two packages draw
+    """The reference CLI and the port's on ARGV."""
+    return _serve_both(ARGV)
+
+
+@pytest.fixture(scope="module")
+def served_personalized():
+    """The reference CLI and the port's on ARGV with ``--algo
+    personalized`` (the per-node loss reweighting of the sun window)."""
+    return _serve_both(ARGV + ["--algo", "personalized", "--tau", "2.0"])
+
+
+def _serve_both(argv):
+    """The reference CLI and the port's on ``argv``.  The two packages draw
     their initial parameters and token batches from their own generators
     (jax.random and torch.Generator), so the port's run takes the
     reference's: its init (jax.random.key(run.seed)) carried across, and
     its stream's batches.  Everything else, training step and serve phase,
     is the port's own."""
-    want = jserve_cli.main(list(ARGV))
+    want = jserve_cli.main(list(argv))
     jcfg = jconfigs.get("qwen1.5-0.5b").reduced()
     init = params_from_jax(jax.device_get(
         jbuild(jcfg).init(jax.random.key(0), jnp.float32)))
@@ -126,14 +138,24 @@ def served():
     mp.setattr(tbuild, "build_model", with_reference_init)
     mp.setattr(tbuild, "token_stream_for", reference_stream)
     try:
-        got = serve_cli.main(ARGV + ["--device", "cpu", "--quiet"])
+        got = serve_cli.main(list(argv) + ["--device", "cpu", "--quiet"])
     finally:
         mp.undo()
     return got, want
 
 
 def test_serve_cli_serves_the_references_tokens(served):
-    got, want = served
+    _same_tokens(*served)
+
+
+def test_serve_cli_personalized_serves_the_references_tokens(
+        served_personalized):
+    """``--algo personalized`` through the serve CLI (reduced, f32): the
+    port's fleet serves the reference's tokens."""
+    _same_tokens(*served_personalized)
+
+
+def _same_tokens(got, want):
     assert got.fleet == want.fleet == 4
     assert len(got.completed) == 6
     for g, w in zip(got.completed, want.completed):

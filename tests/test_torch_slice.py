@@ -274,11 +274,12 @@ def test_default_device_raises_without_gpu(monkeypatch):
         exp.run(exp.ExperimentSpec())
 
 
-@pytest.mark.parametrize("flags", [["--algo", "d2"], ["--gossip-impl", "auto"],
+@pytest.mark.parametrize("flags", [["--comm-interval", "2"],
+                                   ["--restore", "unused.msgpack"],
                                    ["--hetero-alpha", "0.1"],
                                    ["--arch", "logreg", "--metrics",
                                     "m.jsonl"],
-                                   ["--local-opt", "adam"],
+                                   ["--profile-dir", "unused_profile"],
                                    ["--link-drop", "0.1"], ["--delay", "1"],
                                    ["--checkpoint", "unused.msgpack"],
                                    ["--topology", "waypoint-mobility"]])

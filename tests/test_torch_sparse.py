@@ -362,15 +362,15 @@ def test_telemetry_recorders_match_reference():
 @pytest.mark.parametrize("overrides,match", [
     ({"model.kind": "logreg", "topology.kind": "waypoint-mobility"},
      "item 5"),
-    ({"run.gossip_impl": "auto"}, "item 3"),
+    ({"run.checkpoint": "c.msgpack"}, "item 10"),
     ({"channel.link_drop": 0.1}, "item 5"),
-    ({"model.kind": "logreg", "run.gossip_impl": "auto"}, "item 3"),  # sun
+    ({"model.kind": "logreg", "algorithm.comm_interval": 2}, "item 7"),
     ({"model.kind": "logreg", "obs.metrics": "m.jsonl"}, "item 4"),
-    ({"sampled": True, "algorithm.local_opt": "momentum"}, "item 2"),
+    ({"data.hetero_alpha": 0.1}, "item 9"),
     ({"sampled": True, "algorithm.delay": 1}, "item 7"),
     ({"sampled": True, "obs.metrics": "m.jsonl"}, "item 4"),
-    ({"sampled": True, "algorithm.local_opt": "adam"}, "item 2"),
-    ({"sampled": True, "algorithm.name": "d2"}, "item 2"),
+    ({"sampled": True, "obs.profile_dir": "prof"}, "item 4"),
+    ({"model.arch": "falcon-mamba-7b"}, "item 9"),
 ])
 def test_unported_axes_still_raise(overrides, match):
     overrides = dict(overrides)
@@ -404,10 +404,38 @@ def test_reference_checks_refuse_what_the_reference_refuses(overrides):
 
 
 def test_dense_gossip_plan_raises_its_item():
-    algo = alg.from_rule(engine.make_rule("mc_dsgt", 0.3, R=2))
-    plan = gossip.theorem3_weight_schedule(4, 0.75).plan(0, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        alg.plan_step(algo, plan)
+    """(Named when a dense plan still raised.)  ``plan_step`` on the
+    theorem-3 schedule's dense plan (four ``sun`` rounds): 2 MC-DSGT steps
+    from one staged copy of ``plan.tensors()`` equal the reference's
+    ``plan_step`` at rtol 1e-4 / atol 1e-5 (both ``dynamic``)."""
+    sched = gossip.theorem3_weight_schedule(4, 0.75)
+    jsched = jgossip.theorem3_weight_schedule(4, 0.75)
+    plan, jplan = sched.plan(0, 4), jsched.plan(0, 4)
+    pstep = alg.plan_step(alg.from_rule(engine.make_rule("mc_dsgt", 0.3,
+                                                         R=2)), plan)
+    jstep = jalg.plan_step(jalg.from_rule(jengine.make_rule("mc_dsgt", 0.3,
+                                                            R=2)), jplan)
+    assert pstep.dispatch == jstep.dispatch == "dynamic"
+    jH, jy = jlogreg_dataset(4, 8, 5, seed=1)
+    _, jfull, _, _, _ = jlogreg_loss(0.1)
+    H, y = logreg_dataset(4, 8, 5, seed=1)
+    _, full, _, _, _ = logreg_loss_and_grad(0.1)
+    jgrad = lambda xs, key: jfull(xs, jH, jy)  # noqa: E731
+    grad = lambda xs, gen: full(xs, H, y)  # noqa: E731
+    x0 = np.random.default_rng(2).standard_normal((4, 5)).astype(np.float32)
+    ja = jalg.from_rule(jengine.make_rule("mc_dsgt", 0.3, R=2))
+    js = ja.warm(ja.init(jnp.asarray(x0)), jgrad, jax.random.key(0))
+    a = alg.from_rule(engine.make_rule("mc_dsgt", 0.3, R=2))
+    ts = a.warm(a.init(torch.from_numpy(x0)), grad, torch.Generator())
+    jt = jax.tree.map(jnp.asarray, jplan.tensors())
+    tt = driver.stage_plan(plan)
+    for k in range(2):
+        js = jstep(js, jgrad, jt, 4 * k % 4, jax.random.key(k))
+        ts = pstep(ts, grad, tt, 4 * k % 4, torch.Generator())
+    for f in ("x", "h", "g_prev"):
+        np.testing.assert_allclose(getattr(ts, f).numpy(),
+                                   np.asarray(getattr(js, f)), rtol=1e-4,
+                                   atol=1e-5, err_msg=f)
 
 
 def test_registry_builds_the_references_sampled_schedule():
