@@ -66,7 +66,18 @@ and then drives the main paths through the train CLI's own functions:
   with adam on ``hierarchical`` pods of 2 at full width; and on the host
   runtime the ``examples/torch/federated.py`` twin, logreg on pods of 4
   (``two_level`` rounds), d2 on ``sun`` and personalized on ``random-sun``
-  (0 launches).
+  (0 launches);
+* wireless mobility and the async axis: qwen1.5-0.5b at full width, 4
+  nodes, on the realized waypoint-mobility schedule with 20% link drop,
+  through the train CLI: MC-DSGT with a stale window of 1 through
+  ``gossip_mix`` (6 launches in 3 steps; the tracker mean h̄ = ḡ⁻ held
+  after every step; the final state equal to the dense mixer's), the same
+  with int8 gossip through ``quantized_gossip_mix`` (6 launches, each held
+  to its plain version on the stale payload) and DSGD int8 through it
+  against the dense compressed mixer, ``--comm-interval 2`` (4 launches in
+  4 steps, none on a skipped step), and the twins of
+  ``examples/wireless_mobility.py`` and ``examples/compressed_gossip.py``
+  (0 launches, their assertions holding).
 
 ``linear_recurrence`` is checked bit-equal on each of its three routes
 (a ring of time tiles filled by TMA or by cp.async, and the loop) and
@@ -78,11 +89,13 @@ qwen serve path ``flash_attention`` 24 times per prefill and
 ``decode_attention`` 24 times per slot and token, the serve CLI path
 ``gossip_mix`` 2 times per step and nothing else, the recurrentgemma serve
 path ``linear_recurrence`` 18 and ``flash_attention`` 8 times per prefill
-and ``decode_attention`` 8 times per slot and token; the counts are set to
-0 just before a path and read just after it.  It prints the card, its
-total wall time, one JSON line of per-kernel numbers (a second
-``gossip_mix`` row for the planning path, then the last three rows: the
-recurrentgemma shapes), and last ``{"ok": true, "device": {...}}``.
+and ``decode_attention`` 8 times per slot and token, the wireless legs the
+gossip kernels 2 times per mixing step; the counts are set to 0 just
+before a path and read just after it.  It prints the card, its total wall
+time, one JSON line of per-kernel numbers (a second ``gossip_mix`` row for
+the planning path, three rows for the wireless legs, then the last three
+rows: the recurrentgemma shapes), and last ``{"ok": true, "device":
+{...}}``.
 Any failed phase exits non-zero; so does a machine without a CUDA device or
 a directory without the repository.
 """
@@ -209,6 +222,36 @@ HIER_ARGV = ["--arch", "logreg", "--topology", "hierarchical", "--nodes",
              "--gossip-impl", "auto", "--steps", "20", "--quiet"]
 PLAN_STEPS = 3
 SUN_STEPS = 2
+# The wireless / async phase: qwen1.5-0.5b at full width, 4 nodes, on the
+# realized waypoint-mobility schedule of examples/wireless_mobility.py
+# (radius 0.45; 20% iid link drop, repaired), with the stale window
+# (--delay 1) and the mixing cadence (--comm-interval 2).
+WIRELESS_ARGV = ["--arch", "qwen1.5-0.5b", "--preset", "full", "--nodes",
+                 "4", "--topology", "waypoint-mobility", "--radius", "0.45",
+                 "--link-drop", "0.2", "--delay", "1", "--device", "cuda"]
+DELAYED_ARGV = WIRELESS_ARGV + ["--algo", "mc_dsgt", "--R", "2", "--steps",
+                                str(STEPS)]
+DSGD_DELAYED_ARGV = WIRELESS_ARGV + ["--algo", "dsgd", "--compress", "int8",
+                                     "--steps", str(STEPS)]
+INTERVAL_STEPS = 4
+INTERVAL_ARGV = WIRELESS_ARGV + ["--algo", "mc_dsgt", "--R", "2",
+                                 "--comm-interval", "2", "--gossip-impl",
+                                 "pallas", "--steps", str(INTERVAL_STEPS)]
+# Each quantized_gossip_mix launch of leg (b) is held to its plain version on
+# three windows of this many columns (first, middle, last; group-aligned):
+# the kernel quantizes and mixes each group of columns on its own.
+QCHECK_COLS = GROUP * 4096
+# The tracker mean under delay: h̄ = ḡ⁻ holds exactly in real arithmetic
+# (the repaired matrices are symmetric, so doubly stochastic, and each
+# stale correction Mix(s) − s is mean-free).  In f32 each rounding moves an
+# entry by at most 2^-24 of its value, and with S the largest |h|, |g⁻| or
+# |s| its column has held, one delayed step rounds values of at most 2S (h
+# − g⁻), 3S (+ g), S (the kernel's 2 rounds of 4 products: 8 roundings),
+# 4S (+ Mix(s)) and 5S (− s), 22 S in all; the f32 copy of W moves each
+# column sum of a round by at most 4 · 2^-24 (8 S for the window), and the
+# warm start's f32 mean adds ~2 S once.  So the node means may drift by
+# TRACKER_ROUNDINGS · 2^-24 · S per step, per column.
+TRACKER_ROUNDINGS = 32
 # H100 SXM dense bf16 tensor-core peak and L2 size (NVIDIA data sheet): the
 # attention kernels' operations are bf16 products on the main path, and
 # their inputs (8-16 MB) would stay in L2 from one timed call to the next,
@@ -1831,33 +1874,16 @@ def plan_label(plan) -> str:
 
 
 def planned_cli_run(torch, train, exp, argv, counters, what: str) -> dict:
-    """``train.main(argv)`` on the card with every count from 0: finite
-    losses and consensus, no kernel launched (the plan's rounds are
-    structured or the einsum, as the reference's 'auto' default);
-    prints the plan, s/step and the peak."""
-    for c in counters.values():
-        c.launches = 0
-    torch.cuda.reset_peak_memory_stats()
-    held_gb = torch.cuda.memory_allocated() / 1e9
-    with RunTimer(exp) as rt:
-        history = train.main(list(argv))
-    launches = {k: c.launches for k, c in counters.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    plan = rt.results[-1].built.plan
-    if not history or not all(math.isfinite(h["loss"])
-                              and math.isfinite(h["consensus"])
-                              for h in history):
-        fail(f"{what}: history not finite: {history}")
-    if any(launches.values()):
-        fail(f"{what} launched kernels: {launches}")
-    secs = [h["sec"] for h in history]
-    print(f"{what}: python -m repro_torch.launch.train {' '.join(argv)}",
-          flush=True)
-    print(f"{what}: plan {plan_label(plan)} ({plan.dispatch})  losses "
-          f"{[h['loss'] for h in history]}  step s {secs}  peak device "
-          f"memory {peak_gb:.3f} GB ({held_gb:.3f} GB held before the run)"
-          f"  launches {launches}", flush=True)
-    return {"plan": plan_label(plan), "secs": secs, "peak_gb": peak_gb}
+    """:func:`cli_run` of ``argv`` with no kernel launched (the plan's
+    rounds are structured or the einsum, as the reference's 'auto'
+    default); prints the plan."""
+    run = cli_run(torch, train, exp, argv, counters, what)
+    if any(run["launches"].values()):
+        fail(f"{what} launched kernels: {run['launches']}")
+    plan = run["plan"]
+    print(f"{what}: plan {plan_label(plan)} ({plan.dispatch})", flush=True)
+    return {"plan": plan_label(plan), "secs": run["secs"],
+            "peak_gb": run["peak_gb"]}
 
 
 def planned_steps(torch, exp, driver, dsteps, built, params, steps: int,
@@ -2228,6 +2254,327 @@ def logreg_phase(torch, exp, counters) -> dict:
     return {"wall_s": wall, "verdicts": verdicts}
 
 
+class StepHook:
+    """Calls ``fn(k, state)`` after every step of the arch runs started
+    inside the block, through the mixing-telemetry recorder's ``record``
+    (the wireless scenario gives every run one), so the train CLI's own
+    loop is what runs."""
+
+    def __init__(self, recorder_cls, fn):
+        self.cls, self.fn = recorder_cls, fn
+
+    def __enter__(self):
+        real = self.real = self.cls.record
+        fn = self.fn
+
+        def record(rec, k, t, state, out, dt):
+            fn(k, state)
+            return real(rec, k, t, state, out, dt)
+
+        self.cls.record = record
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.record = self.real
+
+
+def tracker_mean_gap(torch, state, steps: int, scale):
+    """(largest |mean h − mean g⁻| over the columns, its largest ratio to
+    the column's bound TRACKER_ROUNDINGS · steps · 2^-24 · S), node means in
+    float64, 2^24 columns at a time (whole, the float64 copies would take
+    30 GB).  ``scale`` (D,) keeps each column's S, the largest |h|, |g⁻| or
+    |s| seen after any step so far, and is updated in place."""
+    h, gp = state.h, state.g_prev
+    slot = state.buf[1][0]
+    gap_max, worst = 0.0, 0.0
+    chunk = 1 << 24
+    for a in range(0, h.shape[1], chunk):
+        cols = slice(a, a + chunk)
+        hc, gc = h[:, cols], gp[:, cols]
+        gap = (hc.double().mean(0) - gc.double().mean(0)).abs()
+        sc = scale[cols]
+        for t in (hc, gc, slot[:, cols]):
+            torch.maximum(sc, t.abs().amax(0), out=sc)
+        bound = TRACKER_ROUNDINGS * steps * 2.0 ** -24 * sc.double()
+        gap_max = max(gap_max, float(gap.max()))
+        worst = max(worst, float((gap / bound.clamp_min(1e-300)).max()))
+    return gap_max, worst
+
+
+def cli_run(torch, train, exp, argv, counters, what: str, smi: str = "",
+            on_step=None, keep=()) -> dict:
+    """``train.main(argv)`` on the card with every count from 0 and
+    ``on_step`` = (recorder class, fn) calling ``fn(k, state)`` after each
+    step: finite losses and consensus; returns the launches, losses, step
+    seconds, peak memory, the plan, the telemetry history, the final state
+    and, copied to the host, its tensors named in ``keep`` (x, h, g_prev,
+    res_x), so that the next run has the card to itself once the caller
+    drops the state."""
+    for c in counters.values():
+        c.launches = 0
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    held_gb = torch.cuda.memory_allocated() / 1e9
+    with RunTimer(exp) as rt:
+        if on_step is None:
+            history = train.main(list(argv))
+        else:
+            with StepHook(on_step[0], on_step[1]):
+                history = train.main(list(argv))
+    launches = {k: c.launches for k, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res = rt.results.pop()
+    rt.results.clear()
+    if not history or not all(math.isfinite(h["loss"])
+                              and math.isfinite(h["consensus"])
+                              for h in history):
+        fail(f"{what}: history not finite: {history}")
+    state = res.state
+    kept = {f: (state.res[0] if f == "res_x" else getattr(state, f)).cpu()
+            for f in keep}
+    out = {"launches": launches, "losses": [h["loss"] for h in history],
+           "secs": [h["sec"] for h in history], "peak_gb": peak_gb,
+           "plan": res.built.plan, "kept": kept, "state": state,
+           "telemetry": res.telemetry.history if res.telemetry else None}
+    print(f"{what}: python -m repro_torch.launch.train {' '.join(argv)}",
+          flush=True)
+    print(f"{what}: losses {out['losses']}  step s {out['secs']}  peak "
+          f"device memory {peak_gb:.3f} GB ({held_gb:.3f} GB held before the "
+          f"run{'; ' + smi if smi else ''})  launches {launches}", flush=True)
+    return out
+
+
+def rows_close(torch, what, got, kept, rtol, atol) -> tuple:
+    """A final state on the card against one kept on the host, row by row:
+    (entries beyond rtol/atol, largest absolute error)."""
+    bad, err = 0, 0.0
+    for i in range(got.shape[0]):
+        w = kept[i].to(got.device)
+        d = (got[i] - w).abs()
+        bad += int((d > atol + rtol * w.abs()).sum())
+        err = max(err, float(d.max()))
+        del w, d
+    return bad, err
+
+
+def node_sums_close(torch, what, x, res, kept_x, kept_res, tol=1e-5):
+    """Each column's node sum of x + res (float64, 2^24 columns at a time)
+    against the kept run's at rtol = atol = ``tol``."""
+    chunk = 1 << 24
+    for a in range(0, x.shape[1], chunk):
+        cols = slice(a, a + chunk)
+        got = x[:, cols].double().sum(0) + res[:, cols].double().sum(0)
+        want = (kept_x[:, cols].to(x.device).double().sum(0)
+                + kept_res[:, cols].to(x.device).double().sum(0))
+        torch.testing.assert_close(
+            got, want, rtol=tol, atol=tol,
+            msg=lambda m: f"{what}: node sums of x + res, columns {a}+: {m}")
+
+
+def wireless_phase(torch, train, exp, ops, ref, sim_telemetry, counters,
+                   smi: str) -> dict:
+    """ROADMAP Queue 1 items 5 and 7 on the card, each leg through the
+    train CLI at full width on the realized waypoint-mobility schedule
+    with 20% link drop:
+
+    (a) MC-DSGT R=2 with --delay 1 through gossip_mix (6 launches in 3
+        steps); after every step the float64 node means of h and g⁻ agree
+        within TRACKER_ROUNDINGS · steps · 2^-24 of each column's scale; the
+        final x, h, g⁻ equal the same run through --gossip-impl dense (the
+        plain mixer, from the same init and batches) at rtol 1e-4 / atol
+        1e-5;
+    (b) the same with --compress int8 through quantized_gossip_mix (6
+        launches): each launch, on the stale payload, held to the plain
+        version on three column windows by qcompare (the int8 step bound,
+        node sums of x + res, at most MAX_FLIPS flipped entries).  The dense
+        compressed mixer of an MC-DSGT state would not fit on the card
+        beside it (seven (n, D) states and its quantization temporaries), so
+        the run-level comparison with dense is DSGD's: DSGD int8 --delay 1
+        through pallas (3 launches) against dense (0), the final x and
+        res_x within rtol 1e-4 / atol 1e-5 up to MAX_FLIPS flipped entries
+        and their node sums of x + res_x at rtol = atol = 1e-5;
+    (c) --comm-interval 2 inside the stale window, 4 steps through
+        gossip_mix: 2 launches on steps 0 and 2, none on 1 and 3;
+    (d) the twins of examples/wireless_mobility.py and
+        examples/compressed_gossip.py at their default budgets on the host
+        runtime, 0 launches, their own assertions holding."""
+    t_phase = time.perf_counter()
+    out = {}
+    recorder = sim_telemetry.TelemetryRecorder
+
+    # (a) the delayed window through gossip_mix, held to the dense mixer
+    gaps, scale = [], []
+
+    def tracker_mean(k, state):
+        if not scale:
+            scale.append(torch.zeros(state.h.shape[1], device=state.h.device))
+        gap, ratio = tracker_mean_gap(torch, state, k + 1, scale[0])
+        gaps.append((gap, ratio))
+        if ratio > 1.0:
+            fail(f"wireless (a) step {k}: node means of h and g_prev differ "
+                 f"by {gap:.3e}, {ratio:.2f} times the rounding bound")
+
+    a = cli_run(torch, train, exp, DELAYED_ARGV + ["--gossip-impl",
+                                                        "pallas"],
+                     counters, "wireless (a) delayed mc_dsgt via pallas", smi,
+                     on_step=(recorder, tracker_mean),
+                     keep=("x", "h", "g_prev"))
+    if a["launches"]["gossip_mix"] != 2 * STEPS or \
+            sum(a["launches"].values()) != 2 * STEPS:
+        fail(f"wireless (a): launches {a['launches']}; {STEPS} delayed "
+             "MC-DSGT steps need 2 gossip_mix each")
+    stale = [t.get("stale_gap") for t in a["telemetry"]]
+    kept = a.pop("kept")
+    del a["state"], scale[:]
+    print(f"wireless (a): tracker mean |h̄ − ḡ⁻| per step "
+          f"{[g for g, _ in gaps]} (at most {max(r for _, r in gaps):.3f} of "
+          f"the rounding bound); telemetry stale_gap {stale}, spectral_gap "
+          f"{[t['spectral_gap'] for t in a['telemetry']]}, kinds "
+          f"{[t['kinds'] for t in a['telemetry']]}", flush=True)
+    d = cli_run(torch, train, exp, DELAYED_ARGV + ["--gossip-impl",
+                                                        "dense"],
+                     counters, "wireless (a) delayed mc_dsgt via dense", smi)
+    if any(d["launches"].values()):
+        fail(f"wireless (a) dense launched kernels: {d['launches']}")
+    errs = {}
+    for f in ("x", "h", "g_prev"):
+        bad, errs[f] = rows_close(torch, f, getattr(d["state"], f), kept[f],
+                                  1e-4, 1e-5)
+        if bad:
+            fail(f"wireless (a): final {f} of pallas and dense differ at "
+                 f"{bad} entries beyond rtol 1e-4 / atol 1e-5")
+    del d["state"], kept
+    print(f"wireless (a): final x, h, g_prev of pallas == dense at rtol 1e-4 "
+          f"/ atol 1e-5 (max |diff| {errs}); losses {a['losses']} vs "
+          f"{d['losses']}", flush=True)
+    out["a"] = {k: a[k] for k in ("launches", "secs", "peak_gb")}
+    out["a"]["stale_gap"] = stale
+    out["a_dense"] = {k: d[k] for k in ("secs", "peak_gb")}
+
+    # (b) compressed and delayed through quantized_gossip_mix
+    real = ops.quantized_gossip_mix
+    checks = []
+
+    def held(ws, x, res, **kw):
+        D = x.shape[1]
+        mid = (D // 2) // GROUP * GROUP
+        windows = [slice(a_, a_ + QCHECK_COLS) for a_ in
+                   (0, mid, D - QCHECK_COLS)]
+        inputs = [(x[:, w].clone(), res[:, w].clone()) for w in windows]
+        result = real(ws, x, res, **kw)
+        R = ws.shape[0]
+        for w, (xi, ri) in zip(windows, inputs):
+            want = ref.quantized_gossip_mix_ref(
+                ws, xi, ri, scheme=kw["scheme"], group=kw["group"],
+                error_feedback=kw["error_feedback"])
+            bad, err = qcompare(torch, f"wireless (b) launch {len(checks)}, "
+                                f"columns {w.start}+", xi, ri,
+                                (result[0][:, w], result[1][:, w]), want, R,
+                                kw["scheme"], kw["group"],
+                                kw["error_feedback"])
+            if bad > MAX_FLIPS * 2 * xi.numel():
+                fail(f"wireless (b): {bad} flipped entries in columns "
+                     f"{w.start}+ of launch {len(checks)}")
+            checks.append((bad, err))
+        return result
+
+    ops.quantized_gossip_mix = held
+    try:
+        b = cli_run(torch, train, exp,
+                         DELAYED_ARGV + ["--gossip-impl", "pallas",
+                                         "--compress", "int8"],
+                         counters, "wireless (b) delayed mc_dsgt int8 via "
+                         "pallas", smi)
+    finally:
+        ops.quantized_gossip_mix = real
+    del b["state"]
+    if b["launches"]["quantized_gossip_mix"] != 2 * STEPS or \
+            sum(b["launches"].values()) != 2 * STEPS:
+        fail(f"wireless (b): launches {b['launches']}; {STEPS} compressed "
+             "MC-DSGT steps need 2 quantized_gossip_mix each")
+    print(f"wireless (b): every quantized_gossip_mix launch == plain on its "
+          f"stale payload's first, middle and last {QCHECK_COLS:,} columns "
+          f"(qcompare: int8 step bound, node sums of x + res; flipped "
+          f"entries and max |diff| per window {checks})", flush=True)
+    bp = cli_run(torch, train, exp,
+                      DSGD_DELAYED_ARGV + ["--gossip-impl", "pallas"],
+                      counters, "wireless (b) delayed dsgd int8 via pallas",
+                      smi, keep=("x", "res_x"))
+    kept = bp.pop("kept")
+    del bp["state"]
+    if bp["launches"]["quantized_gossip_mix"] != STEPS or \
+            sum(bp["launches"].values()) != STEPS:
+        fail(f"wireless (b) dsgd: launches {bp['launches']}")
+    bd = cli_run(torch, train, exp,
+                      DSGD_DELAYED_ARGV + ["--gossip-impl", "dense"],
+                      counters, "wireless (b) delayed dsgd int8 via dense",
+                      smi)
+    if any(bd["launches"].values()):
+        fail(f"wireless (b) dense launched kernels: {bd['launches']}")
+    st = bd.pop("state")
+    flipped = {}
+    for f, got in (("x", st.x), ("res_x", st.res[0])):
+        bad, err = rows_close(torch, f, got, kept[f], 1e-4, 1e-5)
+        flipped[f] = (bad, err)
+        if bad > MAX_FLIPS * got.numel():
+            fail(f"wireless (b) dsgd: final {f} of pallas and dense differ "
+                 f"at {bad} entries beyond rtol 1e-4 / atol 1e-5")
+    node_sums_close(torch, "wireless (b) dsgd", st.x, st.res[0], kept["x"],
+                    kept["res_x"])
+    del st, kept, got
+    print(f"wireless (b): dsgd final x, res_x of pallas == dense up to "
+          f"flipped entries (count, max |diff|: {flipped}); node sums of "
+          f"x + res_x kept at 1e-5", flush=True)
+    out["b"] = {k: b[k] for k in ("launches", "secs", "peak_gb")}
+    out["b_dsgd"] = {k: bp[k] for k in ("launches", "secs", "peak_gb")}
+    out["b_dsgd_dense"] = {"secs": bd["secs"], "peak_gb": bd["peak_gb"]}
+
+    # (c) comm_interval: no launch on a skipped step
+    per_step = []
+    c = cli_run(torch, train, exp, INTERVAL_ARGV, counters,
+                     "wireless (c) comm_interval 2, delay 1, via pallas", smi,
+                     on_step=(recorder, lambda k, state: per_step.append(
+                         counters["gossip_mix"].launches)))
+    del c["state"]
+    if per_step != [2, 2, 4, 4] or sum(c["launches"].values()) != 4:
+        fail(f"wireless (c): gossip_mix launches after each step "
+             f"{per_step}, all {c['launches']}; want [2, 2, 4, 4]")
+    print(f"wireless (c): gossip_mix launches after each step {per_step} "
+          "(none on the skipped steps 1 and 3)", flush=True)
+    out["c"] = {k: c[k] for k in ("launches", "secs", "peak_gb")}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) the two twins on the host runtime
+    for cnt in counters.values():
+        cnt.launches = 0
+    for name in ("wireless_mobility", "compressed_gossip"):
+        twin = load_twin(name)
+        t0 = time.perf_counter()
+        with RunTimer(exp) as rt:
+            try:
+                result = twin.main([])
+            except AssertionError as e:
+                fail(f"wireless (d) {name}: {e}")
+        wall = time.perf_counter() - t0
+        stale = [t.get("stale_gap") for r in rt.results
+                 for t in r.telemetry.history[-1:]]
+        rt.results.clear()
+        print(f"wireless (d) {name} twin: {result}; runs {len(rt.runs)}, "
+              f"wall {wall:.3f} s; stale_gap of each run's last step "
+              f"{stale} (no delay: the recorder emits none)", flush=True)
+        out[name] = {"wall_s": wall}
+    launches = {k: cnt.launches for k, cnt in counters.items()}
+    if any(launches.values()):
+        fail(f"wireless (d) launched kernels: {launches}")
+    wall = time.perf_counter() - t_phase
+    print(f"wireless (d) kernel launches over the twins: {launches}; phase "
+          f"wall {wall:.3f} s", flush=True)
+    out["wall_s"] = wall
+    return out
+
+
 def main_path(torch, train, argv, counter, name: str) -> dict:
     """Drive one main path through the train CLI with ``counter`` (a
     kernel wrapper's launch count) set to 0 just before it and read just
@@ -2268,6 +2615,7 @@ def main():
                                      linear_recurrence, ops, quantized_gossip,
                                      ref, sparse_gossip)
     from repro_torch.launch import serve as serve_cli, train
+    from repro_torch.sim import telemetry as sim_telemetry
 
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
@@ -2387,6 +2735,10 @@ def main():
     torch.cuda.empty_cache()
     planned = planning_phase(torch, train, exp, alg, driver, steps, data,
                              counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    wireless = wireless_phase(torch, train, exp, ops, ref, sim_telemetry,
+                              counters, smi)
 
     rows = [
         {"name": "gossip_mix", "route": "cuda",
@@ -2471,6 +2823,23 @@ def main():
         "launches": planned["auto+pallas"]["launches"],
         "launches_per_step": planned["auto+pallas"]["launches"]
         / PLAN_STEPS})
+    # the two gossip kernels on the wireless / async path: the stale window
+    # mixed through them on the realized waypoint-mobility schedule (the
+    # same kernels at the same shapes as the first two rows)
+    for i, path, leg, steps_ in (
+            (0, "wireless/async (a): delayed mc_dsgt, waypoint mobility, 20% "
+             "link drop", "a", STEPS),
+            (1, "wireless/async (b): delayed mc_dsgt int8, waypoint mobility, "
+             "20% link drop", "b", STEPS),
+            (0, "wireless/async (c): comm_interval 2 in a delay of 1", "c",
+             INTERVAL_STEPS)):
+        base = rows[i]
+        rows.append({**{k: base[k] for k in (
+            "name", "route", "source", "replaces", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+            "path": path, "launches": wireless[leg]["launches"][base["name"]],
+            "launches_per_step": wireless[leg]["launches"][base["name"]]
+            / steps_})
     # the same three kernels at recurrentgemma-2b's serve shapes
     rg_n, rg_new = RGSERVE["requests"], RGSERVE["max_new"]
     for name, kern, per, unit in (

@@ -273,9 +273,8 @@ def sparse_mix(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 # The host layer's state is the engine's: x, h, g_prev, k, the compression
-# residuals and the local optimizer's state (``opt``, also read as the
-# reference's ``opt_state``).  The reference's delay queues come with
-# ROADMAP.md Queue 1 item 7.
+# residuals, the local optimizer's state (``opt``, also read as the
+# reference's ``opt_state``) and a delayed rule's stale payloads (``buf``).
 AlgoState = engine.EngineState
 
 

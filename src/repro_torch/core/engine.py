@@ -22,7 +22,13 @@ step's gossip window, R = accumulation/consensus rounds):
 A rule may carry a :class:`~repro_torch.core.compress.CompressionConfig`:
 every mix then goes through the runtime's compressed window ``cmix``, which
 threads one error-feedback residual per gossiped stream (``EngineState.res``
-= (res_x, res_h)), at full precision while ``k < warmup``.
+= (res_x, res_h)), at full precision while ``k < warmup``.  With
+``comm_interval`` k > 1 only every k-th step mixes (the others apply the
+identity and launch nothing); with ``delay`` d > 0 each window mixes the
+payload of d steps ago and only the correction lands on the fresh payload,
+``out = (payload + Mix(stale)) − stale`` (``EngineState.buf``).  The
+wrappers nest as the reference's: compression innermost, then the gate,
+then the delay.
 
 State tensors are node-stacked flat matrices, (n, D) each.  Unlike the JAX
 engine, which is pure, :func:`step` updates ``x`` and ``h`` in place and
@@ -53,9 +59,13 @@ class EngineState(NamedTuple):
     set by :func:`warm_start` (None otherwise); ``k`` the round counter;
     ``res`` the error-feedback residuals (res_x, res_h) of a compressing
     rule (res_h None for rules without a tracker), None otherwise; ``opt``
-    the local optimizer's state (None without one).  The JAX package's
-    field order is (x, h, g_prev, opt, k, res, buf); ``opt`` comes last
-    here so that the port's earlier positional uses keep their meaning."""
+    the local optimizer's state (None without one); ``buf`` the stale
+    payloads of a delayed rule, (buf_x, buf_h), each a tuple of ``delay``
+    (n, D) slots, oldest first (buf_h None for rules without a tracker, and
+    until :func:`warm_start` seeds it), None when ``delay`` is 0.  The JAX
+    package's field order is (x, h, g_prev, opt, k, res, buf); ``opt``
+    comes after ``res`` here so that the port's earlier positional uses
+    keep their meaning."""
 
     x: torch.Tensor
     h: Optional[torch.Tensor]
@@ -63,6 +73,7 @@ class EngineState(NamedTuple):
     k: int
     res: Optional[tuple] = None
     opt: Any = None
+    buf: Optional[tuple] = None
 
     @property
     def opt_state(self) -> Any:
@@ -112,8 +123,7 @@ class EngineOps(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class UpdateRule:
-    """Declarative spec of one rule (the reference's fields; ``delay`` and
-    ``comm_interval`` come with ROADMAP.md Queue 1 item 7).
+    """Declarative spec of one rule (the reference's fields).
 
     kind
         ``sgd`` (descend on the fresh gradient), ``tracking`` (descend on
@@ -132,6 +142,14 @@ class UpdateRule:
         ``local``: h⁰ = g⁰ per node.
     compression
         Quantize every gossip payload (None = full precision).
+    delay
+        Stale-window gossip: d > 0 mixes the payload from d steps ago and
+        folds the correction into the fresh one, out = (payload +
+        Mix(stale)) − stale, so the node mean moves as in the synchronous
+        path under doubly-stochastic windows.  0 builds no wrapper.
+    comm_interval
+        Mix on every k-th step only, the identity in between (a pure local
+        update); under ``delay`` the stale slots still advance every step.
     personalized / tau
         sgd kind only: each step the window's weights are reweighted by
         per-node loss proximity, α_ij = W_ij·exp(−tau·|ℓ_i − ℓ_j|), rows
@@ -143,6 +161,8 @@ class UpdateRule:
     gamma: float
     R: int = 1
     compression: Optional[compress.CompressionConfig] = None
+    delay: int = 0
+    comm_interval: int = 1
     mix_before_update: bool = False
     correction_in_mix: bool = True
     shared_round: bool = False
@@ -157,13 +177,24 @@ class UpdateRule:
         if self.personalized and self.kind != "sgd":
             raise ValueError("personalized reweighting is defined for the "
                              "sgd kind only")
-        if self.personalized and self.compression is not None:
+        if self.personalized and (self.compression is not None or self.delay
+                                  or self.comm_interval > 1):
             raise ValueError(
                 "personalized weights are computed in-jit from this step's "
                 "losses and cannot be combined with compression, delayed "
                 "gossip, or comm_interval gating")
         if self.kind == "difference" and self.R != 1:
             raise ValueError("difference rules take one oracle sample/step")
+        if self.delay < 0:
+            raise ValueError(f"delay must be >= 0, got {self.delay}")
+        if self.comm_interval < 1:
+            raise ValueError(
+                f"comm_interval must be >= 1, got {self.comm_interval}")
+        if self.comm_interval > 1 and self.compression is not None:
+            raise ValueError(
+                "comm_interval > 1 cannot be combined with gossip "
+                "compression (the error-feedback residual update cannot "
+                "be gated per step); run one or the other")
 
     @property
     def weights_per_step(self) -> int:
@@ -198,6 +229,7 @@ _SPECS = {
 
 def make_rule(name: str, gamma: float, R: int = 1,
               compression: Optional[compress.CompressionConfig] = None,
+              delay: int = 0, comm_interval: int = 1,
               tau: float = 4.0) -> UpdateRule:
     """The one registry, the reference's: d2 is forced to R = 1."""
     if name not in _SPECS:
@@ -205,7 +237,8 @@ def make_rule(name: str, gamma: float, R: int = 1,
     if name in ("dsgt", "d2") and R != 1:
         raise ValueError(f"{name} uses R=1 (MC-DSGT is the R-round variant)")
     return UpdateRule(name=name, gamma=gamma, R=(1 if name == "d2" else R),
-                      compression=compression, tau=tau, **_SPECS[name])
+                      compression=compression, delay=delay,
+                      comm_interval=comm_interval, tau=tau, **_SPECS[name])
 
 
 def personalized_weights(Ws: torch.Tensor, losses: torch.Tensor,
@@ -225,11 +258,29 @@ def init_state(rule: UpdateRule, x0: torch.Tensor, *, opt_init=None,
     """Fresh state at the (n, D) iterate ``x0``: h and g_prev wait for
     :func:`warm_start`; ``opt_init(x0)`` makes the local optimizer's state;
     a compressing rule gets zeroed residuals (``res_dtype``: the runtime's
-    tracker storage dtype, as the reference stores them)."""
+    tracker storage dtype, as the reference stores them).  A delayed rule
+    gets ``delay`` stale x slots, each its own copy of x⁰ (x is updated in
+    place): with identical rows, Mix(x⁰) − x⁰ = 0, so the first ``delay``
+    steps see no correction.  The tracker slots come with h⁰ in
+    :func:`warm_start`."""
     res = (compress.init_residual(x0, rule.uses_tracker, dtype=res_dtype)
            if rule.compression is not None else None)
     opt = opt_init(x0) if opt_init is not None else None
-    return EngineState(x=x0, h=None, g_prev=None, k=0, res=res, opt=opt)
+    buf = ((tuple(x0.clone() for _ in range(rule.delay)), None)
+           if rule.delay else None)
+    return EngineState(x=x0, h=None, g_prev=None, k=0, res=res, opt=opt,
+                       buf=buf)
+
+
+def _correct(t: torch.Tensor, m: torch.Tensor, s: torch.Tensor
+             ) -> torch.Tensor:
+    """The delayed window's output (t + m) − s in f32, in ``t``'s dtype: the
+    reference's order of operations.  ``m`` (a tensor of the mix's own) is
+    overwritten when all three are f32: m + t is t + m bit for bit."""
+    f32 = torch.float32
+    if t.dtype == m.dtype == s.dtype == f32:
+        return m.add_(t).sub_(s)
+    return (t.to(f32) + m.to(f32)).sub_(s.to(f32)).to(t.dtype)
 
 
 def step(rule: UpdateRule, state: EngineState,
@@ -251,19 +302,48 @@ def step(rule: UpdateRule, state: EngineState,
                              "init_state materializes EngineState.res")
         res = list(state.res)
 
+    buf = None
+    if rule.delay:
+        if state.buf is None:
+            raise ValueError("delay > 0 needs stale-payload buffers: "
+                             "init_state materializes EngineState.buf")
+        buf = [None if q is None else list(q) for q in state.buf]
+
     def done(**kw):
         return state._replace(k=state.k + 1,
-                              res=None if res is None else tuple(res), **kw)
+                              res=None if res is None else tuple(res),
+                              buf=state.buf if buf is None else tuple(
+                                  None if q is None else tuple(q)
+                                  for q in buf), **kw)
 
-    def mix(stream, off, r, mat):
+    def window(stream, off, r, mat):
         """Mix window of ``stream`` (0 = x, 1 = h): compressed with that
         stream's residual when the rule compresses, at full precision while
-        k < warmup (the gate is a host bool)."""
+        k < warmup; the identity on a step ``comm_interval`` skips (the
+        gates are host bools, so a skipped step launches nothing)."""
+        if state.k % rule.comm_interval:
+            return mat
         if comp is None:
             return ops.mix(off, r, mat)
         mat, res[stream] = ops.cmix(off, r, mat, res[stream],
                                     state.k >= comp.warmup)
         return mat
+
+    def mix(stream, off, r, mat):
+        """The window, or under ``delay`` the window of the oldest stale
+        slot (a copy: the slot is needed for the correction) with the
+        correction folded into ``mat``: the payload is copied into the slot
+        it consumed (cast to the slot's dtype, the tracker storage cast),
+        that slot becomes the newest, and the output is written into
+        ``mat``'s storage, so the state keeps its tensors."""
+        if buf is None:
+            return window(stream, off, r, mat)
+        q = buf[stream]
+        stale = q[0]
+        out = _correct(mat, window(stream, off, r, stale.clone()), stale)
+        stale.copy_(mat)
+        buf[stream] = q[1:] + [stale]
+        return mat.copy_(out)
 
     if rule.kind == "sgd":
         if rule.personalized:
@@ -283,7 +363,9 @@ def step(rule: UpdateRule, state: EngineState,
         else:
             metrics, g = ops.grad(state.x)
             upd, opt = local_update(g, state.opt)
-            x = mix(0, 0, R, state.x.add_(upd, alpha=-gamma))
+            z = state.x.add_(upd, alpha=-gamma)
+            del g, upd    # the sample is spent: not held through the mix
+            x = mix(0, 0, R, z)
         return done(x=x, opt=opt), metrics
 
     if rule.kind == "difference":
@@ -351,4 +433,10 @@ def warm_start(rule: UpdateRule, state: EngineState,
         h0 = g0.mean(dim=0, keepdim=True).expand_as(g0).clone()
     else:
         h0 = g0.clone()
-    return state._replace(h=cast_aux(h0), g_prev=cast_aux(g0))
+    state = state._replace(h=cast_aux(h0), g_prev=cast_aux(g0))
+    if rule.delay and state.buf is not None:
+        # the tracker's stale slots start at h⁰, the natural t < 0 payload
+        # (h₋₁ + g₀ − g₋₁ = h⁰), each its own copy
+        state = state._replace(buf=(state.buf[0], tuple(
+            state.h.clone() for _ in range(rule.delay))))
+    return state

@@ -42,6 +42,14 @@ kernel, the other impls wrap their per-round mixer in
 is then aligned to the compression group, and the state carries the
 residuals ``res`` = (res_x, res_h).  ``aux_dtype`` (e.g. ``torch.bfloat16``)
 stores h and g_prev, and the residuals, in that dtype.
+
+``delay`` d > 0 mixes each window on the payload of d steps ago (the
+state's ``buf``: d stale slots per gossiped stream, the tracker's in
+``aux_dtype``) and adds only the correction Mix(stale) − stale to the
+fresh payload; ``comm_interval`` k > 1 mixes on every k-th step only and
+launches nothing in between (see :class:`repro_torch.core.engine.
+UpdateRule`).  Both default to the synchronous path, which builds no
+wrapper.
 """
 
 from __future__ import annotations
@@ -63,6 +71,7 @@ class TrainState(NamedTuple):
     step: int                       # round counter
     res: Optional[tuple] = None     # EF residuals (res_x, res_h), compressing
     opt: Any = None                 # local optimizer state
+    buf: Optional[tuple] = None     # stale payloads (buf_x, buf_h), delay > 0
 
 
 def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
@@ -71,6 +80,7 @@ def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
                     clip: Optional[float] = 1.0, plan=None,
                     auto_dense: str = "einsum",
                     compression: Optional[compress.CompressionConfig] = None,
+                    delay: int = 0, comm_interval: int = 1,
                     tau: float = 4.0):
     """Build (init_state, warm_start, step) for one decentralized algorithm.
 
@@ -80,11 +90,13 @@ def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
     fused kernel path) or ``'auto'`` (``plan`` must be given;
     ``auto_dense`` ``'einsum'`` or ``'pallas'``).  ``local_opt`` is an
     :class:`repro_torch.optim.Optimizer`; ``tau`` the personalized rule's
-    temperature.  The reference's mesh, unroll and Pallas block/interpret
+    temperature; ``delay`` and ``comm_interval`` the stale window and the
+    mixing cadence.  The reference's mesh, unroll and Pallas block/interpret
     arguments have no meaning on one device and are not taken."""
     del cfg
     rule = engine.make_rule(algo, gamma=gamma, R=(1 if algo == "d2" else R),
-                            compression=compression, tau=tau)
+                            compression=compression, delay=delay,
+                            comm_interval=comm_interval, tau=tau)
     if gossip_impl not in GOSSIP_IMPLS:
         raise ValueError(f"unknown gossip_impl {gossip_impl!r}")
     if rule.personalized and gossip_impl not in ("dense", "auto"):
@@ -225,9 +237,9 @@ def flat_layout(model, compression=None) -> coll.FlatLayout:
 
 def _to_engine(s: TrainState) -> engine.EngineState:
     return engine.EngineState(s.x, s.h, s.g_prev, s.step, res=s.res,
-                              opt=s.opt)
+                              opt=s.opt, buf=s.buf)
 
 
 def _to_train(s: engine.EngineState) -> TrainState:
     return TrainState(x=s.x, h=s.h, g_prev=s.g_prev, step=s.k, res=s.res,
-                      opt=s.opt)
+                      opt=s.opt, buf=s.buf)

@@ -18,6 +18,12 @@ telemetry recorder) and the pieces of the runtime ``model.kind`` selects:
   (an edge plan), with or without compression, on the 80/20 or the
   Dirichlet partition.
 
+Channel faults degrade the ideal schedule and repair it into the realized
+one that both runtimes mix over (the dense ``realize_weight_schedule``, or
+the edge-list realization for the sampled family), and every rule takes
+the stale window (``algorithm.delay``) and the mixing cadence
+(``algorithm.comm_interval``), as in the reference.
+
 Every rule of the reference runs on both runtimes, with its local
 optimizer (``algorithm.local_opt``): the gossip plan is built here with
 the spec's pods and the rule's personalized flag, as in the reference.
@@ -48,7 +54,7 @@ from ..data import (logreg_dataset, logreg_dataset_dirichlet,
 from ..dist import collectives as coll, steps as dsteps
 from ..models import build as build_model
 from ..obs import console as obs_console
-from ..sim import telemetry as sim_telemetry
+from ..sim import faults as sim_faults, telemetry as sim_telemetry
 from . import manifest as mf, registry
 from .spec import ExperimentSpec
 
@@ -57,7 +63,8 @@ class Result(NamedTuple):
     """``history``: one dict per logged step (loss, consensus, sec) for
     ``arch``; ``(T, eval)`` pairs for ``logreg``.  ``built`` is the realized
     scenario; ``telemetry`` the mixing-telemetry recorder when the scenario
-    has one (the edge-list family, compression, or ``run.telemetry`` set).
+    has one (faults, mobility, the edge-list family, compression, a delay,
+    or ``run.telemetry`` set).
     ``serve`` is the :class:`repro_torch.serve.ServeResult` of the
     post-training serve phase when ``spec.serve`` enables one, else
     None."""
@@ -177,6 +184,11 @@ def _validate(spec: ExperimentSpec) -> None:
             raise ValueError(f"{field}={value!r}: unknown "
                              f"(have {sorted(legal)})")
     t, a, r, m = spec.topology, spec.algorithm, spec.run, spec.model
+    if a.delay < 0:
+        raise ValueError(f"algorithm.delay={a.delay}: must be >= 0")
+    if a.comm_interval < 1:
+        raise ValueError(f"algorithm.comm_interval={a.comm_interval}: "
+                         "must be >= 1")
     if t.pods < 1:
         raise ValueError(f"topology.pods={t.pods}: must be >= 1")
     if t.pods > 1 and r.nodes % t.pods:
@@ -233,10 +245,8 @@ def _validate(spec: ExperimentSpec) -> None:
 
 def _check_ported(spec: ExperimentSpec) -> None:
     """Raise NotImplementedError, naming its ROADMAP.md Queue 1 item, for
-    the first scenario axis the spec uses that the port does not run yet.
-    Channel faults run on the sampled-client (edge-list) family only."""
-    a, r, c = spec.algorithm, spec.run, spec.channel
-    sampled = spec.topology.kind in registry.SPARSE_TOPOLOGIES
+    the first scenario axis the spec uses that the port does not run yet."""
+    r = spec.run
     logreg = spec.model.kind == "logreg"
     arch_pattern = (configs.get(spec.model.arch).pattern
                     if spec.model.kind == "arch" else ("attn",))
@@ -245,10 +255,6 @@ def _check_ported(spec: ExperimentSpec) -> None:
          f"training model.arch={spec.model.arch!r} (the arch trainer runs "
          "the dense ('attn',) pattern)", 9),
         (spec.obs.enabled, "obs (metrics / profile_dir)", 4),
-        (any(getattr(c, f) > 0 for f in registry.CHANNELS) and not sampled,
-         "channel faults off the random-sampled topology", 5),
-        (a.delay != 0 or a.comm_interval != 1,
-         "algorithm.delay / comm_interval", 7),
         (spec.data.hetero_alpha is not None and not logreg,
          "data.hetero_alpha (the Dirichlet token streams)", 9),
         (bool(r.checkpoint or r.restore), "run.checkpoint / restore", 10),
@@ -272,24 +278,30 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Built:
     R = al.R if al.name == "mc_dsgt" else 1
     comp = registry.build_compression(spec.compression)
     rule = engine.make_rule(al.name, gamma=al.gamma, R=R, compression=comp,
+                            delay=al.delay, comm_interval=al.comm_interval,
                             tau=al.tau)
     wps = rule.weights_per_step
     seconds = {}
     t0 = time.perf_counter()
     # horizon only matters for the non-periodic schedules (resampled
-    # matching, sampled clients) and realized fault windows; the x4 cushion
-    # is the reference's
+    # matching, mobility, sampled clients) and realized fault windows; the
+    # x4 cushion is the reference's
     horizon = (rs.steps + 1) * wps * 4
     sched = registry.build_topology(spec.topology, n, horizon=horizon,
                                     seed=rs.seed)
     fault_models = registry.build_channel_models(spec.channel, rs.seed)
     is_sparse = getattr(sched, "is_sparse", False)
     if fault_models:
-        # ideal schedule -> channel degradation -> repair, edge list by
-        # edge list (per-edge hash streams, never densified); the gates
-        # allow faults on the edge-list family only
-        from .. import sparse
-        sched = sparse.realize_sparse_schedule(sched, fault_models)
+        # ideal schedule -> channel degradation -> repair: the realized
+        # window replaces the schedule, so every gossip impl mixes the same
+        # post-fault matrices; the edge-list family is degraded edge list
+        # by edge list (per-edge hash streams, never densified)
+        if is_sparse:
+            from .. import sparse
+            sched = sparse.realize_sparse_schedule(sched, fault_models)
+        else:
+            sched = sim_faults.realize_weight_schedule(sched, fault_models,
+                                                       rounds=horizon)
     seconds["schedule"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     pods = spec.topology.pods if spec.topology.pods > 1 else None
@@ -298,15 +310,14 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Built:
             if rs.gossip_impl == "auto" else None)
     seconds["plan"] = time.perf_counter() - t0
     telem = None
-    if rs.telemetry or comp is not None or is_sparse:
-        # the reference's condition, on the axes the port runs (faults only
-        # come with the edge-list family here)
+    if fault_models or rs.telemetry or comp is not None or rule.delay or \
+            is_sparse or spec.topology.kind in registry.MOBILITY_TOPOLOGIES:
         if is_sparse:
             from ..sparse import SparseTelemetryRecorder as _Recorder
         else:
             _Recorder = sim_telemetry.TelemetryRecorder
         telem = _Recorder(sched, wps=wps, every=rs.log_every,
-                          compression=comp)
+                          compression=comp, delay=rule.delay)
     built = Built(spec=spec, rule=rule, wps=wps, schedule=sched, device=dev,
                   horizon=horizon, plan=plan,
                   local_opt=registry.build_local_opt(al.local_opt),
@@ -405,7 +416,8 @@ def _run_arch(built: Built, *, quiet: bool = False) -> Result:
         built.model, built.cfg, algo=spec.algorithm.name,
         gamma=spec.algorithm.gamma, R=built.rule.R, gossip_impl=rs.gossip_impl,
         plan=built.plan, local_opt=built.local_opt,
-        compression=built.rule.compression, tau=built.rule.tau)
+        compression=built.rule.compression, delay=built.rule.delay,
+        comm_interval=built.rule.comm_interval, tau=built.rule.tau)
     gen = torch.Generator(device=dev).manual_seed(rs.seed)
     state = init_state(built.model.init(gen, torch.float32, dev), rs.nodes)
     state, start_step = driver.restore_or_warm(

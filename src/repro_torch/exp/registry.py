@@ -3,10 +3,7 @@ JAX package's ``exp/registry.py``.
 
 The vocabularies are the reference's, word for word, so a spec JSON or a
 manifest means the same thing in both packages (``gossip_impl="pallas"``
-still selects the fused gossip kernel, here the Hopper one).  Entries whose
-machinery is not ported yet stay in the vocabulary and raise
-``NotImplementedError`` naming their ROADMAP.md item when built; none is
-silently ignored.
+still selects the fused gossip kernel, here the Hopper one).
 """
 
 from __future__ import annotations
@@ -17,7 +14,8 @@ import numpy as np
 
 from .. import optim
 from ..core import compress, engine, gossip, topology as topo
-from ..sim import channel as sim_channel, faults as sim_faults
+from ..sim import channel as sim_channel, faults as sim_faults, \
+    mobility as sim_mobility
 from .spec import ChannelSpec, CompressionSpec, TopologySpec
 
 # ---------------------------------------------------------------------------
@@ -86,16 +84,18 @@ def _erdos_renyi(s: TopologySpec, n: int, *, horizon=None, seed=0):
         topo.erdos_renyi_schedule(n, s.er_p, seed=seed))
 
 
-def _not_ported(name: str, item: int):
-    def builder(s, n, *, horizon=None, seed=0):
-        raise NotImplementedError(f"topology {name!r} is not ported yet "
-                                  f"(ROADMAP.md Queue 1 item {item})")
-    return builder
+@register_topology("geometric-mobility")
+def _geometric_mobility(s: TopologySpec, n: int, *, horizon=None, seed=0):
+    return gossip.schedule_from_topology(
+        sim_mobility.random_geometric_schedule(n, s.radius, seed=seed),
+        horizon=horizon)
 
 
-# the mobility models of sim/ are not ported yet
-for _name in ("geometric-mobility", "waypoint-mobility"):
-    register_topology(_name)(_not_ported(_name, 5))
+@register_topology("waypoint-mobility")
+def _waypoint_mobility(s: TopologySpec, n: int, *, horizon=None, seed=0):
+    return gossip.schedule_from_topology(
+        sim_mobility.random_waypoint_schedule(n, s.radius, seed=seed),
+        horizon=horizon)
 
 
 @register_topology("random-sun")

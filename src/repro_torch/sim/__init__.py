@@ -1,10 +1,9 @@
-"""repro_torch.sim — channel faults and mixing telemetry, the ported part of
-the JAX package's ``sim/``.
+"""repro_torch.sim — wireless mobility, channel faults and mixing telemetry,
+the port of the JAX package's ``sim/``.
 
-``hashrand``, ``channel`` and ``faults`` are numpy copies of the reference's
-modules (pinned to them by the tests); ``telemetry`` is its recorder on
-torch state tensors.  The mobility topologies are not ported yet (ROADMAP.md
-Queue 1 item 5).
+``hashrand``, ``channel``, ``faults`` and ``mobility`` are numpy copies of
+the reference's modules (pinned to them by the tests); ``telemetry`` is its
+recorder on torch state tensors.
 """
 
 from .channel import (  # noqa: F401
@@ -18,6 +17,13 @@ from .faults import (  # noqa: F401
     combined_mask,
     realize_weight_schedule,
     repair_weights,
+)
+from .mobility import (  # noqa: F401
+    RandomGeometricSchedule,
+    RandomWaypointSchedule,
+    random_geometric_schedule,
+    random_waypoint_schedule,
+    unit_disk_adjacency,
 )
 from .telemetry import (  # noqa: F401
     TELEMETRY_FIELDS,

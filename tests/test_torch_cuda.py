@@ -2,7 +2,8 @@
 cover.  Its kernel check holds ``gossip_mix`` to its plain version at n
 4/16/64, R 1/2/4 and both dtypes; here are the largest W stack the kernel
 takes in one launch (n=64, R=8: 128 KB of shared memory, past the 48 KB
-default) and the inputs it refuses.  For ``quantized_gossip_mix`` (held to
+default), the inputs it refuses, and the engine's stale window (``delay``)
+mixing its slots through the kernel.  For ``quantized_gossip_mix`` (held to
 its plain version by ``chip_smoke.py`` at n 4/16, both schemes, EF on and
 off): its largest n and W stack, the one-column path that rows without
 16-byte alignment take, a rerun giving the same bits, and its refusals.  For
@@ -67,6 +68,51 @@ def test_gossip_mix_kernel_matches_plain(n, R, D, dtype):
     tol = 1e-5 if dtype == torch.float32 else 2e-2
     torch.testing.assert_close(got, ref.gossip_mix_ref(ws, x), rtol=tol,
                                atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delay", [1, 2])
+def test_delayed_window_through_gossip_mix(delay):
+    """4 delayed MC-DSGT steps (n = 4, R = 2, D = 4,097, a quadratic
+    oracle) whose windows mix the stale slots through ``gossip_mix`` (2
+    launches a step) against the same steps on the CPU, where the wrapper
+    runs its plain version: x, h and every stale slot at rtol = atol = 1e-5
+    (sums of 4 products in another order, carried over 4 steps)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    from repro_torch.core import engine
+    from repro_torch.dist import collectives as coll
+
+    n, R, D, steps = 4, 2, 4_097, 4
+    rng = np.random.default_rng(3)
+    x0, target = (rng.standard_normal((n, D)).astype(np.float32)
+                  for _ in range(2))
+    ws = gossip.theorem3_weight_schedule(n, 0.75).stacked(0, steps * 2 * R)
+    rule = engine.make_rule("mc_dsgt", 0.1, R, delay=delay)
+
+    def run(device):
+        c = torch.from_numpy(target).to(device)
+        W = torch.from_numpy(ws).to(device)
+        state = engine.init_state(rule, torch.from_numpy(x0).to(device))
+        for k in range(-1, steps):
+            ops = engine.EngineOps(
+                mix=lambda off, r, mat: coll.fused_multi_consensus(
+                    W[k * 2 * R + off:k * 2 * R + off + r], mat),
+                grad=lambda x, out=None: (None, torch.sub(x, c, out=out)))
+            state = (engine.warm_start(rule, state, ops) if k < 0
+                     else engine.step(rule, state, ops)[0])
+        return state
+
+    before = gossip_matmul.gossip_mix.launches
+    got = run("cuda")
+    torch.cuda.synchronize()
+    assert gossip_matmul.gossip_mix.launches == before + 2 * steps
+    want = run("cpu")
+    pairs = [(got.x, want.x), (got.h, want.h)]
+    pairs += list(zip(got.buf[0] + got.buf[1], want.buf[0] + want.buf[1]))
+    assert len(pairs) == 2 + 2 * delay
+    for a, b in pairs:
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
 
 
 @pytest.mark.cuda

@@ -274,15 +274,17 @@ def test_default_device_raises_without_gpu(monkeypatch):
         exp.run(exp.ExperimentSpec())
 
 
-@pytest.mark.parametrize("flags", [["--comm-interval", "2"],
+@pytest.mark.parametrize("flags", [["--arch", "falcon-mamba-7b"],
                                    ["--restore", "unused.msgpack"],
                                    ["--hetero-alpha", "0.1"],
                                    ["--arch", "logreg", "--metrics",
                                     "m.jsonl"],
                                    ["--profile-dir", "unused_profile"],
-                                   ["--link-drop", "0.1"], ["--delay", "1"],
+                                   ["--arch", "recurrentgemma-2b"],
+                                   ["--metrics", "m.jsonl"],
                                    ["--checkpoint", "unused.msgpack"],
-                                   ["--topology", "waypoint-mobility"]])
+                                   ["--arch", "logreg", "--profile-dir",
+                                    "unused_profile"]])
 def test_unported_axes_raise_with_their_roadmap_item(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         train.main(flags + ["--steps", "1", "--device", "cpu"])

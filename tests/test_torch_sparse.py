@@ -360,14 +360,13 @@ def test_telemetry_recorders_match_reference():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"model.kind": "logreg", "topology.kind": "waypoint-mobility"},
-     "item 5"),
+    ({"model.arch": "recurrentgemma-2b"}, "item 9"),
     ({"run.checkpoint": "c.msgpack"}, "item 10"),
-    ({"channel.link_drop": 0.1}, "item 5"),
-    ({"model.kind": "logreg", "algorithm.comm_interval": 2}, "item 7"),
+    ({"run.restore": "c.msgpack"}, "item 10"),
+    ({"obs.profile_dir": "prof"}, "item 4"),
     ({"model.kind": "logreg", "obs.metrics": "m.jsonl"}, "item 4"),
     ({"data.hetero_alpha": 0.1}, "item 9"),
-    ({"sampled": True, "algorithm.delay": 1}, "item 7"),
+    ({"obs.metrics": "m.jsonl"}, "item 4"),
     ({"sampled": True, "obs.metrics": "m.jsonl"}, "item 4"),
     ({"sampled": True, "obs.profile_dir": "prof"}, "item 4"),
     ({"model.arch": "falcon-mamba-7b"}, "item 9"),
