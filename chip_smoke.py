@@ -77,7 +77,18 @@ and then drives the main paths through the train CLI's own functions:
   against the dense compressed mixer, ``--comm-interval 2`` (4 launches in
   4 steps, none on a skipped step), and the twins of
   ``examples/wireless_mobility.py`` and ``examples/compressed_gossip.py``
-  (0 launches, their assertions holding).
+  (0 launches, their assertions holding);
+* observability and checkpoints, through the train CLI: the main path
+  with ``--metrics`` (the four in-step scalars of every step in the event
+  log, its summary with phases and the optimality floor, the log rendered
+  by ``repro_torch.obs.report``) and ``--profile-dir`` (one step's device
+  time under ``obs_grad`` and ``obs_mix``), 6 ``gossip_mix`` launches;
+  the same model on 2 nodes 3 steps straight against 2 steps, a
+  ``--checkpoint`` of 11.1 GB and 1 step after ``--restore`` (losses
+  equal, final state bit-equal or within rtol 1e-4 / atol 1e-5, the file's
+  write and read GB/s), 12 launches in 6 steps; and the twins of
+  ``examples/lower_bound_demo.py`` and ``examples/train_lm.py`` (0
+  launches, their assertions holding).
 
 ``linear_recurrence`` is checked bit-equal on each of its three routes
 (a ring of time tiles filled by TMA or by cp.async, and the loop) and
@@ -90,12 +101,13 @@ qwen serve path ``flash_attention`` 24 times per prefill and
 ``gossip_mix`` 2 times per step and nothing else, the recurrentgemma serve
 path ``linear_recurrence`` 18 and ``flash_attention`` 8 times per prefill
 and ``decode_attention`` 8 times per slot and token, the wireless legs the
-gossip kernels 2 times per mixing step; the counts are set to 0 just
-before a path and read just after it.  It prints the card, its total wall
-time, one JSON line of per-kernel numbers (a second ``gossip_mix`` row for
-the planning path, three rows for the wireless legs, then the last three
-rows: the recurrentgemma shapes), and last ``{"ok": true, "device":
-{...}}``.
+gossip kernels 2 times per mixing step, the observability and
+checkpoint legs ``gossip_mix`` 2 times per step; the counts are set to 0
+just before a path and read just after it.  It prints the card, its total
+wall time, one JSON line of per-kernel numbers (a second ``gossip_mix`` row
+for the planning path, three rows for the wireless legs, two for the
+observability and checkpoint legs, then the last three rows: the
+recurrentgemma shapes), and last ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero; so does a machine without a CUDA device or
 a directory without the repository.
 """
@@ -237,6 +249,12 @@ INTERVAL_STEPS = 4
 INTERVAL_ARGV = WIRELESS_ARGV + ["--algo", "mc_dsgt", "--R", "2",
                                  "--comm-interval", "2", "--gossip-impl",
                                  "pallas", "--steps", str(INTERVAL_STEPS)]
+# The observability/checkpoint phase's checkpoint leg: the main path's
+# model and rule on 2 nodes (beta 0.5, the sun schedule's limit at n = 2),
+# so that one checkpoint (x, h, g_prev) is 11.1 GB instead of 22.3.
+CKPT_ARGV = ["--arch", "qwen1.5-0.5b", "--preset", "full", "--nodes", "2",
+             "--beta", "0.5", "--algo", "mc_dsgt", "--R", "2",
+             "--gossip-impl", "pallas", "--device", "cuda"]
 # Each quantized_gossip_mix launch of leg (b) is held to its plain version on
 # three windows of this many columns (first, middle, last; group-aligned):
 # the kernel quantizes and mixes each group of columns on its own.
@@ -2575,6 +2593,243 @@ def wireless_phase(torch, train, exp, ops, ref, sim_telemetry, counters,
     return out
 
 
+def profile_split(path: str) -> dict:
+    """The device time of the steps in a ``--profile-dir`` Chrome trace,
+    split by the range the host was in when it launched each kernel (its
+    runtime or driver call, matched by correlation id): ``obs_grad`` (the
+    oracle), ``obs_mix`` (the gossip window) or neither (the update, the
+    obs norms, the pre-mix copy), counting only launches inside an
+    ``obs:step`` span (the warm start's grad is outside every one).  Also
+    the ``obs:step`` spans' host ms.  Sums of kernel, memcpy and memset
+    durations in ms."""
+    with open(path) as f:
+        events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+
+    def spans(name):
+        return [(e["ts"], e["ts"] + e["dur"]) for e in events
+                if e.get("cat") == "user_annotation" and e["name"] == name]
+
+    step, grad, mix = spans("obs:step"), spans("obs_grad"), spans("obs_mix")
+    launched = {e["args"]["correlation"]: e["ts"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+
+    def inside(ts, rs):
+        return any(a <= ts <= b for a, b in rs)
+
+    out = {"steps": len(step), "grad_ms": 0.0, "mix_ms": 0.0,
+           "other_ms": 0.0, "kernels": 0, "unmatched": 0,
+           "step_host_ms": sum(b - a for a, b in step) / 1e3}
+    for e in events:
+        if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
+            continue
+        ts = launched.get(e.get("args", {}).get("correlation"))
+        if ts is None:
+            out["unmatched"] += 1
+            continue
+        if not inside(ts, step):
+            continue
+        key = ("grad_ms" if inside(ts, grad) else
+               "mix_ms" if inside(ts, mix) else "other_ms")
+        out[key] += e["dur"] / 1e3
+        out["kernels"] += 1
+    return out
+
+
+class Stopwatch:
+    """Times every call of ``obj.name`` made inside the block (the port's
+    own functions keep running; only the clock is added)."""
+
+    def __init__(self, obj, name: str):
+        self.obj, self.name, self.seconds = obj, name, []
+
+    def __enter__(self):
+        real = self.real = getattr(self.obj, self.name)
+
+        def timed_call(*args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return real(*args, **kwargs)
+            finally:
+                self.seconds.append(time.perf_counter() - t0)
+
+        setattr(self.obj, self.name, timed_call)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.real)
+
+
+def obs_phase(torch, train, exp, counters, smi: str, main_secs) -> dict:
+    """ROADMAP Queue 1 items 4 and 10 on the card, through the train CLI:
+
+    (a) the main path with observability on: qwen1.5-0.5b at full width, 4
+        nodes, MC-DSGT R=2 through gossip_mix, 3 steps, with --metrics
+        (flushed every 2 steps), --profile-dir and --profile-steps 1: 6
+        gossip_mix launches; the event log holds 1 meta event, 3 step
+        events carrying the four in-step scalars (finite) and 1 summary
+        with its phases and an optimality record whose floor is > 0; s/step
+        and the peak beside the main path's; from the profile, the device
+        ms of one step under obs_grad and under obs_mix (profile_split);
+        the log rendered by repro_torch.obs.report;
+    (b) checkpoint and restore at full width on 2 nodes (beta 0.5, the sun
+        schedule's limit; the file is 2 × D × 4 B × 3 streams = 11.1 GB):
+        3 steps straight, then 2 steps with --checkpoint and 1 more with
+        --restore: losses equal, and the final x, h, g_prev bit-equal to
+        the straight run's (or, failing that, within rtol 1e-4 / atol 1e-5,
+        and the line says which held); the file's size, the free disk
+        before writing, and the write and read seconds; the file deleted
+        after the comparison (a failure still fails); 12 launches in 6
+        steps;
+    (c) the twins of examples/lower_bound_demo.py (its cap assertion; the
+        max prog per 8 rounds against the cap) and examples/train_lm.py
+        (its default reduced preset, 200 steps, with --metrics: the loss
+        improves, the log renders), 0 launches."""
+    import os
+    import shutil
+    import tempfile
+    from repro_torch import checkpoint as ckpt
+    from repro_torch.obs import metrics as obs_metrics, report as obs_report
+
+    t_phase = time.perf_counter()
+    out = {}
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch, prefix="obs_phase_") as tmp:
+        # (a) observability on the main path
+        log, prof = os.path.join(tmp, "run.jsonl"), os.path.join(tmp, "prof")
+        a = cli_run(torch, train, exp, MAIN_ARGV + [
+            "--metrics", log, "--metrics-every", "2", "--profile-dir", prof,
+            "--profile-steps", "1"], counters, "obs (a) main path + --metrics "
+            "--profile-dir", smi)
+        del a["state"]
+        if a["launches"]["gossip_mix"] != 2 * STEPS or \
+                sum(a["launches"].values()) != 2 * STEPS:
+            fail(f"obs (a): launches {a['launches']}; {STEPS} MC-DSGT steps "
+                 "need 2 gossip_mix each")
+        events = obs_metrics.read_events(log)
+        kinds = [e["event"] for e in events]
+        if kinds != ["meta"] + ["step"] * STEPS + ["summary"]:
+            fail(f"obs (a): event log holds {kinds}")
+        scalars = [{m: e.get(m) for m in obs_metrics.OBS_METRICS}
+                   for e in events[1:-1]]
+        if not all(v is not None and math.isfinite(v)
+                   for sc in scalars for v in sc.values()):
+            fail(f"obs (a): in-step scalars not all finite: {scalars}")
+        summary = events[-1]
+        opt = summary.get("optimality") or {}
+        if not (opt.get("floor") or 0) > 0 or "step" not in summary.get(
+                "phases", {}):
+            fail(f"obs (a): summary lacks phases or a floor > 0: {summary}")
+        split = profile_split(os.path.join(prof, "trace.json"))
+        if split["steps"] != 1 or split["kernels"] == 0:
+            fail(f"obs (a): the profile holds no step's kernels: {split}")
+        print(f"obs (a): scalars per step {scalars}", flush=True)
+        print(f"obs (a): s/step {a['secs']} against the main path's "
+              f"{main_secs} (same process); peak {a['peak_gb']:.3f} GB",
+              flush=True)
+        print(f"obs (a): profile of step 0: device ms under obs_grad "
+              f"{split['grad_ms']:.3f}, obs_mix {split['mix_ms']:.3f}, "
+              f"neither {split['other_ms']:.3f} ({split['kernels']} kernels, "
+              f"{split['unmatched']} not matched to a launch; the step's "
+              f"host span {split['step_host_ms']:.3f} ms)", flush=True)
+        print(obs_report.render(events), flush=True)
+        out["a"] = {k: a[k] for k in ("launches", "secs", "peak_gb")}
+        out["a"]["profile"] = split
+
+        # (b) checkpoint and restore at full width, 2 nodes
+        ck = os.path.join(tmp, "ck.msgpack")
+        small = CKPT_ARGV
+        straight = cli_run(torch, train, exp, small + ["--steps", "3"],
+                           counters, "obs (b) 3 steps straight", smi,
+                           keep=("x", "h", "g_prev"))
+        kept = straight.pop("kept")
+        del straight["state"]
+        free_gb = shutil.disk_usage(tmp).free / 1e9
+        try:
+            with Stopwatch(ckpt, "save_checkpoint") as w:
+                first = cli_run(torch, train, exp, small + [
+                    "--steps", "2", "--checkpoint", ck], counters,
+                    "obs (b) 2 steps + --checkpoint", smi)
+            del first["state"]
+            size_gb = os.path.getsize(ck) / 1e9
+            with Stopwatch(ckpt, "load_checkpoint") as r:
+                rest = cli_run(torch, train, exp, small + [
+                    "--steps", "1", "--restore", ck], counters,
+                    "obs (b) --restore + 1 step", smi)
+        finally:
+            for f in (ck, ck + ".spec.json", ck + ".tmp"):
+                if os.path.exists(f):
+                    os.remove(f)
+        launches = sum(x["launches"]["gossip_mix"]
+                       for x in (straight, first, rest))
+        if launches != 12 or any(sum(x["launches"].values()) != 2 * len(
+                x["losses"]) for x in (straight, first, rest)):
+            fail(f"obs (b): launches {[x['launches'] for x in (straight, first, rest)]}"
+                 "; 6 MC-DSGT steps need 12 gossip_mix and nothing else")
+        if first["losses"] + rest["losses"] != straight["losses"]:
+            fail(f"obs (b): losses {first['losses']} + {rest['losses']} != "
+                 f"the straight run's {straight['losses']}")
+        held, errs = "bit-equal", {}
+        for f in ("x", "h", "g_prev"):
+            bad, errs[f] = rows_close(torch, f, getattr(rest["state"], f),
+                                      kept[f], 0.0, 0.0)
+            if bad:
+                held = "within rtol 1e-4 / atol 1e-5 (not bit-equal)"
+                bad, _ = rows_close(torch, f, getattr(rest["state"], f),
+                                    kept[f], 1e-4, 1e-5)
+                if bad:
+                    fail(f"obs (b): restored {f} differs from the straight "
+                         f"run at {bad} entries beyond rtol 1e-4 / atol 1e-5")
+        del rest["state"], kept
+        wsec, rsec = sum(w.seconds), sum(r.seconds)
+        print(f"obs (b): checkpoint {size_gb:.3f} GB (free disk before "
+              f"writing {free_gb:.1f} GB) written in {wsec:.3f} s "
+              f"({size_gb / wsec:.3f} GB/s), read in {rsec:.3f} s "
+              f"({size_gb / rsec:.3f} GB/s); losses {first['losses']} + "
+              f"{rest['losses']} == {straight['losses']}; final x, h, g_prev "
+              f"{held} (max |diff| {errs}); {launches} gossip_mix launches "
+              "in 6 steps; the file deleted", flush=True)
+        out["b"] = {"launches": launches, "size_gb": size_gb,
+                    "write_s": wsec, "read_s": rsec, "free_gb": free_gb,
+                    "held": held, "secs": straight["secs"] + first["secs"]
+                    + rest["secs"], "peak_gb": max(
+                        x["peak_gb"] for x in (straight, first, rest))}
+
+        # (c) the twins
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        try:
+            progress = load_twin("lower_bound_demo").main(
+                ["--device", "cuda", "--quiet"])
+        except AssertionError as e:
+            fail(f"obs (c) lower_bound_demo: {e}")
+        demo_s = time.perf_counter() - t0
+        print(f"obs (c) lower_bound_demo: (round, T, max_prog, cap) "
+              f"{progress}; {demo_s:.3f} s", flush=True)
+        lm_log = os.path.join(tmp, "lm.jsonl")
+        t0 = time.perf_counter()
+        history = load_twin("train_lm").main([
+            "--device", "cuda", "--metrics", lm_log, "--checkpoint",
+            os.path.join(tmp, "lm.msgpack"), "--quiet"])
+        lm_s = time.perf_counter() - t0
+        if not history[-1]["loss"] < history[0]["loss"]:
+            fail(f"obs (c) train_lm: loss did not improve: {history}")
+        launches = {k: c.launches for k, c in counters.items()}
+        if any(launches.values()):
+            fail(f"obs (c): the twins launched kernels: {launches}")
+        print(f"obs (c) train_lm: loss {history[0]['loss']:.4f} -> "
+              f"{history[-1]['loss']:.4f} in 200 steps, {lm_s:.3f} s; "
+              f"launches {launches}", flush=True)
+        print(obs_report.render(obs_metrics.read_events(lm_log)), flush=True)
+        out["c"] = {"demo_s": demo_s, "train_lm_s": lm_s}
+    wall = time.perf_counter() - t_phase
+    print(f"obs phase wall {wall:.3f} s", flush=True)
+    out["wall"] = wall
+    return out
+
+
 def main_path(torch, train, argv, counter, name: str) -> dict:
     """Drive one main path through the train CLI with ``counter`` (a
     kernel wrapper's launch count) set to 0 just before it and read just
@@ -2596,7 +2851,7 @@ def main_path(torch, train, argv, counter, name: str) -> dict:
     print(f"main path ({name}): {' '.join(argv)}", flush=True)
     print(f"main path ({name}): losses {losses}  step s {secs}  peak device "
           f"memory {peak_gb:.3f} GB  {name} launches {launches}", flush=True)
-    return {"launches": launches, "peak_gb": peak_gb}
+    return {"launches": launches, "peak_gb": peak_gb, "secs": secs}
 
 
 def main():
@@ -2739,6 +2994,9 @@ def main():
     torch.cuda.empty_cache()
     wireless = wireless_phase(torch, train, exp, ops, ref, sim_telemetry,
                               counters, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    observed = obs_phase(torch, train, exp, counters, smi, plain["secs"])
 
     rows = [
         {"name": "gossip_mix", "route": "cuda",
@@ -2840,6 +3098,20 @@ def main():
             "path": path, "launches": wireless[leg]["launches"][base["name"]],
             "launches_per_step": wireless[leg]["launches"][base["name"]]
             / steps_})
+    # gossip_mix on the observability and checkpoint legs: (a) the main
+    # path with --metrics and --profile-dir, (b) 3 + 2 + 1 steps on 2
+    # nodes (the kernel at n = 2, as the first row's at n = 4 otherwise)
+    base = rows[0]
+    for path, launches, steps_ in (
+            ("obs (a): main path with --metrics and --profile-dir",
+             observed["a"]["launches"]["gossip_mix"], STEPS),
+            ("checkpoint (b): 2 nodes, 3 straight + 2 with --checkpoint + "
+             "1 after --restore", observed["b"]["launches"], 6)):
+        rows.append({**{k: base[k] for k in (
+            "name", "route", "source", "replaces", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+            "path": path, "launches": launches,
+            "launches_per_step": launches / steps_})
     # the same three kernels at recurrentgemma-2b's serve shapes
     rg_n, rg_new = RGSERVE["requests"], RGSERVE["max_new"]
     for name, kern, per, unit in (

@@ -364,8 +364,12 @@ def from_rule(rule: engine.UpdateRule, local_opt=None
             rule, x0.clone(), opt_init=local_opt.init if local_opt else None)
 
     def step(state: AlgoState, grad_fn: GradFn, weights: torch.Tensor,
-             gen: torch.Generator) -> AlgoState:
-        return engine.step(rule, state, _ops(grad_fn, weights, gen))[0]
+             gen: torch.Generator, obs: tuple = ()) -> AlgoState:
+        """One round; with ``obs`` metric names (repro_torch.obs), returns
+        ``(state, obs_dict)``, the engine's in-step scalars."""
+        es, aux = engine.step(rule, state, _ops(grad_fn, weights, gen),
+                              obs=obs)
+        return (es, aux[1]) if obs else es
 
     def warm(state: AlgoState, grad_fn: GradFn,
              gen: torch.Generator) -> AlgoState:
@@ -384,7 +388,8 @@ def plan_step(algo: DecentralizedAlgorithm, plan):
     where ``tensors`` is the plan staged on the device once
     (:func:`repro_torch.core.driver.stage_plan`) and ``t`` the host start
     round; ``step.dispatch`` is the mixer's mode.  A personalized rule
-    reweights the staged per-node rows ``pW`` by the oracle's losses."""
+    reweights the staged per-node rows ``pW`` by the oracle's losses.  With
+    ``obs`` metric names the step returns ``(state, obs_dict)``."""
     rule = algo.rule
     if rule is None:
         raise ValueError("plan_step requires an engine-rule algorithm "
@@ -394,7 +399,7 @@ def plan_step(algo: DecentralizedAlgorithm, plan):
     local_update = algo.local_opt.update if algo.local_opt else None
 
     def pstep(state: AlgoState, grad_fn: GradFn, tensors, t: int,
-              gen: torch.Generator) -> AlgoState:
+              gen: torch.Generator, obs: tuple = ()) -> AlgoState:
         cmix = pmix = None
         if rule.compression is not None:
             cmix = compress.make_compressed_mixer(
@@ -412,7 +417,8 @@ def plan_step(algo: DecentralizedAlgorithm, plan):
             mix=lambda off, r, x: mixer(tensors, t + off, r, x),
             grad=_grad_op(rule, grad_fn, gen), cmix=cmix,
             local_update=local_update, pmix=pmix)
-        return engine.step(rule, state, ops)[0]
+        es, aux = engine.step(rule, state, ops, obs=obs)
+        return (es, aux[1]) if obs else es
 
     pstep.dispatch = getattr(mixer, "dispatch", "static")
     return pstep
@@ -481,7 +487,8 @@ def warm_start(algo: DecentralizedAlgorithm, state: AlgoState,
 def run(algo: DecentralizedAlgorithm, x0: torch.Tensor, grad_fn: GradFn,
         weight_schedule, num_steps: int, gen: torch.Generator,
         eval_fn: Optional[Callable] = None, eval_every: int = 1,
-        gossip_impl: str = "dense", telemetry=None):
+        gossip_impl: str = "dense", telemetry=None, obs: tuple = (),
+        tracer=None):
     """Host training loop over a weight schedule, the reference's
     ``algorithms.run`` with a ``torch.Generator`` where it takes a key:
     delegates to :func:`repro_torch.core.driver.run_algorithm`.  Returns
@@ -491,4 +498,5 @@ def run(algo: DecentralizedAlgorithm, x0: torch.Tensor, grad_fn: GradFn,
     return driver.run_algorithm(algo, x0, grad_fn, weight_schedule,
                                 num_steps, gen, eval_fn=eval_fn,
                                 eval_every=eval_every,
-                                gossip_impl=gossip_impl, telemetry=telemetry)
+                                gossip_impl=gossip_impl, telemetry=telemetry,
+                                obs=obs, tracer=tracer)

@@ -52,6 +52,62 @@ from . import compress
 ALGORITHMS = ("dsgd", "local_sgd", "dsgt", "mc_dsgt", "gt_local", "d2",
               "personalized")
 
+# ---------------------------------------------------------------------------
+# In-step observability scalars (repro_torch.obs): f32 device scalars the
+# step returns beside its metrics, so recording a run adds no host sync.
+# ---------------------------------------------------------------------------
+
+# The metric vocabulary; the descriptions live in repro_torch.obs.metrics.
+OBS_METRICS = ("grad_norm", "consensus", "mix_residual", "tracker_residual")
+
+# Column chunk of the norms' temporaries: an f32 (n, cols) block of at most
+# this many bytes.  A whole-state expression such as x − x̄ would allocate
+# another (n, D) f32 state (7.4 GB at qwen1.5-0.5b's full width, 4 nodes).
+OBS_CHUNK_BYTES = 1 << 28
+
+
+def default_obs(rule: "UpdateRule") -> tuple:
+    """The rule's metric set: every rule has a gradient, an iterate and a
+    mix; only tracking rules carry a tracker."""
+    if rule.kind == "tracking":
+        return OBS_METRICS
+    return tuple(m for m in OBS_METRICS if m != "tracker_residual")
+
+
+def _column_chunks(mat: torch.Tensor):
+    step = max(1, OBS_CHUNK_BYTES // (4 * mat.shape[0]))
+    return (slice(a, a + step) for a in range(0, mat.shape[1], step))
+
+
+def _norm(mat: torch.Tensor, term) -> torch.Tensor:
+    """sqrt(Σ ||term(cols)||²) over the column chunks ``cols`` of the
+    (n, D) ``mat``, in f32: ``term`` builds each chunk's temporary."""
+    tot = torch.zeros((), dtype=torch.float32, device=mat.device)
+    for c in _column_chunks(mat):
+        tot += torch.square(term(c).float()).sum()
+    return tot.sqrt()
+
+
+def _node_mean(g: torch.Tensor) -> torch.Tensor:
+    """The (D,) f32 node mean of ``g``, a column chunk at a time."""
+    out = torch.empty(g.shape[1], dtype=torch.float32, device=g.device)
+    for c in _column_chunks(g):
+        out[c] = g[:, c].float().mean(dim=0)
+    return out
+
+
+def _annotated(fn, name: str):
+    """``fn`` inside ``torch.profiler.record_function(name)``, so a profile
+    splits a step into its grad and mix device time (the reference's
+    ``jax.named_scope`` tags); None stays None."""
+    if fn is None:
+        return None
+
+    def call(*args, **kwargs):
+        with torch.profiler.record_function(name):
+            return fn(*args, **kwargs)
+    return call
+
 
 class EngineState(NamedTuple):
     """``x`` (n, D) iterates; ``h`` the gradient tracker (tracking rules) or
@@ -283,13 +339,36 @@ def _correct(t: torch.Tensor, m: torch.Tensor, s: torch.Tensor
     return (t.to(f32) + m.to(f32)).sub_(s.to(f32)).to(t.dtype)
 
 
-def step(rule: UpdateRule, state: EngineState,
-         ops: EngineOps) -> Tuple[EngineState, Any]:
+def step(rule: UpdateRule, state: EngineState, ops: EngineOps,
+         obs: tuple = ()) -> Tuple[EngineState, Any]:
     """One round of ``rule``: (new state, runtime metrics).  Consumes
     ``state``: its x and h (and residuals, optimizer state) are updated in
-    place."""
+    place.
+
+    ``obs`` names in-step scalars (:data:`OBS_METRICS`); when non-empty the
+    second return value is ``(metrics, obs_dict)``, each scalar an f32
+    device tensor placed as the reference places it: ``grad_norm`` =
+    ||g||_F of this step's oracle sample, ``consensus`` = ||x − x̄||_F of
+    the new iterate, ``mix_residual`` = ||post − pre||_F of the x stream's
+    window, ``tracker_residual`` = ||mean h − mean g||_F before the
+    tracker's storage cast (0 without a tracker).  Each is taken where its
+    tensors are still alive, over column chunks (:data:`OBS_CHUNK_BYTES`);
+    ``mix_residual`` needs a copy of the pre-mix payload, which the
+    in-place mixers overwrite, and only it takes one.  The runtime's grad
+    and mix run inside ``torch.profiler.record_function("obs_grad")`` and
+    ``("obs_mix")``."""
     gamma, R = rule.gamma, rule.R
     comp = rule.compression
+    obs = tuple(obs)
+    for name in obs:
+        if name not in OBS_METRICS:
+            raise ValueError(f"unknown obs metric {name!r} "
+                             f"(have {OBS_METRICS})")
+    scal = {}
+    ops = ops._replace(grad=_annotated(ops.grad, "obs_grad"),
+                       mix=_annotated(ops.mix, "obs_mix"),
+                       cmix=_annotated(ops.cmix, "obs_mix"),
+                       pmix=_annotated(ops.pmix, "obs_mix"))
     local_update = ops.local_update or _identity_update
     cast_aux = ops.cast_aux or (lambda t: t)
     res = None
@@ -309,12 +388,35 @@ def step(rule: UpdateRule, state: EngineState,
                              "init_state materializes EngineState.buf")
         buf = [None if q is None else list(q) for q in state.buf]
 
-    def done(**kw):
-        return state._replace(k=state.k + 1,
-                              res=None if res is None else tuple(res),
-                              buf=state.buf if buf is None else tuple(
-                                  None if q is None else tuple(q)
-                                  for q in buf), **kw)
+    def done(metrics, *, h_obs=None, g_obs=None, g_mean=None, **kw):
+        """The new state and the step's metrics; with ``obs``, the scalars
+        left to take (``h_obs`` the tracker before its cast, ``g_obs`` or
+        its node mean ``g_mean`` the sample)."""
+        new = state._replace(k=state.k + 1,
+                             res=None if res is None else tuple(res),
+                             buf=state.buf if buf is None else tuple(
+                                 None if q is None else tuple(q)
+                                 for q in buf), **kw)
+        if not obs:
+            return new, metrics
+        x = new.x
+        if "consensus" in obs:
+            scal["consensus"] = _norm(x, lambda c: x[:, c].float().sub(
+                x[:, c].float().mean(dim=0, keepdim=True)))
+        if "tracker_residual" in obs:
+            scal["tracker_residual"] = (
+                torch.zeros((), dtype=torch.float32, device=x.device)
+                if h_obs is None else _norm(h_obs, lambda c: h_obs[
+                    :, c].float().mean(dim=0) - (
+                        g_mean[c] if g_obs is None
+                        else g_obs[:, c].float().mean(dim=0))))
+        return new, (metrics, {name: scal[name] for name in obs})
+
+    def grad(x, out=None):
+        metrics, g = ops.grad(x) if out is None else ops.grad(x, out)
+        if "grad_norm" in obs:
+            scal["grad_norm"] = _norm(g, lambda c: g[:, c])
+        return metrics, g
 
     def window(stream, off, r, mat):
         """Mix window of ``stream`` (0 = x, 1 = h): compressed with that
@@ -345,74 +447,94 @@ def step(rule: UpdateRule, state: EngineState,
         buf[stream] = q[1:] + [stale]
         return mat.copy_(out)
 
+    def x_window(fn, mat):
+        """``fn(mat)``, the x stream's window; with ``mix_residual``
+        requested, ||fn(mat) − mat||_F against a copy of ``mat`` taken
+        first."""
+        if "mix_residual" not in obs:
+            return fn(mat)
+        pre = mat.clone()
+        out = fn(mat)
+        scal["mix_residual"] = _norm(out, lambda c: out[:, c].float()
+                                     - pre[:, c])
+        return out
+
     if rule.kind == "sgd":
         if rule.personalized:
             # the oracle runs first: its per-node losses reweight the mix
             if ops.pmix is None:
                 raise ValueError(f"rule {rule.name!r} is personalized but "
                                  "the runtime provided no EngineOps.pmix")
-            metrics, g = ops.grad(state.x)
+            metrics, g = grad(state.x)
             upd, opt = local_update(g, state.opt)
-            x = ops.pmix(0, rule.weights_per_step,
-                         state.x.add_(upd, alpha=-gamma), metrics)
+            x = x_window(lambda z: ops.pmix(0, rule.weights_per_step, z,
+                                            metrics),
+                         state.x.add_(upd, alpha=-gamma))
         elif rule.mix_before_update:
-            x = mix(0, 0, R, state.x)
-            metrics, g = ops.grad(x)
+            x = x_window(lambda m: mix(0, 0, R, m), state.x)
+            metrics, g = grad(x)
             upd, opt = local_update(g, state.opt)
             x = x.add_(upd, alpha=-gamma)
         else:
-            metrics, g = ops.grad(state.x)
+            metrics, g = grad(state.x)
             upd, opt = local_update(g, state.opt)
             z = state.x.add_(upd, alpha=-gamma)
             del g, upd    # the sample is spent: not held through the mix
-            x = mix(0, 0, R, z)
-        return done(x=x, opt=opt), metrics
+            x = x_window(lambda m: mix(0, 0, R, m), z)
+        return done(metrics, x=x, opt=opt)
 
     if rule.kind == "difference":
         if state.g_prev is None:
             raise ValueError("call warm_start first")
-        metrics, g = ops.grad(state.x)
+        metrics, g = grad(state.x)
         gp = cast_aux(g)
         # z = 2x − x⁻ − γ(g − g⁻) in x⁻'s buffer; g − g⁻ in g⁻'s buffer, or
         # in g's when g⁻ is stored cast (g then lives on in its cast copy)
         z = state.h.neg_().add_(state.x, alpha=2.0)
         diff = (state.g_prev.neg_().add_(g) if gp is g
                 else g.sub_(state.g_prev))
-        x = mix(0, 0, 1, z.sub_(diff.mul_(gamma)))
+        x = x_window(lambda m: mix(0, 0, 1, m), z.sub_(diff.mul_(gamma)))
         # x^{k-1} rides in the h slot, uncast to keep the difference exact
-        return done(x=x, h=state.x, g_prev=gp), metrics
+        return done(metrics, x=x, h=state.x, g_prev=gp)
 
     if state.h is None:
         raise ValueError("call warm_start first (h requires g at x0)")
     if rule.mix_before_update:
         # the mix first: adam's update, a new (n, D) tensor, then never
         # lives beside a mix that makes one (the dense einsum's product)
-        x = mix(0, 0, R, state.x)
+        x = x_window(lambda m: mix(0, 0, R, m), state.x)
         d, opt = local_update(state.h, state.opt)
         x = x.add_(d, alpha=-gamma)
     else:
         d, opt = local_update(state.h, state.opt)
-        x = mix(0, 0, R, state.x.add_(d, alpha=-gamma))
+        x = x_window(lambda m: mix(0, 0, R, m),
+                     state.x.add_(d, alpha=-gamma))
     del d
     h_off = 0 if rule.shared_round else R
     h = state.h if rule.correction_in_mix else mix(1, h_off, R, state.h)
+    g_mean = None
     if state.g_prev.dtype == x.dtype:
         # h + g − g⁻ taken as (h − g⁻) + g: g⁻ leaves h before the new
         # sample overwrites g⁻'s buffer, so the step holds three (n, D)
         # tensors, not four
         h = h.sub_(state.g_prev)
-        metrics, g = ops.grad(x, state.g_prev)
+        metrics, g = grad(x, state.g_prev)
         h = h.add_(g)
         gp = g
     else:
         # trackers stored cast: (h + g) − g⁻ in the gradient's precision,
-        # in g's buffer once its cast copy is taken
-        metrics, g = ops.grad(x)
+        # in g's buffer once its cast copy is taken (and, for the tracker
+        # residual, its (D,) node mean)
+        metrics, g = grad(x)
         gp = cast_aux(g)
+        if "tracker_residual" in obs:
+            g_mean = _node_mean(g)
         h = g.add_(h).sub_(state.g_prev)
+        g = None
     if rule.correction_in_mix:
         h = mix(1, h_off, R, h)
-    return done(x=x, h=cast_aux(h), g_prev=gp, opt=opt), metrics
+    return done(metrics, x=x, h=cast_aux(h), g_prev=gp, opt=opt, h_obs=h,
+                g_obs=g, g_mean=g_mean)
 
 
 def warm_start(rule: UpdateRule, state: EngineState,

@@ -50,14 +50,24 @@ fresh payload; ``comm_interval`` k > 1 mixes on every k-th step only and
 launches nothing in between (see :class:`repro_torch.core.engine.
 UpdateRule`).  Both default to the synchronous path, which builds no
 wrapper.
+
+``obs`` names the engine's in-step scalars (:data:`repro_torch.core.
+engine.OBS_METRICS`): the step's output dict then gains ``"obs"``, f32
+device scalars.  The step carries the checkpoint pair of its state,
+``step.save_checkpoint(path, state, k)`` and ``step.load_checkpoint(path,
+state) -> (state, k)``: the JAX package's file of its ``TrainState``
+(:func:`checkpoint_leaves`), so a checkpoint of either package restores in
+the other.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Any, NamedTuple, Optional
 
 import torch
 
+from .. import checkpoint as ckpt
 from ..core import algorithms as alg, compress, engine
 from . import collectives as coll
 
@@ -81,7 +91,7 @@ def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
                     auto_dense: str = "einsum",
                     compression: Optional[compress.CompressionConfig] = None,
                     delay: int = 0, comm_interval: int = 1,
-                    tau: float = 4.0):
+                    tau: float = 4.0, obs: tuple = ()):
     """Build (init_state, warm_start, step) for one decentralized algorithm.
 
     gossip_impl: ``'dense'``, ``'sun'`` (``sun_delta`` must be given; the
@@ -91,8 +101,9 @@ def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
     ``auto_dense`` ``'einsum'`` or ``'pallas'``).  ``local_opt`` is an
     :class:`repro_torch.optim.Optimizer`; ``tau`` the personalized rule's
     temperature; ``delay`` and ``comm_interval`` the stale window and the
-    mixing cadence.  The reference's mesh, unroll and Pallas block/interpret
-    arguments have no meaning on one device and are not taken."""
+    mixing cadence; ``obs`` the in-step scalars the output dict carries.
+    The reference's mesh, unroll and Pallas block/interpret arguments have
+    no meaning on one device and are not taken."""
     del cfg
     rule = engine.make_rule(algo, gamma=gamma, R=(1 if algo == "d2" else R),
                             compression=compression, delay=delay,
@@ -210,12 +221,28 @@ def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
         return _to_train(es)
 
     def core(state: TrainState, batch, gossip, t):
-        es, loss = engine.step(rule, _to_engine(state),
-                               _ops(batch, gossip, t))
+        es, aux = engine.step(rule, _to_engine(state),
+                              _ops(batch, gossip, t), obs=obs)
+        loss = aux[0] if obs else aux
         # a personalized rule's metrics are the per-node losses; the step's
         # "loss" stays their mean
-        return _to_train(es), {"loss": loss.mean() if rule.personalized
-                               else loss}
+        out = {"loss": loss.mean() if rule.personalized else loss}
+        if obs:
+            out["obs"] = aux[1]
+        return _to_train(es), out
+
+    def save_checkpoint(path: str, state: TrainState, k: int) -> None:
+        ckpt.save_checkpoint(
+            path, checkpoint_leaves(state, layout, aux_dtype), step=k,
+            treedef=f"repro_torch TrainState (x, h, g_prev, step, opt, res, "
+            f"buf) as the reference's leaves: {len(layout.entries)} "
+            f"parameter leaves a stream, {state.x.shape[0]} nodes")
+
+    def load_checkpoint(path: str, state: TrainState):
+        state = _restore_slots(rule, state, aux_dtype)
+        leaves, k = ckpt.load_checkpoint(
+            path, checkpoint_leaves(state, layout, aux_dtype, restore=True))
+        return _restored(state, leaves, layout), int(k)
 
     if gossip_impl == "auto":
         def step(state: TrainState, batch, plan_tensors, t: int):
@@ -224,6 +251,8 @@ def make_train_step(model, cfg, *, algo: str = "mc_dsgt", gamma: float,
     else:
         def step(state: TrainState, batch, weights):
             return core(state, batch, weights, 0)
+    step.save_checkpoint = save_checkpoint
+    step.load_checkpoint = load_checkpoint
     return init_state, warm_start, step
 
 
@@ -243,3 +272,86 @@ def _to_engine(s: TrainState) -> engine.EngineState:
 def _to_train(s: engine.EngineState) -> TrainState:
     return TrainState(x=s.x, h=s.h, g_prev=s.g_prev, step=s.k, res=s.res,
                       opt=s.opt, buf=s.buf)
+
+
+# ---------------------------------------------------------------------------
+# Checkpoints: the flat state as the reference's TrainState leaves
+# ---------------------------------------------------------------------------
+
+def _views(layout: coll.FlatLayout, mat: torch.Tensor) -> list:
+    """One (n, *leaf shape) view per parameter leaf of a flat (n, D)
+    stream, in ``jax.tree.leaves`` order, without the padding columns."""
+    n = mat.shape[0]
+    return [mat[:, off:off + math.prod(shape)].view((n,) + shape)
+            for _, shape, off in layout.entries]
+
+
+def checkpoint_leaves(state: TrainState, layout: coll.FlatLayout,
+                      aux_dtype=None, *, restore: bool = False) -> list:
+    """The leaves of the JAX package's ``TrainState`` for this state, in its
+    field order: x, h, g_prev (per parameter, (n, *shape)), step (int32,
+    shape []), opt (momentum's buffer; adam's m leaves, t (int32), v
+    leaves), res (res_x, then res_h when the rule has one), buf (each stale
+    x slot, then each stale h slot).  The reference keeps a rule without a
+    tracker's h and g_prev as zero trees (in ``aux_dtype``), which the port
+    does not store: :class:`repro_torch.checkpoint.ZeroLeaf`.  Each tensor
+    leaf is a view into the state, so saving copies it out and restoring
+    (``restore=True``: the scalars become None, for the loader to return)
+    writes it in place."""
+    x = state.x
+    zdt = aux_dtype or x.dtype
+
+    def stream(mat):
+        if mat is None:
+            return [ckpt.ZeroLeaf((x.shape[0],) + shape, zdt)
+                    for _, shape, _ in layout.entries]
+        return _views(layout, mat)
+
+    def scalar(v):
+        return None if restore else torch.tensor(int(v), dtype=torch.int32)
+
+    leaves = stream(x) + stream(state.h) + stream(state.g_prev)
+    leaves.append(scalar(state.step))
+    opt = state.opt
+    if isinstance(opt, dict):          # adam: sorted keys m, t, v
+        leaves += _views(layout, opt["m"]) + [scalar(opt["t"])] \
+            + _views(layout, opt["v"])
+    elif opt is not None:              # momentum's buffer
+        leaves += _views(layout, opt)
+    for group in (state.res or ()), *(state.buf or ()):
+        for mat in group or ():
+            if mat is not None:
+                leaves += _views(layout, mat)
+    return leaves
+
+
+def _restore_slots(rule: engine.UpdateRule, state: TrainState,
+                   aux_dtype) -> TrainState:
+    """``state`` (fresh from ``init_state``) with the slots a warm start
+    would have made allocated for a restore to fill: h and g_prev of a
+    tracking rule (in ``aux_dtype``) or of a difference rule (h, x⁻, in
+    x's dtype), and a delayed tracking rule's stale h slots."""
+    x = state.x
+    aux = aux_dtype or x.dtype
+    if rule.kind == "sgd":
+        return state
+    h_dtype = aux if rule.kind == "tracking" else x.dtype
+    h = state.h if state.h is not None else torch.zeros_like(x, dtype=h_dtype)
+    gp = (state.g_prev if state.g_prev is not None
+          else torch.zeros_like(x, dtype=aux))
+    buf = state.buf
+    if rule.delay and rule.uses_tracker and buf is not None and buf[1] is None:
+        buf = (buf[0], tuple(torch.zeros_like(x, dtype=aux)
+                             for _ in range(rule.delay)))
+    return state._replace(h=h, g_prev=gp, buf=buf)
+
+
+def _restored(state: TrainState, leaves: list, layout) -> TrainState:
+    """The state after a restore filled its tensors: the step counter and
+    adam's t from their scalar leaves."""
+    per = len(layout.entries)
+    step = int(leaves[3 * per])
+    opt = state.opt
+    if isinstance(opt, dict):
+        opt = {**opt, "t": int(leaves[4 * per + 1])}
+    return state._replace(step=step, opt=opt)

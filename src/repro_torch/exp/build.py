@@ -28,11 +28,20 @@ Every rule of the reference runs on both runtimes, with its local
 optimizer (``algorithm.local_opt``): the gossip plan is built here with
 the spec's pods and the rule's personalized flag, as in the reference.
 
-``run`` writes the reproducibility manifest next to the telemetry file
-when ``run.telemetry`` names one, trains, then, when ``spec.serve``
-enables it, serves the first ``serve.fleet`` trained node models with
-continuous batching (:func:`repro_torch.serve.serve_fleet`, what
-``launch/serve.py`` runs).
+Observability (``spec.obs``, :mod:`repro_torch.obs`) and checkpoints
+(``run.checkpoint`` / ``run.restore``, the arch runtime,
+:mod:`repro_torch.checkpoint`) are the reference's: the in-step scalars
+into a JSONL event log through an :class:`~repro_torch.obs.metrics.
+ObsRecorder` chained in front of the telemetry recorder, phase spans, the
+optimality gap of the spec's cell, an opt-in ``torch.profiler`` trace, and
+checkpoints in the reference's file format (one written by either package
+restores in the other).
+
+``run`` writes the reproducibility manifest next to the telemetry file and
+the event log when the spec names them (next to the checkpoint after the
+restore check), trains, then, when ``spec.serve`` enables it, serves the
+first ``serve.fleet`` trained node models with continuous batching
+(:func:`repro_torch.serve.serve_fleet`, what ``launch/serve.py`` runs).
 The device is a runtime argument, not a spec field, so a spec hashes the
 same in both packages.  It defaults to ``"cuda"``; without a GPU that
 raises unless the caller asked for the CPU.
@@ -48,12 +57,13 @@ from typing import Any, NamedTuple, Optional
 import torch
 
 from .. import configs, tree
-from ..core import algorithms as alg, compress, driver, engine
+from ..core import algorithms as alg, compress, driver, engine, gossip
 from ..data import (logreg_dataset, logreg_dataset_dirichlet,
                     logreg_loss_and_grad, token_stream_for)
 from ..dist import collectives as coll, steps as dsteps
 from ..models import build as build_model
-from ..obs import console as obs_console
+from ..obs import console as obs_console, metrics as obs_metrics, \
+    optimality as obs_optimality, trace as obs_trace
 from ..sim import faults as sim_faults, telemetry as sim_telemetry
 from . import manifest as mf, registry
 from .spec import ExperimentSpec
@@ -82,7 +92,9 @@ class Built:
     """Everything ``build(spec)`` realized.  Scenario pieces (rule, schedule,
     plan, faults, telemetry) for every model kind; ``cfg``/``model``/
     ``stream`` only for ``arch``; ``grad_fn``/``eval_fn``/``x0`` only for
-    ``logreg``.  ``seconds`` times the host's realization phases."""
+    ``logreg``.  ``seconds`` times the host's realization phases; ``obs``,
+    ``obs_names`` and ``tracer`` are the spec's observability bundle when
+    ``spec.obs`` enables it."""
 
     spec: ExperimentSpec
     rule: engine.UpdateRule
@@ -101,6 +113,9 @@ class Built:
     x0: Any = None
     state_dim: Optional[int] = None   # per-node state entries (when known)
     seconds: dict = dataclasses.field(default_factory=dict)
+    obs: Optional[obs_metrics.ObsRecorder] = None
+    obs_names: tuple = ()
+    tracer: Optional[obs_trace.Tracer] = None
 
     @property
     def realized(self) -> dict:
@@ -134,6 +149,9 @@ class Built:
             out["senders_per_round"] = {
                 "min": int(snd.min()), "max": int(snd.max()),
                 "mean": round(float(snd.mean()), 1)}
+        if self.spec.obs.metrics:
+            out["event_log"] = self.spec.obs.metrics
+            out["obs_names"] = list(self.obs_names)
         sv = self.spec.serve
         if sv.enabled:
             out["serve"] = {"requests": sv.requests,
@@ -227,6 +245,9 @@ def _validate(spec: ExperimentSpec) -> None:
         raise ValueError(f"compression.group={c.group}: must be >= 1")
     if c.warmup < 0:
         raise ValueError(f"compression.warmup={c.warmup}: must be >= 0")
+    if spec.obs.every < 1:
+        raise ValueError(f"obs.every={spec.obs.every}: must be >= 1")
+    registry.resolve_obs_names(spec.obs.names)  # raises on unknown names
     s = spec.serve
     if s.requests < 0:
         raise ValueError(f"serve.requests={s.requests}: must be >= 0")
@@ -246,7 +267,6 @@ def _validate(spec: ExperimentSpec) -> None:
 def _check_ported(spec: ExperimentSpec) -> None:
     """Raise NotImplementedError, naming its ROADMAP.md Queue 1 item, for
     the first scenario axis the spec uses that the port does not run yet."""
-    r = spec.run
     logreg = spec.model.kind == "logreg"
     arch_pattern = (configs.get(spec.model.arch).pattern
                     if spec.model.kind == "arch" else ("attn",))
@@ -254,10 +274,8 @@ def _check_ported(spec: ExperimentSpec) -> None:
         (arch_pattern != ("attn",),
          f"training model.arch={spec.model.arch!r} (the arch trainer runs "
          "the dense ('attn',) pattern)", 9),
-        (spec.obs.enabled, "obs (metrics / profile_dir)", 4),
         (spec.data.hetero_alpha is not None and not logreg,
          "data.hetero_alpha (the Dirichlet token streams)", 9),
-        (bool(r.checkpoint or r.restore), "run.checkpoint / restore", 10),
     ]
     for used, what, item in unported:
         if used:
@@ -322,6 +340,8 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Built:
                   horizon=horizon, plan=plan,
                   local_opt=registry.build_local_opt(al.local_opt),
                   telemetry=telem, seconds=seconds)
+    if spec.obs.enabled:
+        _build_obs(built)
     t0 = time.perf_counter()
     if spec.model.kind == "arch":
         cfg = configs.get(spec.model.arch)
@@ -351,25 +371,93 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Built:
     return built
 
 
+def _effective_beta(sched, period: int, cap: int = 64) -> float:
+    """Measured per-round mixing parameter of the realized schedule: the
+    window contraction over (up to ``cap`` rounds of) one period, taken to
+    the per-round geometric mean — what the lower-bound floor's network
+    term is evaluated at."""
+    rounds = max(1, min(int(period), cap))
+    if getattr(sched, "is_sparse", False):
+        # edge-list schedules never densify: the window contraction comes
+        # from power iteration on the participant subspace
+        from .. import sparse
+        c = 1.0 - sparse.sparse_windowed_gap(
+            [sched.round(t) for t in range(rounds)])
+    else:
+        c = gossip.consensus_contraction(sched, rounds)
+    c = min(max(float(c), 0.0), 1.0 - 1e-9)
+    return c ** (1.0 / rounds)
+
+
+def _build_obs(built: Built) -> None:
+    """Attach the observability bundle to a Built: the event sink, the
+    phase tracer, the optimality-gap tracker of this spec's cell, the
+    optional profiler, and the :class:`~repro_torch.obs.metrics.
+    ObsRecorder` tying them together (chaining the scenario's
+    TelemetryRecorder, when it has one, instead of replacing it)."""
+    spec = built.spec
+    rs, al, o = spec.run, spec.algorithm, spec.obs
+    built.obs_names = registry.resolve_obs_names(o.names, built.rule)
+    built.tracer = obs_trace.Tracer(annotate=bool(o.profile_dir))
+    channel = registry.channel_label(spec.channel)
+    cell = obs_optimality.cell_key(al.name, spec.topology.kind, channel)
+    gap = obs_optimality.GapTracker(
+        cell=cell, n=rs.nodes,
+        beta=_effective_beta(built.schedule, built.schedule.period),
+        bound=o.bound)
+    profiler = (obs_trace.Profiler(o.profile_dir, o.profile_steps)
+                if o.profile_dir else None)
+    from .spec import spec_hash
+    meta = {"name": f"{al.name} on {spec.topology.kind}",
+            "spec_hash": spec_hash(spec), "cell": cell,
+            "algo": al.name, "topology": spec.topology.kind,
+            "channel": channel, "model": spec.model.kind, "n": rs.nodes,
+            "steps": rs.steps, "weights_per_step": built.wps,
+            "gossip_impl": rs.gossip_impl, "every": o.every,
+            "obs_names": list(built.obs_names)}
+    # a profile-only run (profile_dir set, no metrics path) still needs a
+    # sink for the recorder's meta/summary events: an in-memory one
+    sink = (obs_metrics.MemorySink() if o.sink == "jsonl" and not o.metrics
+            else registry.build_sink(o))
+    built.obs = obs_metrics.ObsRecorder(
+        sink, every=o.every, telemetry=built.telemetry,
+        tracer=built.tracer, gap=gap, profiler=profiler, meta=meta)
+
+
 def run(spec: ExperimentSpec, *, device="cuda", quiet: bool = False) -> Result:
     """Build and train ``spec`` end to end on ``device``, then serve the
     trained fleet when ``spec.serve`` enables a serve phase.  The manifest
     (:mod:`repro_torch.exp.manifest`) is written next to the telemetry file
-    before the run, so an interrupted run stays attributable.  Float32
-    matrix products run in full f32 (TF32 off), as the reference's
-    numerics need."""
+    and the event log before the run, so an interrupted run stays
+    attributable; the checkpoint's is written only after the restore check,
+    so resuming in place (checkpoint == restore) still compares against the
+    original run's manifest before overwriting it.  The profiler starts
+    before the run, and the recorder closes after it (its summary event)
+    whether or not the run raised.  Float32 matrix products run in full
+    f32 (TF32 off), as the reference's numerics need."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     built = build(spec, device=device)
     if spec.run.telemetry:
         mf.write_manifest(spec.run.telemetry, spec, realized=built.realized)
-    if spec.model.kind == "arch":
-        res = _run_arch(built, quiet=quiet)
-    else:
-        res = _run_logreg(built, quiet=quiet)
-    if spec.serve.enabled:
-        res = res._replace(serve=_run_serve(built, res.state, quiet=quiet))
-    return res
+    if spec.obs.metrics:
+        mf.write_manifest(spec.obs.metrics, spec, realized=built.realized)
+    if built.obs is not None and built.obs.profiler is not None:
+        built.obs.profiler.start()
+    try:
+        if spec.model.kind == "arch":
+            res = _run_arch(built, quiet=quiet)
+        else:
+            res = _run_logreg(built, quiet=quiet)
+        if spec.serve.enabled:
+            # inside the try, so that the serve events land before the
+            # sink closes
+            res = res._replace(serve=_run_serve(built, res.state,
+                                                quiet=quiet))
+        return res
+    finally:
+        if built.obs is not None:
+            built.obs.close()
 
 
 def _run_logreg(built: Built, *, quiet: bool = False) -> Result:
@@ -391,7 +479,8 @@ def _run_logreg(built: Built, *, quiet: bool = False) -> Result:
         alg.from_rule(built.rule, built.local_opt), built.x0, built.grad_fn, built.schedule,
         rs.steps, gen, eval_fn=built.eval_fn, eval_every=rs.eval_every,
         gossip_impl=rs.gossip_impl, plan=built.plan,
-        telemetry=built.telemetry)
+        telemetry=built.obs if built.obs is not None else built.telemetry,
+        obs=built.obs_names, tracer=built.tracer)
     if rs.telemetry:
         built.telemetry.dump(rs.telemetry)
     if not quiet:
@@ -417,12 +506,21 @@ def _run_arch(built: Built, *, quiet: bool = False) -> Result:
         gamma=spec.algorithm.gamma, R=built.rule.R, gossip_impl=rs.gossip_impl,
         plan=built.plan, local_opt=built.local_opt,
         compression=built.rule.compression, delay=built.rule.delay,
-        comm_interval=built.rule.comm_interval, tau=built.rule.tau)
+        comm_interval=built.rule.comm_interval, tau=built.rule.tau,
+        obs=built.obs_names)
+    con = obs_console.Console(quiet=quiet)
     gen = torch.Generator(device=dev).manual_seed(rs.seed)
     state = init_state(built.model.init(gen, torch.float32, dev), rs.nodes)
     state, start_step = driver.restore_or_warm(
-        state, restore=rs.restore,
-        warm=lambda s: warm_start(s, built.stream.batch_at(0)))
+        state, restore=rs.restore, load_fn=train_step.load_checkpoint,
+        warm=lambda s: warm_start(s, built.stream.batch_at(0)), spec=spec)
+    if rs.restore:
+        con.print(f"restored step {start_step} from {rs.restore}")
+    if rs.checkpoint:
+        # after the restore check (resuming in place must be compared
+        # against the original manifest first) but before the loop, so even
+        # an interrupted run stays attributable
+        mf.write_manifest(rs.checkpoint, spec, realized=built.realized)
 
     # the whole period's gossip stack (or the plan's tensors) crosses to
     # the device once
@@ -433,11 +531,13 @@ def _run_arch(built: Built, *, quiet: bool = False) -> Result:
         lambda state, batch, W, t: train_step(state, batch, W)))
 
     telem = built.telemetry
-    con = obs_console.Console(quiet=quiet)
 
     def record(k, t, state, out, dt):
-        tl = (telem.record(k, t, state, out, dt)
-              if telem is not None else None)
+        if built.obs is not None:
+            tl = built.obs.record(k, t, state, out, dt)
+        else:
+            tl = (telem.record(k, t, state, out, dt)
+                  if telem is not None else None)
         if k % rs.log_every != 0:
             return None
         loss = float(out["loss"])
@@ -458,7 +558,10 @@ def _run_arch(built: Built, *, quiet: bool = False) -> Result:
         step_fn, state, steps=rs.steps, wps=built.wps, period=staged.period,
         start_step=start_step,
         extra_fn=lambda k: built.stream.batch_at(k + 1), record=record,
-        sync=sync)
+        sync=sync, checkpoint=rs.checkpoint,
+        save_fn=train_step.save_checkpoint, tracer=built.tracer)
+    if rs.checkpoint:
+        con.event("saved", path=rs.checkpoint)
     if rs.telemetry:
         telem.dump(rs.telemetry)
         con.event("wrote_telemetry", path=rs.telemetry)
@@ -469,15 +572,17 @@ def _run_arch(built: Built, *, quiet: bool = False) -> Result:
 def _run_serve(built: Built, state, *, quiet: bool = False):
     """The post-training serve phase: the first ``serve.fleet`` node copies
     of the trained flat state, as views of its rows (no copy), served with
-    continuous batching (:func:`repro_torch.serve.serve_fleet`).  As in the
-    reference, the model's kernel policy is the trained config's:
-    ``use_pallas`` is not set for serving."""
+    continuous batching (:func:`repro_torch.serve.serve_fleet`), its
+    per-request events through the run's recorder.  As in the reference,
+    the model's kernel policy is the trained config's: ``use_pallas`` is
+    not set for serving."""
     from ..serve import serve_fleet
 
     sv = built.spec.serve
     F = sv.fleet or built.spec.run.nodes
     layout = dsteps.flat_layout(built.model, built.rule.compression)
-    res = serve_fleet(built.model, layout.views(state.x[:F]), sv)
+    res = serve_fleet(built.model, layout.views(state.x[:F]), sv,
+                      obs=built.obs)
     con = obs_console.Console(quiet=quiet)
     tp = res.throughput
     con.print(f"served {tp['requests']} requests over fleet {res.fleet}  "

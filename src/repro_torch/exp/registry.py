@@ -14,6 +14,7 @@ import numpy as np
 
 from .. import optim
 from ..core import compress, engine, gossip, topology as topo
+from ..obs import metrics as obs_metrics
 from ..sim import channel as sim_channel, faults as sim_faults, \
     mobility as sim_mobility
 from .spec import ChannelSpec, CompressionSpec, TopologySpec
@@ -206,9 +207,38 @@ MODEL_KINDS = ("arch", "logreg")
 ROUTING_POLICIES = ("user-affinity", "round-robin")
 SERVE_DTYPES = ("bf16", "f32")
 COMPRESSIONS = compress.SCHEMES       # core.compress owns the vocabulary
-OBS_METRICS = ("grad_norm", "consensus", "mix_residual", "tracker_residual")
+OBS_METRICS = engine.OBS_METRICS     # described in repro_torch.obs.metrics
 SINKS = ("jsonl", "memory")
-OBS_BOUNDS = ("paper", "centralized")
+OBS_BOUNDS = ("paper", "centralized")  # repro_torch.obs.optimality.BOUNDS
+
+
+def build_sink(obs_spec):
+    """The event sink an :class:`repro_torch.exp.spec.ObsSpec` selects
+    (``jsonl`` needs ``obs_spec.metrics`` as the path; ``memory`` keeps
+    events in process)."""
+    if obs_spec.sink not in SINKS:
+        raise ValueError(f"unknown obs sink {obs_spec.sink!r} "
+                         f"(have {sorted(SINKS)})")
+    if obs_spec.sink == "jsonl":
+        if not obs_spec.metrics:
+            raise ValueError("obs.sink='jsonl' requires obs.metrics "
+                             "(the event-log path)")
+        return obs_metrics.EventLog(obs_spec.metrics)
+    return obs_metrics.MemorySink()
+
+
+def resolve_obs_names(names, rule=None) -> tuple:
+    """Validate and normalize an obs metric selection
+    (:func:`repro_torch.obs.metrics.resolve_names`)."""
+    return obs_metrics.resolve_names(names, rule)
+
+
+def channel_label(s: ChannelSpec) -> str:
+    """Short label of the active degradations ("ideal" for none) — the
+    channel leg of the optimality-gap cell key."""
+    active = [name for name in ("link_drop", "burst_loss", "churn",
+                                "straggler") if getattr(s, name) > 0]
+    return "+".join(active) if active else "ideal"
 
 
 def build_compression(s: CompressionSpec

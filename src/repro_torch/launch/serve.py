@@ -14,8 +14,9 @@ scan).  ``--device`` (default ``cuda``) is a runtime argument, not a spec
 field, so ``--dump-config`` prints the same JSON as the reference's CLI
 for the same flags.  Flags whose scenario axis is not ported yet are
 accepted and raise ``NotImplementedError`` naming their ROADMAP.md item
-when the run is built (``--metrics``: item 4; training a non-dense arch
-such as recurrentgemma-2b or falcon-mamba-7b: item 9).
+when the run is built (training a non-dense arch such as recurrentgemma-2b
+or falcon-mamba-7b: item 9).  ``--metrics PATH`` writes the event log,
+with one ``serve_request`` event per request and the ``serve_summary``.
 
 Config files round-trip exactly as in train: ``--config PATH`` loads a
 spec JSON as the baseline, explicit flags override it, and
@@ -117,7 +118,7 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--log-every", type=int)
     ap.add_argument("--seed", type=int)
     ap.add_argument("--metrics", metavar="PATH",
-                    help="repro.obs JSONL event log — includes one "
+                    help="repro_torch.obs JSONL event log — includes one "
                          "serve_request event per completion and a final "
                          "serve_summary")
     # -- serving side (ServeSpec) ------------------------------------------

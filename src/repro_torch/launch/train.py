@@ -10,6 +10,14 @@ same JSON as the reference's CLI for the same flags.  Flags whose scenario
 axis is not ported yet are accepted and raise ``NotImplementedError``
 naming their ROADMAP.md item when the run is built.
 
+``--metrics PATH`` writes the event log (the four in-step scalars of every
+step, phase spans, the optimality gap; ``python -m
+repro_torch.obs.report PATH`` renders it), ``--profile-dir DIR`` a
+``torch.profiler`` trace of the first ``--profile-steps`` steps, and
+``--checkpoint`` / ``--restore`` the arch runtime's state in the
+reference's msgpack format: a checkpoint of either package restores in the
+other.
+
 ``--gossip-impl pallas`` keeps the reference's meaning, the fused gossip
 kernel: here all R rounds of Algorithm 2 run in one pass of the
 hand-written Hopper ``gossip_mix`` kernel (its plain PyTorch version on the
@@ -233,20 +241,21 @@ def build_parser() -> argparse.ArgumentParser:
                          "(learnable stream); 0 = full vocab")
     ap.add_argument("--seed", type=int)
     ap.add_argument("--metrics", metavar="PATH",
-                    help="write the repro.obs JSONL event log (in-jit step "
-                         "metrics, phase spans, optimality gap) to PATH; "
-                         "render it with `python -m repro.obs.report PATH`")
+                    help="write the repro_torch.obs JSONL event log "
+                         "(in-step metrics, phase spans, optimality gap) to "
+                         "PATH; render it with `python -m "
+                         "repro_torch.obs.report PATH`")
     ap.add_argument("--metrics-every", type=int,
                     help="host flush batch for --metrics: buffered device "
-                         "scalars cross the host boundary once per N "
+                         "scalars cross to the host in one copy per N "
                          "recorded steps (default 10)")
     ap.add_argument("--obs-names",
-                    help="comma-separated in-jit metric subset for "
+                    help="comma-separated in-step metric subset for "
                          f"--metrics (of: {', '.join(exp.OBS_METRICS)}); "
                          "'auto' = the update rule's default set")
     ap.add_argument("--profile-dir", metavar="DIR",
-                    help="dump a jax profiler trace of the first "
-                         "--profile-steps steps into DIR")
+                    help="write a torch.profiler Chrome trace of the first "
+                         "--profile-steps steps to DIR/trace.json")
     ap.add_argument("--profile-steps", type=int)
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda; raises "

@@ -3,8 +3,8 @@ flag table and ``--dump-config`` JSON, ``exp.run``'s serve phase through the
 CLI serving the same tokens as the reference's CLI on the same argv (a
 reduced qwen1.5 fleet of 4 trained one MC-DSGT step from the reference's
 initial parameters), the fleet served as views of the trained flat state,
-the progress printer (a verbatim copy), and the axes the port still
-refuses."""
+the progress printer (a verbatim copy), the ``--metrics`` event log, and
+the axes the port still refuses."""
 
 import dataclasses
 import importlib
@@ -28,6 +28,7 @@ from repro_torch import exp, serve as serve_pkg, tree  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import params_from_jax  # noqa: E402
 from repro_torch.obs import Console  # noqa: E402
+from repro_torch.obs.metrics import read_events  # noqa: E402
 
 # the module (the package exports its ``build`` function under that name)
 tbuild = importlib.import_module("repro_torch.exp.build")
@@ -204,12 +205,28 @@ def test_console_prints_and_is_quiet(capsys):
 @pytest.mark.parametrize("flags,item", [
     (["--arch", "recurrentgemma-2b"], 9),
     (["--arch", "falcon-mamba-7b"], 9),
-    (["--metrics", "events.jsonl"], 4),
 ])
 def test_unported_axes_raise_with_their_roadmap_item(flags, item):
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue 1 item {item}\\b"):
         serve_cli.main(flags + ["--steps", "1", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags", [["--metrics", "events.jsonl"]])
+def test_metrics_flag_runs(flags, tmp_path, monkeypatch):
+    """``--metrics`` (ROADMAP Queue 1 item 4) on the serve CLI: a
+    ``serve_request`` event per request and the ``serve_summary``, emitted
+    as they happen, then the training step's event (buffered until the
+    recorder's close flushes it, as in the reference) and the summary."""
+    monkeypatch.chdir(tmp_path)
+    serve_cli.main(flags + ["--steps", "1", "--device", "cpu", "--nodes",
+                            "4", "--requests", "3",
+                            "--serve-batch", "3", "--prompt-len", "4",
+                            "--max-new", "2", "--dtype", "f32",
+                            "--quiet"])
+    kinds = [e["event"] for e in read_events("events.jsonl")]
+    assert kinds == ["meta"] + ["serve_request"] * 3 + \
+        ["serve_summary", "step", "summary"]
 
 
 def test_serve_needs_the_arch_runtime_and_a_gpu_by_default(monkeypatch):

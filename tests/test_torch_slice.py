@@ -26,6 +26,8 @@ from repro_torch.core import compress, gossip  # noqa: E402
 from repro_torch.dist import collectives as coll, steps  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
 from repro_torch.models import build, params_from_jax  # noqa: E402
+from repro_torch.obs import report  # noqa: E402
+from repro_torch.obs.metrics import read_events  # noqa: E402
 
 # Two steps of training reorder f32 matmul reductions (XLA vs ATen) and
 # carry the differences through clipping, tracking and mixing.
@@ -275,16 +277,43 @@ def test_default_device_raises_without_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--arch", "falcon-mamba-7b"],
-                                   ["--restore", "unused.msgpack"],
                                    ["--hetero-alpha", "0.1"],
-                                   ["--arch", "logreg", "--metrics",
-                                    "m.jsonl"],
-                                   ["--profile-dir", "unused_profile"],
-                                   ["--arch", "recurrentgemma-2b"],
-                                   ["--metrics", "m.jsonl"],
-                                   ["--checkpoint", "unused.msgpack"],
-                                   ["--arch", "logreg", "--profile-dir",
-                                    "unused_profile"]])
+                                   ["--arch", "recurrentgemma-2b"]])
 def test_unported_axes_raise_with_their_roadmap_item(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
         train.main(flags + ["--steps", "1", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("flags", [["--restore", "c.msgpack"],
+                                   ["--arch", "logreg", "--metrics",
+                                    "m.jsonl"],
+                                   ["--profile-dir", "prof"],
+                                   ["--metrics", "m.jsonl"],
+                                   ["--checkpoint", "c.msgpack"],
+                                   ["--arch", "logreg", "--profile-dir",
+                                    "prof"]])
+def test_obs_and_checkpoint_flags_run(flags, tmp_path, monkeypatch, capsys):
+    """``--metrics``, ``--profile-dir``, ``--checkpoint`` and ``--restore``
+    (ROADMAP Queue 1 items 4 and 10) run one step through the train CLI on
+    the CPU: the event log ends in its summary and renders, the profile is
+    written, the checkpoint exists, a restore resumes at its step."""
+    monkeypatch.chdir(tmp_path)
+    small = ["--steps", "1", "--device", "cpu", "--nodes", "2", "--beta",
+             "0.5", "--batch", "1", "--seq", "16"]
+    if "--restore" in flags:
+        train.main(["--checkpoint", "c.msgpack"] + small)
+    history = train.main(flags + small)
+    assert len(history) == 1
+    out = capsys.readouterr().out
+    if "--metrics" in flags:
+        assert read_events("m.jsonl")[-1]["event"] == "summary"
+        assert report.main(["m.jsonl"]) == 0
+        assert "-- optimality gap" in capsys.readouterr().out
+    if "--profile-dir" in flags:
+        assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    if "--checkpoint" in flags:
+        assert (tmp_path / "c.msgpack").stat().st_size > 0
+        assert (tmp_path / "c.msgpack.spec.json").exists()
+    if "--restore" in flags:
+        assert "restored step 1 from c.msgpack" in out
+        assert "step     1" in out

@@ -2,7 +2,8 @@
 (``random-sampled`` + drop + churn, edge-list plans, sparse telemetry), the
 ``sparse_gossip_mix`` op with the ``sparse_segment_mix`` segment sum (the
 JAX side runs its Pallas kernel in interpret mode), both ``make_mixer``
-routes, the logreg host runtime, and the gates that still raise.  The
+routes, the logreg host runtime, the gates that still raise, and the
+observability and checkpoint axes that now run on every runtime.  The
 CUDA kernel itself is held to its plain version on the card
 (``chip_smoke.py``, ``tests/test_torch_cuda.py``)."""
 
@@ -33,6 +34,7 @@ from repro_torch.data import logreg_dataset, logreg_loss_and_grad  # noqa: E402
 from repro_torch.exp import registry  # noqa: E402
 from repro_torch.kernels import ops, sparse_gossip  # noqa: E402
 from repro_torch.launch import train  # noqa: E402
+from repro_torch.obs.metrics import read_events  # noqa: E402
 from repro_torch.sim import telemetry  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
@@ -361,27 +363,63 @@ def test_telemetry_recorders_match_reference():
 
 @pytest.mark.parametrize("overrides,match", [
     ({"model.arch": "recurrentgemma-2b"}, "item 9"),
-    ({"run.checkpoint": "c.msgpack"}, "item 10"),
-    ({"run.restore": "c.msgpack"}, "item 10"),
-    ({"obs.profile_dir": "prof"}, "item 4"),
-    ({"model.kind": "logreg", "obs.metrics": "m.jsonl"}, "item 4"),
     ({"data.hetero_alpha": 0.1}, "item 9"),
-    ({"obs.metrics": "m.jsonl"}, "item 4"),
-    ({"sampled": True, "obs.metrics": "m.jsonl"}, "item 4"),
-    ({"sampled": True, "obs.profile_dir": "prof"}, "item 4"),
     ({"model.arch": "falcon-mamba-7b"}, "item 9"),
 ])
 def test_unported_axes_still_raise(overrides, match):
-    overrides = dict(overrides)
-    base = exp.ExperimentSpec()
-    if overrides.pop("sampled", False):
-        base = exp.with_overrides(base, {
-            "model.kind": "logreg", "model.d": 4, "model.m": 4,
-            "topology.kind": "random-sampled", "topology.sample_k": 8,
-            "run.nodes": 64, "run.gossip_impl": "auto", "run.steps": 1})
     with pytest.raises(NotImplementedError,
                        match=f"ROADMAP.md Queue 1 {match}"):
-        exp.build(exp.with_overrides(base, overrides), device="cpu")
+        exp.build(exp.with_overrides(exp.ExperimentSpec(), overrides),
+                  device="cpu")
+
+
+_SAMPLED = {"model.kind": "logreg", "model.d": 4, "model.m": 4,
+            "topology.kind": "random-sampled", "topology.sample_k": 8,
+            "run.nodes": 64, "run.gossip_impl": "auto"}
+
+
+@pytest.mark.parametrize("overrides", [
+    {"run.checkpoint": "c.msgpack"},
+    {"run.restore": "c.msgpack"},
+    {"obs.profile_dir": "prof"},
+    {"model.kind": "logreg", "obs.metrics": "m.jsonl"},
+    {"obs.metrics": "m.jsonl"},
+    {"sampled": True, "obs.metrics": "m.jsonl"},
+    {"sampled": True, "obs.profile_dir": "prof"},
+])
+def test_obs_and_checkpoint_axes_run(overrides, tmp_path, monkeypatch):
+    """The observability and checkpoint axes (ROADMAP Queue 1 items 4 and
+    10) build and run one step on the CPU, on the arch runtime, the logreg
+    host runtime and the sampled-client family: the event log ends in its
+    summary, the profile is written, the checkpoint exists and a restore of
+    it resumes at its step."""
+    monkeypatch.chdir(tmp_path)
+    overrides = dict(overrides)
+    base = exp.with_overrides(exp.ExperimentSpec(), {
+        "run.steps": 1, "run.nodes": 2, "topology.beta": 0.5,
+        "data.batch": 1, "data.seq": 16})
+    if overrides.pop("sampled", False):
+        base = exp.with_overrides(base, _SAMPLED)
+    if "run.restore" in overrides:
+        exp.run(exp.with_field(base, "run.checkpoint", "c.msgpack"),
+                device="cpu", quiet=True)
+    res = exp.run(exp.with_overrides(base, overrides), device="cpu",
+                  quiet=True)
+    if res.spec.model.kind == "arch":
+        assert all(np.isfinite(h["loss"]) for h in res.history)
+    else:
+        assert all(np.isfinite(v) for _, v in res.history)
+    if "obs.metrics" in overrides:
+        events = read_events("m.jsonl")
+        assert [e["event"] for e in events][0] == "meta"
+        assert events[-1]["event"] == "summary"
+        assert "grad_norm" in read_events("m.jsonl", "step")[0]
+    if "obs.profile_dir" in overrides:
+        assert (tmp_path / "prof" / "trace.json").stat().st_size > 0
+    if "run.checkpoint" in overrides:
+        assert (tmp_path / "c.msgpack").stat().st_size > 0
+    if "run.restore" in overrides:
+        assert res.state.step == 2
 
 
 @pytest.mark.parametrize("overrides", [
