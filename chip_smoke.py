@@ -48,6 +48,15 @@ and then drives the main paths through the train CLI's own functions:
   step through ``decode_attention`` against a 2048-slot ring that has
   wrapped; two requests are served again one at a time and must give the
   same tokens;
+* slice 14, the same serving of a yi-6b fleet (4 members of 5.80B
+  parameters, 46.4 GB in bf16; 32 query heads over 4 KV heads of 128) and
+  then, that fleet freed, of a minitron-4b fleet (4 members of 4.19B, 33.5
+  GB; relu2, untied embeddings, 24 query heads over 8 KV heads of 128): 8
+  requests of a 1920-token prompt and 128 new tokens on 4 slots against a
+  2048-slot KV cache, every attention layer of every prefill through
+  ``flash_attention`` and of every decode step through ``decode_attention``
+  at head_dim 128; two requests of each are served again one at a time and
+  must give the same tokens;
 * the paper's §6 on the dense host runtime, through the twins of the
   reference's examples under ``examples/torch/``: the quickstart
   (MC-DSGT <= DSGD on ``sun``), Figure 2 at its default budget (both
@@ -88,7 +97,14 @@ and then drives the main paths through the train CLI's own functions:
   equal, final state bit-equal or within rtol 1e-4 / atol 1e-5, the file's
   write and read GB/s), 12 launches in 6 steps; and the twins of
   ``examples/lower_bound_demo.py`` and ``examples/train_lm.py`` (0
-  launches, their assertions holding).
+  launches, their assertions holding);
+* the spec smoke (ROADMAP Queue 1 item 13): ``repro_torch.exp.validate``
+  with ``--device cuda --min-manifests 4`` (every ``examples/torch/``
+  twin's SPECS cell shrunk to 2 steps, the obs smoke, the four compressed
+  cells, the checked-in manifests), which must return 0, each cell's
+  launches stated (0 off the ``pallas`` gossip impl); then the
+  ``examples/personalized_fleet.py`` twin at its own size on Dirichlet(0.1)
+  token streams, its assertions holding (0 launches).
 
 ``linear_recurrence`` is checked bit-equal on each of its three routes
 (a ring of time tiles filled by TMA or by cp.async, and the loop) and
@@ -100,14 +116,17 @@ qwen serve path ``flash_attention`` 24 times per prefill and
 ``decode_attention`` 24 times per slot and token, the serve CLI path
 ``gossip_mix`` 2 times per step and nothing else, the recurrentgemma serve
 path ``linear_recurrence`` 18 and ``flash_attention`` 8 times per prefill
-and ``decode_attention`` 8 times per slot and token, the wireless legs the
+and ``decode_attention`` 8 times per slot and token, the yi-6b and
+minitron-4b serve paths ``flash_attention`` 32 times per prefill and
+``decode_attention`` 32 times per slot and token, the wireless legs the
 gossip kernels 2 times per mixing step, the observability and
 checkpoint legs ``gossip_mix`` 2 times per step; the counts are set to 0
 just before a path and read just after it.  It prints the card, its total
 wall time, one JSON line of per-kernel numbers (a second ``gossip_mix`` row
 for the planning path, three rows for the wireless legs, two for the
-observability and checkpoint legs, then the last three rows: the
-recurrentgemma shapes), and last ``{"ok": true, "device": {...}}``.
+observability and checkpoint legs, three rows at the recurrentgemma
+shapes, then the last four: the attention kernels at yi-6b's and
+minitron-4b's head_dim 128), and last ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero; so does a machine without a CUDA device or
 a directory without the repository.
 """
@@ -191,6 +210,32 @@ RG_WINDOW = 2048
 FLASH_RG = (1, 3968, 10, 1, 256)         # (B, S, H, KV, hd) of one prefill
 DECODE_RG = (1, 2048, 1, 10, 256)        # (B, C, J, G, hd) of one decode
 LINREC_RG = (1, 3968, 2560)              # (B, S, lru_width) of one layer
+# Slice 14: yi-6b (configs/yi_6b.py, arXiv:2403.04652; 32 query heads over 4
+# KV heads of 128, G = 8) and minitron-4b (configs/minitron_4b.py,
+# arXiv:2407.14679; relu2 with no gate, untied embeddings, 24 query heads
+# over 8 KV heads of 128, G = 3) served from fleets of 4 at their published
+# widths and full depth: the first serve paths at head_dim 128, both
+# kernels on their SIMT routes.  As qwen's: a 1920-token prompt (a multiple
+# of 128) and prompt + new tokens = 2048 cache slots (a multiple of 256, the
+# tiling both kernels take; so 128 new tokens, not fewer).  minitron keeps
+# prefill_last_only off, as its config does: a prefill unembeds all 1920
+# positions (0.98 GB of bf16 logits).
+YSERVE = dict(requests=8, batch=4, prompt_len=1920, max_new=128, fleet=4,
+              routing="user-affinity", dtype="bf16", seed=0)
+MSERVE = dict(YSERVE)
+YI_PARAMS = 5_798_891_520                # per member, from the config's shapes
+MINITRON_PARAMS = 4_190_309_376          # per member (untied: 2 x 786M)
+FLASH_YI = (1, 1920, 32, 4, 128)         # (B, S, H, KV, hd) of one prefill
+DECODE_YI = (1, 2048, 4, 8, 128)         # (B, C, J, G, hd) of one decode
+FLASH_MT = (1, 1920, 24, 8, 128)
+DECODE_MT = (1, 2048, 8, 3, 128)
+# Predictions for the slice-14 phases, written before their first run on
+# the card (PERF.md §6, PR 26) and printed beside the readings: peak device
+# memory in GB (the fleet, one member's prefill activations and logits, the
+# slots' caches) and each phase's wall seconds.
+PREDICTED = {"yi-6b": {"peak_gb": (47, 50), "wall_s": (50, 110)},
+             "minitron-4b": {"peak_gb": (35, 38), "wall_s": (45, 100)},
+             "spec smoke": {"wall_s": (40, 120)}}
 # The serve CLI path: the port's launch/serve.py trains a qwen1.5-0.5b fleet
 # at full width (2 MC-DSGT steps through gossip_mix) and serves it.
 SERVE_CLI_STEPS = 2
@@ -1353,17 +1398,18 @@ def check_dkernel(torch, decode_attention, ref) -> dict:
 def print_attention_resources(torch, flash_attention, decode_attention):
     """What each attention kernel compiled to (registers, spilled bytes,
     static and dynamic shared memory, from cudaFuncGetAttributes) and how it
-    launches at the main paths' shapes (grid, block, cluster): qwen1.5's
-    hd 64 and recurrentgemma's hd 256."""
+    launches at the main paths' shapes (grid, block, cluster, and decode's
+    route): qwen1.5's hd 64, recurrentgemma's hd 256, yi-6b's and
+    minitron-4b's hd 128."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for B, S, H, _, hd in (FLASH_MAIN, FLASH_RG):
+    for B, S, H, _, hd in (FLASH_MAIN, FLASH_RG, FLASH_YI, FLASH_MT):
         for dtype in (torch.bfloat16, torch.float32):
             print(f"flash_attention {str(dtype).split('.')[1]} hd {hd}: "
                   f"{flash_attention.resources(hd, dtype)} at "
                   f"{(B, S, H, hd)}: "
                   f"{flash_attention.launch_geometry(B, S, H, hd, dtype)}",
                   flush=True)
-    for B, C, J, G, hd in (DECODE_MAIN, DECODE_RG):
+    for B, C, J, G, hd in (DECODE_MAIN, DECODE_RG, DECODE_YI, DECODE_MT):
         for dtype in (torch.bfloat16, torch.float32):
             geometry = decode_attention.launch_geometry(B, J, C, hd, dtype,
                                                         sms)
@@ -1422,7 +1468,8 @@ def time_fkernel(torch, flash_attention, ref, shape=FLASH_MAIN,
                  window: int = 0,
                  what: str = "one qwen prefill layer") -> dict:
     """flash_attention at ``shape`` (B, S, H, KV, hd) bf16, causal (qwen's
-    (1, 1920, 16, 16, 64), or recurrentgemma's (1, 3968, 10, 1, 256) with a
+    (1, 1920, 16, 16, 64), yi-6b's (1, 1920, 32, 4, 128), minitron-4b's (1,
+    1920, 24, 8, 128), or recurrentgemma's (1, 3968, 10, 1, 256) with a
     2048-key window): held to its plain version, then timed (device time,
     inputs cold in L2 as on the serve path) beside its bound, the plain
     version and torch's scaled_dot_product_attention (causal, or with the
@@ -1497,7 +1544,8 @@ def time_dkernel(torch, decode_attention, ref, shape=DECODE_MAIN,
                  window: int = 0, what: str = "one qwen decode layer"
                  ) -> dict:
     """decode_attention at ``shape`` (B, C, J, G, hd) bf16 against a full
-    cache (qwen's q (1, 1, 16, 1, 64) and a 2048-slot cache at pos 2047; or
+    cache (qwen's q (1, 1, 16, 1, 64), yi-6b's (1, 1, 4, 8, 128) or
+    minitron-4b's (1, 1, 8, 3, 128) and a 2048-slot cache at pos 2047; or
     recurrentgemma's q (1, 1, 1, 10, 256) and a 2048-slot ring, wrapped, at
     pos 4000 with a 2048-token window): held to its plain version, then
     timed (device time, the cache cold in L2 as on the serve path, where
@@ -2830,6 +2878,126 @@ def obs_phase(torch, train, exp, counters, smi: str, main_secs) -> dict:
     return out
 
 
+def predicted(what: str, key: str, value: float) -> str:
+    """``value`` beside its PREDICTED range, and whether it fell inside."""
+    lo, hi = PREDICTED[what][key]
+    return (f"{value:.3f} (predicted {lo}-{hi}: "
+            f"{'inside' if lo <= value <= hi else 'outside'})")
+
+
+def attention_serve_phase(torch, exp, serve, ops, flash_attention,
+                          decode_attention, linear_recurrence, ref, models,
+                          configs, tree, counters, arch: str, n_params: int,
+                          sv: dict, label: str) -> dict:
+    """One attention serve path: a fleet of ``arch`` drawn at its
+    published widths and full depth in bf16, served through
+    :func:`attention_serve_path`, two requests served again one at a time
+    and token-equal, one prefill's and one decode step's profile (with
+    ``linear_recurrence`` where the model has rglru layers); then the fleet
+    is freed.  Its peak memory and wall are printed, beside their
+    predictions for the paths PREDICTED names (yi-6b, minitron-4b)."""
+    t0 = time.perf_counter()
+    model, fleet = draw_fleet(torch, models, configs, tree, arch, n_params,
+                              sv["fleet"])
+    out = attention_serve_path(torch, exp, serve, ops, flash_attention,
+                               decode_attention, linear_recurrence, ref,
+                               model, fleet, counters, sv, label)
+    check_sequential(torch, exp, serve, model, fleet, tree, out["completed"],
+                     sv)
+    recurrent = ("linear_recurrence",) if "rglru" in layer_kinds(
+        model.cfg) else ()
+    profile_serve(torch, model, fleet, tree, sv,
+                  recurrent + ("flash_attention", "decode_attention"))
+    del model, fleet
+    gc.collect()
+    torch.cuda.empty_cache()
+    wall = time.perf_counter() - t0
+    if arch in PREDICTED:
+        print(f"{label}: peak device memory "
+              f"{predicted(arch, 'peak_gb', out['peak_gb'])} GB  wall "
+              f"{predicted(arch, 'wall_s', wall)} s (draw, serve, re-serve, "
+              "profile)", flush=True)
+    else:
+        print(f"{label}: wall {wall:.3f} s (draw, serve, re-serve, "
+              "profile)", flush=True)
+    return out
+
+
+def spec_smoke_phase(torch, exp, counters) -> dict:
+    """Queue 1 item 13 on the card: (a) the port's spec smoke,
+    ``repro_torch.exp.validate.main`` with ``--device cuda --min-manifests
+    4`` (every example twin's SPECS cell shrunk to 2 steps, the obs smoke,
+    the four compressed cells, the four checked-in manifests), which must
+    return 0; each cell's kernel launches are counted from 0 and stated,
+    and a cell that is not on the ``pallas`` gossip impl must launch none
+    (the cells are reduced and their models run use_pallas off).  (b) the
+    ``examples/personalized_fleet.py`` twin at its own size (16 nodes,
+    Dirichlet(0.1) streams, T = 60 for each fleet, 64 requests served), its
+    assertions holding: the personalized per-node loss below MC-DSGT's, 64
+    requests, each user pinned to one node; 0 launches."""
+    from repro_torch.exp import validate
+    t_phase = time.perf_counter()
+    cells = []
+    real = validate._run
+
+    def counted(spec, **kw):
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        try:
+            return real(spec, **kw)
+        finally:
+            cells.append((exp.spec_hash(spec), spec,
+                          {k: c.launches for k, c in counters.items()
+                           if c.launches}, time.perf_counter() - t0))
+
+    validate._run = counted
+    try:
+        rc = validate.main(["--examples", str(ROOT / "examples" / "torch"),
+                            "--manifests",
+                            str(ROOT / "experiments" / "manifests" /
+                                "*.json"),
+                            "--device", "cuda", "--min-manifests", "4"])
+    finally:
+        validate._run = real
+    if rc != 0:
+        fail(f"spec smoke (a): repro_torch.exp.validate returned {rc}")
+    for h, spec, launched, sec in cells:
+        print(f"spec smoke (a) [{h}] {spec.model.kind}"
+              f"{'/' + spec.model.arch if spec.model.kind == 'arch' else ''} "
+              f"{spec.algorithm.name} on {spec.topology.kind} "
+              f"({spec.run.gossip_impl}, {spec.run.nodes} nodes): launches "
+              f"{launched or 0}  {sec:.3f} s", flush=True)
+        if launched and spec.run.gossip_impl != "pallas":
+            fail(f"spec smoke (a) [{h}] launched {launched} off the pallas "
+                 "gossip impl")
+    wall_a = time.perf_counter() - t_phase
+    print(f"spec smoke (a): validate returned 0 over {len(cells)} runs, "
+          f"launches {sum(sum(l.values()) for _, _, l, _ in cells)}; wall "
+          f"{wall_a:.3f} s", flush=True)
+
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    twin = load_twin("personalized_fleet")
+    try:
+        res = twin.main(["--device", "cuda", "--quiet"])
+    except AssertionError as e:
+        fail(f"spec smoke (b) personalized_fleet: {e}")
+    wall_b = time.perf_counter() - t0
+    launches = {k: c.launches for k, c in counters.items()}
+    if any(launches.values()):
+        fail(f"spec smoke (b) personalized_fleet launched {launches}")
+    print(f"spec smoke (b) personalized_fleet: per-node loss personalized "
+          f"{res['personalized']:.6g} < mc_dsgt {res['mc_dsgt']:.6g}; served "
+          f"{res['throughput']}; each user on one node; launches 0; wall "
+          f"{wall_b:.3f} s", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"spec smoke phase: wall {predicted('spec smoke', 'wall_s', wall)} "
+          "s", flush=True)
+    return {"cells": len(cells), "personalized": res}
+
+
 def main_path(torch, train, argv, counter, name: str) -> dict:
     """Drive one main path through the train CLI with ``counter`` (a
     kernel wrapper's launch count) set to 0 just before it and read just
@@ -2882,6 +3050,14 @@ def main():
     torch.backends.cudnn.allow_tf32 = False
 
     t_start = t0 = time.perf_counter()
+    walls = {}
+
+    def lap(name: str):
+        """The wall seconds since the last lap, under ``name``."""
+        now = time.perf_counter()
+        walls[name] = round(now - lap.t, 1)
+        lap.t = now
+    lap.t = t_start
     build.build_all()
     print(f"kernels built in {time.perf_counter() - t0:.1f} s "
           f"(nvcc per source, in parallel: {build.BUILD_SECONDS})", flush=True)
@@ -2900,17 +3076,27 @@ def main():
     fkern = time_fkernel(torch, flash_attention, ref)
     fkern_rg = time_fkernel(torch, flash_attention, ref, FLASH_RG, RG_WINDOW,
                             "one recurrentgemma prefill layer")
+    fkern_yi = time_fkernel(torch, flash_attention, ref, FLASH_YI, 0,
+                            "one yi-6b prefill layer")
+    fkern_mt = time_fkernel(torch, flash_attention, ref, FLASH_MT, 0,
+                            "one minitron-4b prefill layer")
     check_dkernel(torch, decode_attention, ref)
     dkern = time_dkernel(torch, decode_attention, ref)
     dkern_rg = time_dkernel(torch, decode_attention, ref, DECODE_RG,
                             RG_WINDOW, "one recurrentgemma decode layer")
+    dkern_yi = time_dkernel(torch, decode_attention, ref, DECODE_YI, 0,
+                            "one yi-6b decode layer")
+    dkern_mt = time_dkernel(torch, decode_attention, ref, DECODE_MT, 0,
+                            "one minitron-4b decode layer")
     print(f"device_ms: launches the profiler did not record in the kernel "
           f"timings above: {device_ms.lost_total}; sessions that recorded "
           f"none and were run again: {device_ms.empty_sessions}", flush=True)
+    lap("build, kernel checks and timings")
     check_small_run(torch, exp)
     check_small_compressed_run(torch, exp)
 
     # the main paths: each kernel's count from 0 just before its path
+    lap("small runs")
     plain = main_path(torch, train, MAIN_ARGV, gossip_matmul.gossip_mix,
                       "gossip_mix")
     profile_step(torch, exp, steps)
@@ -2927,6 +3113,7 @@ def main():
           "price; one card moves no bytes between nodes)", flush=True)
     profile_step(torch, exp, steps, scheme="int8")
 
+    lap("main paths (slices 1-2)")
     counters = {"gossip_mix": gossip_matmul.gossip_mix,
                 "quantized_gossip_mix": quantized_gossip.quantized_gossip_mix,
                 "sparse_segment_mix": sparse_gossip.sparse_segment_mix,
@@ -2941,6 +3128,7 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
+    lap("sampled paths (slice 3)")
     model, fleet = draw_fleet(torch, models, configs, tree, "falcon-mamba-7b",
                               FALCON_PARAMS, SERVE["fleet"])
     served = serve_path(torch, exp, serve, ops, linear_recurrence, ref, model,
@@ -2952,51 +3140,48 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
 
-    model, fleet = draw_fleet(torch, models, configs, tree, "qwen1.5-0.5b",
-                              QWEN_PARAMS, QSERVE["fleet"])
-    qserved = attention_serve_path(torch, exp, serve, ops, flash_attention,
-                                   decode_attention, linear_recurrence, ref,
-                                   model, fleet, counters, QSERVE,
-                                   "qwen serve path")
-    check_sequential(torch, exp, serve, model, fleet, tree,
-                     qserved["completed"], QSERVE)
-    profile_serve(torch, model, fleet, tree, QSERVE,
-                  ("flash_attention", "decode_attention"))
-    del model, fleet
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("falcon-mamba-7b serve")
+    phase = (torch, exp, serve, ops, flash_attention, decode_attention,
+             linear_recurrence, ref, models, configs, tree, counters)
+    qserved = attention_serve_phase(*phase, "qwen1.5-0.5b", QWEN_PARAMS,
+                                    QSERVE, "qwen serve path")
 
+    lap("qwen1.5-0.5b serve")
     served_cli = serve_cli_path(torch, serve_cli, counters)
     gc.collect()
     torch.cuda.empty_cache()
 
-    model, fleet = draw_fleet(torch, models, configs, tree,
-                              "recurrentgemma-2b", RG_PARAMS,
-                              RGSERVE["fleet"])
-    rgserved = attention_serve_path(torch, exp, serve, ops, flash_attention,
-                                    decode_attention, linear_recurrence, ref,
-                                    model, fleet, counters, RGSERVE,
-                                    "recurrentgemma serve path")
-    check_sequential(torch, exp, serve, model, fleet, tree,
-                     rgserved["completed"], RGSERVE)
-    profile_serve(torch, model, fleet, tree, RGSERVE,
-                  ("linear_recurrence", "flash_attention", "decode_attention"))
-    del model, fleet
-    gc.collect()
-    torch.cuda.empty_cache()
+    lap("serve CLI")
+    rgserved = attention_serve_phase(*phase, "recurrentgemma-2b", RG_PARAMS,
+                                     RGSERVE, "recurrentgemma serve path")
 
+    lap("recurrentgemma-2b serve")
+    dense_served = {
+        arch: attention_serve_phase(*phase, arch, n_params, sv,
+                                    f"{arch} serve path")
+        for arch, n_params, sv in (("yi-6b", YI_PARAMS, YSERVE),
+                                   ("minitron-4b", MINITRON_PARAMS, MSERVE))}
+
+    lap("yi-6b and minitron-4b serve")
     logreg_phase(torch, exp, counters)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("§6")
     planned = planning_phase(torch, train, exp, alg, driver, steps, data,
                              counters)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("planning")
     wireless = wireless_phase(torch, train, exp, ops, ref, sim_telemetry,
                               counters, smi)
     gc.collect()
     torch.cuda.empty_cache()
+    lap("wireless/async")
     observed = obs_phase(torch, train, exp, counters, smi, plain["secs"])
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("obs and checkpoints")
+    spec_smoke_phase(torch, exp, counters)
 
     rows = [
         {"name": "gossip_mix", "route": "cuda",
@@ -3112,30 +3297,41 @@ def main():
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
             "path": path, "launches": launches,
             "launches_per_step": launches / steps_})
-    # the same three kernels at recurrentgemma-2b's serve shapes
-    rg_n, rg_new = RGSERVE["requests"], RGSERVE["max_new"]
-    for name, kern, per, unit in (
-            ("linear_recurrence", lkern_rg, rg_n, "launches_per_prefill"),
-            ("flash_attention", fkern_rg, rg_n, "launches_per_prefill"),
-            ("decode_attention", dkern_rg, rg_n * (rg_new - 1),
-             "launches_per_slot_token")):
-        base = next(r for r in rows if r["name"] == name)
-        row = {k: base[k] for k in ("name", "route", "source", "replaces")}
-        row.update(
-            path="recurrentgemma-2b serve",
-            launches=rgserved["launches"][name],
-            max_abs_err=kern["max_abs_err"], ms=kern["ms"],
-            plain_ms=kern["plain_ms"], bound_ms=kern["bound_ms"],
-            bound_by=kern["bound_by"], library_ms=kern["library_ms"],
-            shape=kern["shape"])
-        row[unit] = rgserved["launches"][name] / per
-        if "geometry" in kern:
-            row.update({k: kern[k] for k in ("variant", "geometry",
-                                             "resources")})
-        if "wrapper_host_us" in kern:
-            row.update(wrapper_host_us=kern["wrapper_host_us"],
-                       timed=base["timed"])
-        rows.append(row)
+    # the same three kernels at recurrentgemma-2b's serve shapes, then the
+    # attention kernels at yi-6b's and minitron-4b's (head_dim 128)
+    for path, served_, sv, kerns in (
+            ("recurrentgemma-2b serve", rgserved, RGSERVE,
+             (("linear_recurrence", lkern_rg), ("flash_attention", fkern_rg),
+              ("decode_attention", dkern_rg))),
+            ("yi-6b serve", dense_served["yi-6b"], YSERVE,
+             (("flash_attention", fkern_yi), ("decode_attention", dkern_yi))),
+            ("minitron-4b serve", dense_served["minitron-4b"], MSERVE,
+             (("flash_attention", fkern_mt),
+              ("decode_attention", dkern_mt)))):
+        n, new = sv["requests"], sv["max_new"]
+        for name, kern in kerns:
+            per, unit = ((n * (new - 1), "launches_per_slot_token")
+                         if name == "decode_attention"
+                         else (n, "launches_per_prefill"))
+            base = next(r for r in rows if r["name"] == name)
+            row = {k: base[k] for k in ("name", "route", "source",
+                                        "replaces")}
+            row.update(
+                path=path, launches=served_["launches"][name],
+                max_abs_err=kern["max_abs_err"], ms=kern["ms"],
+                plain_ms=kern["plain_ms"], bound_ms=kern["bound_ms"],
+                bound_by=kern["bound_by"], library_ms=kern["library_ms"],
+                shape=kern["shape"])
+            row[unit] = served_["launches"][name] / per
+            if "geometry" in kern:
+                row.update({k: kern[k] for k in ("variant", "geometry",
+                                                 "resources")})
+            if "wrapper_host_us" in kern:
+                row.update(wrapper_host_us=kern["wrapper_host_us"],
+                           timed=base["timed"])
+            rows.append(row)
+    lap("spec smoke")
+    print(f"chip_smoke phase walls (s): {walls}", flush=True)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
           "(kernels' build included)", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -1,10 +1,12 @@
 """Architecture config registry: resolve --arch <id> to a ModelConfig.
 
-The port trains the dense qwen1.5-0.5b and serves it, the mamba
-falcon-mamba-7b and the hybrid recurrentgemma-2b; the other architectures of
-the JAX package's registry come with their model families (ROADMAP.md
-Queue 1).  ``logreg_paper`` (a copy) holds the paper's §6 protocols, which
-are not architectures and register nothing."""
+The port trains and serves the dense family (qwen1.5-0.5b, yi-6b,
+minitron-4b, and nemotron-4-340b, which fits one card only reduced), and
+serves the mamba falcon-mamba-7b and the hybrid recurrentgemma-2b; the
+other architectures of the JAX package's registry come with their model
+families (ROADMAP.md Queue 1 item 9).  Each config module is a copy of the
+reference's.  ``logreg_paper`` (a copy) holds the paper's §6 protocols,
+which are not architectures and register nothing."""
 from .base import INPUT_SHAPES, InputShape, ModelConfig  # noqa: F401
 
 _REGISTRY = {}
@@ -34,6 +36,9 @@ def _load_all():
     from . import (  # noqa: F401
         falcon_mamba_7b,
         logreg_paper,
+        minitron_4b,
+        nemotron_4_340b,
         qwen1_5_0_5b,
         recurrentgemma_2b,
+        yi_6b,
     )

@@ -3,10 +3,13 @@ paper's §6 logistic-regression data and oracles.
 
 ``TokenStream`` gives (n_nodes, R, batch, seq) batches, so each node's R
 gradient-accumulation rounds see distinct microbatches (Assumption 2's
-independent oracle queries), like the JAX package's ``data/synthetic.py``.
-Its tokens come from a ``torch.Generator`` seeded by (seed, step); the JAX
-package's ``jax.random`` stream cannot be replayed in torch, so tests that
-compare the two packages hand both the same numpy batches.
+independent oracle queries), like the JAX package's ``data/synthetic.py``:
+iid uniform tokens, or with ``hetero_alpha`` each node's tokens from its
+own Dirichlet(alpha) marginal (the federated non-iid protocol; the
+marginals are the reference's numpy draw, bit for bit).  Its tokens come
+from a ``torch.Generator`` seeded by (seed, step); the JAX package's
+``jax.random`` stream cannot be replayed in torch, so tests that compare
+the two packages hand both the same batches.
 
 :func:`logreg_dataset` and :func:`logreg_dataset_dirichlet` (with
 :func:`dirichlet_partition`) make the JAX package's numpy data bit for bit
@@ -19,6 +22,8 @@ package's ``jax.random.randint`` stream cannot replay.
 from __future__ import annotations
 
 import dataclasses
+import math
+from typing import Optional
 
 import numpy as np
 import torch
@@ -34,13 +39,51 @@ class TokenStream:
     seed: int = 0
     active_vocab: int = 0  # 0 = full vocab; else the first k tokens only
     device: str = "cpu"
+    hetero_alpha: Optional[float] = None   # Dirichlet(alpha) per-node token
+                                           # marginals; None = iid uniform
+    arch_type: str = "dense"
+    _node_logits: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False, compare=False)  # cached Dirichlet draw
+
+    def node_token_logits(self) -> torch.Tensor:
+        """(n_nodes, active_vocab) f32 log-probabilities: node i's token
+        marginal is an independent Dirichlet(alpha) draw, the JAX package's
+        numpy draw bit for bit (deterministic in seed; nodes keep their
+        distribution for the whole run, so the draw and its upload to
+        ``device`` happen once and are cached)."""
+        if self.hetero_alpha is None:
+            raise ValueError("node_token_logits requires hetero_alpha")
+        if self._node_logits is None:
+            hi = self.active_vocab or self.vocab_size
+            rng = np.random.default_rng(
+                np.random.SeedSequence((self.seed, 0xD11C)))
+            probs = rng.dirichlet([self.hetero_alpha] * hi,
+                                  size=self.n_nodes)
+            self._node_logits = torch.from_numpy(
+                np.log(np.maximum(probs, 1e-20)).astype(np.float32)).to(
+                    self.device)
+        return self._node_logits
 
     def batch_at(self, step: int) -> dict:
-        """Step ``step``'s batch, the same on every call.  Tokens are drawn
-        on the CPU (a few KB) and moved to ``device``."""
+        """Step ``step``'s batch, the same on every call.  iid tokens are
+        drawn on the CPU (a few KB) and moved to ``device``; with
+        ``hetero_alpha`` each node's tokens are categorical draws from its
+        marginal (:meth:`node_token_logits`), made on ``device`` by a
+        generator there."""
+        if self.arch_type in ("vlm", "audio"):
+            raise NotImplementedError(
+                f"arch_type={self.arch_type!r}: the stream's prefix_embeds "
+                "and frames fields are not ported yet (ROADMAP.md Queue 1 "
+                "item 9)")
         seed = int(np.random.SeedSequence((self.seed, step)).generate_state(1)[0])
-        gen = torch.Generator().manual_seed(seed)
         shape = (self.n_nodes, self.rounds, self.batch, self.seq)
+        if self.hetero_alpha is not None:
+            probs = self.node_token_logits().exp()
+            gen = torch.Generator(device=probs.device).manual_seed(seed)
+            tokens = torch.multinomial(probs, math.prod(shape[1:]),
+                                       replacement=True, generator=gen)
+            return {"tokens": tokens.view(shape)}
+        gen = torch.Generator().manual_seed(seed)
         hi = self.active_vocab or self.vocab_size
         tokens = torch.randint(0, hi, shape, generator=gen)
         return {"tokens": tokens.to(self.device)}
@@ -48,10 +91,12 @@ class TokenStream:
 
 def token_stream_for(cfg, n_nodes: int, rounds: int, batch: int, seq: int,
                      seed: int = 0, active_vocab: int = 0,
+                     hetero_alpha: Optional[float] = None,
                      device: str = "cpu") -> TokenStream:
     return TokenStream(vocab_size=cfg.vocab_size, n_nodes=n_nodes,
                        rounds=rounds, batch=batch, seq=seq, seed=seed,
-                       active_vocab=active_vocab, device=device)
+                       active_vocab=active_vocab, device=device,
+                       hetero_alpha=hetero_alpha, arch_type=cfg.arch_type)
 
 
 # ---------------------------------------------------------------------------

@@ -143,7 +143,9 @@ def stage_plan(plan, device="cpu") -> dict:
 def consensus_distance(x: torch.Tensor) -> float:
     """||x - x̄||_F of the flat (n, D) state, reduced on the device one row
     at a time: the temporaries are (D,) vectors, never a second (n, D)
-    state (7.4 GB at full width).  One scalar crosses to the host."""
+    state (7.4 GB at full width).  One scalar crosses to the host.
+    Squares and sums, as :func:`repro_torch.sim.telemetry.
+    consensus_distance` does."""
     xb = alg.node_mean(x)[0]
-    sq = sum(torch.linalg.vector_norm(row - xb) ** 2 for row in x)
+    sq = sum((row - xb).square_().sum() for row in x)
     return float(sq) ** 0.5

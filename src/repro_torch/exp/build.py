@@ -267,15 +267,12 @@ def _validate(spec: ExperimentSpec) -> None:
 def _check_ported(spec: ExperimentSpec) -> None:
     """Raise NotImplementedError, naming its ROADMAP.md Queue 1 item, for
     the first scenario axis the spec uses that the port does not run yet."""
-    logreg = spec.model.kind == "logreg"
     arch_pattern = (configs.get(spec.model.arch).pattern
                     if spec.model.kind == "arch" else ("attn",))
     unported = [
         (arch_pattern != ("attn",),
          f"training model.arch={spec.model.arch!r} (the arch trainer runs "
          "the dense ('attn',) pattern)", 9),
-        (spec.data.hetero_alpha is not None and not logreg,
-         "data.hetero_alpha (the Dirichlet token streams)", 9),
     ]
     for used, what, item in unported:
         if used:
@@ -352,7 +349,8 @@ def build(spec: ExperimentSpec, *, device="cuda") -> Built:
                               for _, shape in tree.items(built.model.shapes))
         built.stream = token_stream_for(
             cfg, n, R, spec.data.batch, spec.data.seq, seed=rs.seed,
-            active_vocab=spec.data.active_vocab, device=dev)
+            active_vocab=spec.data.active_vocab,
+            hetero_alpha=spec.data.hetero_alpha, device=dev)
     else:
         mr = spec.model
         if spec.data.hetero_alpha is not None:

@@ -1,11 +1,13 @@
-"""Shared layer primitives: rmsnorm, the swiglu and geglu MLPs, tied
-embedding, RoPE.
+"""Shared layer primitives: rmsnorm, the MLPs (gated swiglu and geglu, plain
+gelu and squared-ReLU relu2), the embedding with a tied or untied
+unembedding, RoPE.
 
 Functional like the JAX package's ``models/layers.py``: ``init_*`` builds a
 params dict (same leaf names and layouts), the apply functions are plain
 functions of tensors.  Numerics follow the reference: the norm runs in f32
-with eps 1e-6, RoPE rotates split halves (not interleaved pairs), the
-unembedding reuses the embedding matrix, and geglu's GeLU is the tanh
+with eps 1e-6, RoPE rotates split halves (not interleaved pairs), a tied
+unembedding reuses the embedding matrix (an untied one is its own
+``unembed`` (d_model, vocab) leaf), and every GeLU is the tanh
 approximation, ``jax.nn.gelu``'s default (PyTorch's default is the erf form).
 """
 
@@ -43,30 +45,47 @@ def apply_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
 # MLP
 # ---------------------------------------------------------------------------
 
-def init_mlp(gen, d_model: int, d_ff: int, dtype, device) -> dict:
-    return {"wi": _dense_init(gen, (d_model, d_ff), d_model, dtype, device),
-            "wo": _dense_init(gen, (d_ff, d_model), d_ff, dtype, device),
-            "wg": _dense_init(gen, (d_model, d_ff), d_model, dtype, device)}
+def init_mlp(gen, d_model: int, d_ff: int, act: str, dtype, device) -> dict:
+    """wi and wo, and the gate wg for the gated activations (swiglu,
+    geglu) only, as in the reference."""
+    p = {"wi": _dense_init(gen, (d_model, d_ff), d_model, dtype, device),
+         "wo": _dense_init(gen, (d_ff, d_model), d_ff, dtype, device)}
+    if act in ("swiglu", "geglu"):
+        p["wg"] = _dense_init(gen, (d_model, d_ff), d_model, dtype, device)
+    return p
 
 
 def apply_mlp(p: dict, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
-    """swiglu: (silu(x wg) * x wi) wo; geglu: (gelu(x wg) * x wi) wo."""
+    """swiglu: (silu(x wg) * x wi) wo; geglu: (gelu(x wg) * x wi) wo;
+    gelu: gelu(x wi) wo; relu2: relu(x wi)² wo (nemotron-4's)."""
+    h = x @ p["wi"]
     if act == "swiglu":
-        g = F.silu(x @ p["wg"])
+        h = F.silu(x @ p["wg"]) * h
     elif act == "geglu":
-        g = F.gelu(x @ p["wg"], approximate="tanh")
+        h = F.gelu(x @ p["wg"], approximate="tanh") * h
+    elif act == "gelu":
+        h = F.gelu(h, approximate="tanh")
+    elif act == "relu2":
+        h = torch.square(F.relu(h))
     else:
         raise ValueError(f"unknown activation {act!r}")
-    return (g * (x @ p["wi"])) @ p["wo"]
+    return h @ p["wo"]
 
 
 # ---------------------------------------------------------------------------
-# Embeddings / unembedding (tied)
+# Embeddings / unembedding
 # ---------------------------------------------------------------------------
 
-def init_embed(gen, vocab: int, d_model: int, dtype, device) -> dict:
-    return {"embedding": _dense_init(gen, (vocab, d_model), d_model, dtype,
-                                     device)}
+def init_embed(gen, vocab: int, d_model: int, dtype, device,
+               tie: bool = True) -> dict:
+    """The (vocab, d_model) embedding, and when untied the (d_model, vocab)
+    ``unembed``."""
+    p = {"embedding": _dense_init(gen, (vocab, d_model), d_model, dtype,
+                                  device)}
+    if not tie:
+        p["unembed"] = _dense_init(gen, (d_model, vocab), d_model, dtype,
+                                   device)
+    return p
 
 
 def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
@@ -74,6 +93,8 @@ def embed_tokens(p: dict, tokens: torch.Tensor) -> torch.Tensor:
 
 
 def unembed(p: dict, x: torch.Tensor) -> torch.Tensor:
+    if "unembed" in p:
+        return x @ p["unembed"]
     return x @ p["embedding"].T
 
 

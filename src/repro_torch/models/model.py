@@ -2,15 +2,16 @@
 server and the tests share, and ``params_from_jax`` carries a JAX parameter
 tree (or serve cache) across.
 
-The port runs the dense decoder (qwen1.5-0.5b's family), the mamba stack
-(falcon-mamba-7b's family) and the hybrid of RG-LRU and local attention
-(recurrentgemma-2b's family) in every mode.  ``use_pallas`` routes
-attention to the Hopper ``flash_attention`` (prefill, and a train-mode
-forward that cannot be differentiated, as in the reference) and
-``decode_attention`` (decode), both with the config's sliding window, and
-the mamba and RG-LRU recurrences to ``linear_recurrence``; every other
-configuration raises ``NotImplementedError`` naming the ROADMAP.md item
-that ports it.
+The port runs the dense decoder (the family of qwen1.5-0.5b, yi-6b,
+minitron-4b and nemotron-4-340b: any MLP activation, tied or untied
+embeddings), the mamba stack (falcon-mamba-7b's family) and the hybrid of
+RG-LRU and local attention (recurrentgemma-2b's family) in every mode.
+``use_pallas`` routes attention to the Hopper ``flash_attention``
+(prefill, and a train-mode forward that cannot be differentiated, as in
+the reference) and ``decode_attention`` (decode), both with the config's
+sliding window, and the mamba and RG-LRU recurrences to
+``linear_recurrence``; every other configuration raises
+``NotImplementedError`` naming the ROADMAP.md item that ports it.
 """
 
 from __future__ import annotations
@@ -50,9 +51,8 @@ def _check_supported(cfg) -> None:
             f"{sorted(PORTED)}; ROADMAP.md Queue 1 item 9)")
     unsupported = {
         "logit_softcap": (cfg.logit_softcap, (0.0,)),
-        "mlp_act": (cfg.mlp_act, ("swiglu", "geglu")),
+        "mlp_act": (cfg.mlp_act, ("swiglu", "geglu", "relu2", "gelu")),
         "norm": (cfg.norm, ("rmsnorm",)),
-        "tie_embeddings": (cfg.tie_embeddings, (True,)),
         "frontend": (cfg.frontend, ("",)),
     }
     for field, (have, ported) in unsupported.items():

@@ -56,8 +56,8 @@ def _init_one_layer(gen, cfg, kind, dtype, device) -> dict:
         return {"ln1": layers.init_norm(cfg, dtype, device),
                 "attn": attn.init_attention(gen, cfg, dtype, device),
                 "ln2": layers.init_norm(cfg, dtype, device),
-                "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
-                                       device)}
+                "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
+                                       dtype, device)}
     if kind == "mamba":
         return {"ln1": layers.init_norm(cfg, dtype, device),
                 "mamba": ssm.init_mamba(gen, cfg, dtype, device)}
@@ -65,8 +65,8 @@ def _init_one_layer(gen, cfg, kind, dtype, device) -> dict:
         return {"ln1": layers.init_norm(cfg, dtype, device),
                 "rec": rglru.init_rglru(gen, cfg, dtype, device),
                 "ln2": layers.init_norm(cfg, dtype, device),
-                "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
-                                       device)}
+                "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
+                                       dtype, device)}
     raise ValueError(f"unknown layer kind {kind!r}")
 
 
@@ -84,7 +84,7 @@ def empty_params(cfg, dtype, device, lead: tuple = ()) -> dict:
     unit = _init_unit(None, cfg, dtype, "meta")
     rem = rem_pattern(cfg)
     top = {"embed": layers.init_embed(None, cfg.vocab_size, cfg.d_model,
-                                      dtype, "meta"),
+                                      dtype, "meta", cfg.tie_embeddings),
            "final_norm": layers.init_norm(cfg, dtype, "meta")}
 
     def alloc(t, *axes):
@@ -119,7 +119,7 @@ def init_params(gen, cfg, dtype=torch.float32, device="cpu",
                  _init_unit(gen, cfg, dtype, device, rem_pattern(cfg)))
     tree.map(lambda dst, src: dst.copy_(src), out["embed"],
              layers.init_embed(gen, cfg.vocab_size, cfg.d_model, dtype,
-                               device))
+                               device, cfg.tie_embeddings))
     tree.map(lambda dst, src: dst.copy_(src), out["final_norm"],
              layers.init_norm(cfg, dtype, device))
     return out

@@ -81,10 +81,11 @@ def consensus_distance(x: torch.Tensor) -> float:
     reference.  Reduces on the device over blocks of rows of at most
     ``_CHUNK_BYTES``: a temporary never holds a second copy of a large
     state (7.4 GB for the arch trainer's), and one scalar crosses to the
-    host."""
+    host.  Squares and sums (``vector_norm``'s CPU reduction accumulates
+    in f32 lane by lane: 0.28% low on a 16-node reduced qwen state)."""
     xb = x.mean(dim=0, keepdim=True)
     rows = max(1, _CHUNK_BYTES // max(1, x[0].numel() * x.element_size()))
-    sq = sum(torch.linalg.vector_norm(c - xb) ** 2 for c in x.split(rows))
+    sq = sum((c - xb).square_().sum() for c in x.split(rows))
     return float(sq) ** 0.5
 
 

@@ -24,7 +24,11 @@ query heads over 4 KV heads of 128, G = 8) with the window off and on,
 inputs that are not contiguous, and their refusals; for the bf16
 tensor-core route of ``flash_attention``, every head_dim at Sq 16, 128 and
 384 with G 1 and 4, a window, rows with no valid key, reruns bit-equal, and
-a bf16 call it refuses that no other kernel serves; for ``decode_attention``,
+a bf16 call it refuses that no other kernel serves; both kernels at the
+yi-6b and minitron-4b serve paths' shapes (head_dim 128: 32 query heads
+over 4 KV heads and 24 over 8, a 1920-token prefill, a 2048-slot cache) in
+both dtypes, and refusing nemotron-4-340b's published head_dim 192 (its
+full preset with use_pallas raises on the card); for ``decode_attention``,
 clusters of 1, 2 and 8 blocks, caches whose splits hold no valid slot, and
 reruns bit-equal.  At recurrentgemma-2b's head_dim 256 (held at its serve
 shapes by ``chip_smoke.py``): the f32 flash kernel at a sequence that is not
@@ -721,3 +725,84 @@ def test_attention_wrappers_refuse_hd_96_which_the_reference_takes():
         assert (flash_attention.launches, decode_attention.launches) == before
     cpu = torch.zeros(1, 128, 2, 96)
     assert flash_attention(cpu, cpu, cpu).shape == (1, 128, 2, 96)
+
+
+# The slice-14 serve paths' shapes at head_dim 128 (chip_smoke.py FLASH_YI,
+# FLASH_MT, DECODE_YI, DECODE_MT): (B, S, H, KV) prefills and (B, C, J, G)
+# decodes.  bf16 outputs there average hundreds of keys (|o| ~0.03-0.05), so
+# bf16 is held at chip_smoke.py's serve atol (SERVE_ATOL_BF16) with rtol 2e-2.
+HD128_FLASH = [(1, 1920, 32, 4), (1, 1920, 24, 8)]
+HD128_DECODE = [(1, 2048, 4, 8), (1, 2048, 8, 3)]
+HD128_ATOL_BF16 = {"flash": 1e-2, "decode": 2e-3}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,S,H,KV", HD128_FLASH, ids=["yi-6b", "minitron-4b"])
+def test_flash_attention_at_the_hd128_serve_shapes(B, S, H, KV, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    rng = np.random.default_rng(S + H)
+    q = _cuda_normal(rng, (B, S, H, 128), dtype)
+    k = _cuda_normal(rng, (B, S, KV, 128), dtype)
+    v = _cuda_normal(rng, (B, S, KV, 128), dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    atol = HD128_ATOL_BF16["flash"] if dtype == torch.bfloat16 else tol
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v), rtol=tol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,C,J,G", HD128_DECODE,
+                         ids=["yi-6b", "minitron-4b"])
+def test_decode_attention_at_the_hd128_serve_shapes(B, C, J, G, dtype):
+    """A full cache read at its last position, as the serve paths' last
+    decode step reads it; SIMT route, 8 splits a (b, KV head)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    from repro_torch.kernels import decode_attention as da_mod
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geometry = da_mod.launch_geometry(B, J, C, 128, dtype, sms)
+    assert geometry["route"] == "simt"
+    assert geometry["grid"] == (J * da_mod.splits_for(B, J, C, sms, 128), B)
+    rng = np.random.default_rng(C + J)
+    q = _cuda_normal(rng, (B, 1, J, G, 128), dtype)
+    k = _cuda_normal(rng, (B, C, J, 128), dtype)
+    v = _cuda_normal(rng, (B, C, J, 128), dtype)
+    kpos = torch.arange(C, device="cuda", dtype=torch.int32)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, kpos, C - 1)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    atol = HD128_ATOL_BF16["decode"] if dtype == torch.bfloat16 else tol
+    torch.testing.assert_close(
+        got, ref.decode_attention_ref(q, k, v, kpos, C - 1), rtol=tol,
+        atol=atol)
+
+
+@pytest.mark.cuda
+def test_attention_wrappers_refuse_nemotrons_hd_192():
+    """nemotron-4-340b's published head_dim, 18,432 / 96 = 192, is no
+    kernel's: both wrappers raise on a CUDA tensor before any launch, so
+    its full preset with use_pallas raises on the card (the port serves it
+    only reduced)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    from repro_torch import configs
+    assert configs.get("nemotron-4-340b").head_dim == 192
+    x = torch.zeros(1, 128, 8, 192, device="cuda", dtype=torch.bfloat16)
+    q1 = torch.zeros(1, 1, 8, 12, 192, device="cuda", dtype=torch.bfloat16)
+    kpos = torch.arange(128, device="cuda", dtype=torch.int32)
+    before = (flash_attention.launches, decode_attention.launches)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash_attention(torch.zeros(1, 128, 96, 192, device="cuda",
+                                    dtype=torch.bfloat16), x, x)
+    with pytest.raises(ValueError, match="head_dim"):
+        decode_attention(q1, x, x, kpos, 127)
+    assert (flash_attention.launches, decode_attention.launches) == before

@@ -169,8 +169,10 @@ def test_geglu_mlp_matches_reference():
     x = rng.standard_normal((2, 5, 64)).astype(np.float32)
     want = jlayers.apply_mlp(jp, jnp.asarray(x), "geglu")
     _close(layers.apply_mlp(p, torch.from_numpy(x), "geglu"), want)
+    # relu2 and gelu are ported (tests/test_torch_dense_archs.py); an
+    # activation neither package knows raises
     with pytest.raises(ValueError, match="unknown activation"):
-        layers.apply_mlp(p, torch.from_numpy(x), "relu2")
+        layers.apply_mlp(p, torch.from_numpy(x), "tanh")
 
 
 def _qkv(rng, B, S, J, G, hd):

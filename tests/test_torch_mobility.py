@@ -247,9 +247,10 @@ def test_cli_delayed_mobility_run_matches_reference(monkeypatch, capsys):
                                        init))
 
     def reference_stream(cfg, n, R, batch, seq, seed=0, active_vocab=0,
-                         device="cpu"):
+                         hetero_alpha=None, device="cpu"):
         return _ReferenceStream(jtoken_stream_for(
-            jcfg, n, R, batch, seq, seed=seed, active_vocab=active_vocab))
+            jcfg, n, R, batch, seq, seed=seed, active_vocab=active_vocab,
+            hetero_alpha=hetero_alpha))
 
     monkeypatch.setattr(tbuild, "build_model", with_reference_init)
     monkeypatch.setattr(tbuild, "token_stream_for", reference_stream)

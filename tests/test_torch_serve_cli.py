@@ -131,9 +131,10 @@ def _serve_both(argv):
                                        init))
 
     def reference_stream(cfg, n, R, batch, seq, seed=0, active_vocab=0,
-                         device="cpu"):
+                         hetero_alpha=None, device="cpu"):
         return _ReferenceStream(jtoken_stream_for(
-            jcfg, n, R, batch, seq, seed=seed, active_vocab=active_vocab))
+            jcfg, n, R, batch, seq, seed=seed, active_vocab=active_vocab,
+            hetero_alpha=hetero_alpha))
 
     mp = pytest.MonkeyPatch()
     mp.setattr(tbuild, "build_model", with_reference_init)

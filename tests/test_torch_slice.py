@@ -277,7 +277,10 @@ def test_default_device_raises_without_gpu(monkeypatch):
 
 
 @pytest.mark.parametrize("flags", [["--arch", "falcon-mamba-7b"],
-                                   ["--hetero-alpha", "0.1"],
+                                   # the Dirichlet streams are ported; they
+                                   # do not make mamba trainable
+                                   ["--arch", "falcon-mamba-7b",
+                                    "--hetero-alpha", "0.1"],
                                    ["--arch", "recurrentgemma-2b"]])
 def test_unported_axes_raise_with_their_roadmap_item(flags):
     with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 1 item"):
