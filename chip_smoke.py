@@ -48,15 +48,30 @@ and then drives the main paths through the train CLI's own functions:
   step through ``decode_attention`` against a 2048-slot ring that has
   wrapped; two requests are served again one at a time and must give the
   same tokens;
-* slice 14, the same serving of a yi-6b fleet (4 members of 5.80B
-  parameters, 46.4 GB in bf16; 32 query heads over 4 KV heads of 128) and
-  then, that fleet freed, of a minitron-4b fleet (4 members of 4.19B, 33.5
+* slice 14, the same serving of a yi-6b fleet (at its published widths,
+  its depth cut to 8 of 32 layers: 4 members of 1.65B parameters, 13.2 GB
+  in bf16; 32 query heads over 4 KV heads of 128) and then, that fleet
+  freed, of a minitron-4b fleet (8 of 32 layers: 4 members of 2.23B, 17.8
   GB; relu2, untied embeddings, 24 query heads over 8 KV heads of 128): 8
   requests of a 1920-token prompt and 128 new tokens on 4 slots against a
   2048-slot KV cache, every attention layer of every prefill through
   ``flash_attention`` and of every decode step through ``decode_attention``
   at head_dim 128; two requests of each are served again one at a time and
   must give the same tokens;
+* slice 15, the same serving of a granite-moe-3b-a800m fleet (4 members of
+  3.30B parameters, 26.4 GB in bf16; 32 MoE layers of 40 experts top-8, 24
+  query heads over 8 KV heads of 64): 8 requests of a 1920-token prompt
+  and 128 new tokens on 4 slots against a 2048-slot KV cache, each MoE
+  layer's attention through ``flash_attention`` in every prefill and
+  ``decode_attention`` in every decode step; two requests are served again
+  one at a time and must give the same tokens; then slice 15's training
+  paths through the train CLI (the pattern-generic arch trainer, use_pallas
+  off as in the reference; MC-DSGT R=2 on 4 nodes through ``gossip_mix``):
+  internvl2-1b at full width on 256 patch embeddings + 64 tokens a
+  sequence, granite-moe-3b-a800m at its published widths cut to 4 layers
+  (3 steps straight, then a checkpoint after 2 and a restore, the restored
+  run equal to the straight one) and falcon-mamba-7b cut to 2 layers, then
+  the ``examples/torch/serve_batch.py`` twin (reduced, 0 launches);
 * the paper's §6 on the dense host runtime, through the twins of the
   reference's examples under ``examples/torch/``: the quickstart
   (MC-DSGT <= DSGD on ``sun``), Figure 2 at its default budget (both
@@ -117,16 +132,20 @@ qwen serve path ``flash_attention`` 24 times per prefill and
 ``gossip_mix`` 2 times per step and nothing else, the recurrentgemma serve
 path ``linear_recurrence`` 18 and ``flash_attention`` 8 times per prefill
 and ``decode_attention`` 8 times per slot and token, the yi-6b and
-minitron-4b serve paths ``flash_attention`` 32 times per prefill and
-``decode_attention`` 32 times per slot and token, the wireless legs the
+minitron-4b serve paths ``flash_attention`` 8 times per prefill and
+``decode_attention`` 8 times per slot and token, the granite-moe serve path
+32 times each (one attention layer a MoE layer), the slice-15
+training legs ``gossip_mix`` 2 times per step, the wireless legs the
 gossip kernels 2 times per mixing step, the observability and
 checkpoint legs ``gossip_mix`` 2 times per step; the counts are set to 0
 just before a path and read just after it.  It prints the card, its total
 wall time, one JSON line of per-kernel numbers (a second ``gossip_mix`` row
 for the planning path, three rows for the wireless legs, two for the
-observability and checkpoint legs, three rows at the recurrentgemma
-shapes, then the last four: the attention kernels at yi-6b's and
-minitron-4b's head_dim 128), and last ``{"ok": true, "device": {...}}``.
+observability and checkpoint legs, three for the slice-15 training legs,
+three rows at the recurrentgemma shapes, then the last six: the attention
+kernels at yi-6b's and minitron-4b's head_dim 128 and at
+granite-moe-3b-a800m's head_dim 64 with G = 3), and last ``{"ok": true,
+"device": {...}}``.
 Any failed phase exits non-zero; so does a machine without a CUDA device or
 a directory without the repository.
 """
@@ -135,6 +154,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import itertools
 import json
 import math
 import subprocess
@@ -219,23 +239,59 @@ LINREC_RG = (1, 3968, 2560)              # (B, S, lru_width) of one layer
 # of 128) and prompt + new tokens = 2048 cache slots (a multiple of 256, the
 # tiling both kernels take; so 128 new tokens, not fewer).  minitron keeps
 # prefill_last_only off, as its config does: a prefill unembeds all 1920
-# positions (0.98 GB of bf16 logits).
+# positions (0.98 GB of bf16 logits).  Their depth is cut to HD128_LAYERS
+# of their 32 layers (the widths, and so every kernel shape, unchanged),
+# so that the smoke, which grows a phase a slice, stays well inside its
+# time limit: the two paths took 102-110 s at full depth.
 YSERVE = dict(requests=8, batch=4, prompt_len=1920, max_new=128, fleet=4,
               routing="user-affinity", dtype="bf16", seed=0)
 MSERVE = dict(YSERVE)
-YI_PARAMS = 5_798_891_520                # per member, from the config's shapes
-MINITRON_PARAMS = 4_190_309_376          # per member (untied: 2 x 786M)
+HD128_LAYERS = 8
+YI_PARAMS = 1_646_333_952                # per member at HD128_LAYERS layers
+MINITRON_PARAMS = 2_227_227_648          # per member (untied: 2 x 786M)
 FLASH_YI = (1, 1920, 32, 4, 128)         # (B, S, H, KV, hd) of one prefill
 DECODE_YI = (1, 2048, 4, 8, 128)         # (B, C, J, G, hd) of one decode
 FLASH_MT = (1, 1920, 24, 8, 128)
 DECODE_MT = (1, 2048, 8, 3, 128)
-# Predictions for the slice-14 phases, written before their first run on
-# the card (PERF.md §6, PR 26) and printed beside the readings: peak device
-# memory in GB (the fleet, one member's prefill activations and logits, the
-# slots' caches) and each phase's wall seconds.
-PREDICTED = {"yi-6b": {"peak_gb": (47, 50), "wall_s": (50, 110)},
-             "minitron-4b": {"peak_gb": (35, 38), "wall_s": (45, 100)},
-             "spec smoke": {"wall_s": (40, 120)}}
+# Slice 15: granite-moe-3b-a800m (configs/granite_moe_3b_a800m.py,
+# hf:ibm-granite/granite-3.0-1b-a400m-base family; 32 MoE layers of 40
+# experts top-8 with d_ff 512, 24 query heads over 8 KV heads of 64, G = 3)
+# served from a fleet of 4 at its published widths and full depth (26.4 GB
+# in bf16), as qwen's: a 1920-token prompt and a 2048-slot cache.  Each MoE
+# layer runs one attention layer, so the kernels launch 32 times a prefill
+# and 32 times a slot-token.
+GSERVE = dict(YSERVE)
+GRANITE_PARAMS = 3_298_793_472           # per member, from the config's shapes
+FLASH_GR = (1, 1920, 24, 8, 64)          # (B, S, H, KV, hd) of one prefill
+DECODE_GR = (1, 2048, 8, 3, 64)          # (B, C, J, G, hd) of one decode
+# Slice 15's training paths, through the train CLI (use_pallas off, as the
+# reference trains; the gossip through gossip_mix, 2 launches a step):
+# internvl2-1b (configs/internvl2_1b.py, arXiv:2404.16821) at full width,
+# each sequence 256 patch embeddings of the stub frontend and 64 text
+# tokens (--seq 320; at the CLI's default 64 no text would be left);
+# granite-moe-3b-a800m and falcon-mamba-7b at their published widths with
+# the depth cut to TRAIN_LAYERS (a 4-node state of all 32 or 64 layers
+# does not fit one card), registered under "<arch>-<L>l".
+VLM_ARGV = ["--arch", "internvl2-1b", "--preset", "full", "--nodes", "4",
+            "--algo", "mc_dsgt", "--R", "2", "--gossip-impl", "pallas",
+            "--batch", "2", "--seq", "320", "--steps", str(STEPS),
+            "--device", "cuda"]
+TRAIN_LAYERS = {"granite-moe-3b-a800m": 4, "falcon-mamba-7b": 2}
+TRAIN_D = {"granite-moe-3b-a800m": 478_414_848, "falcon-mamba-7b": 476_966_912}
+# Predictions for the slice-14 and slice-15 phases (yi-6b's and
+# minitron-4b's at HD128_LAYERS), written before their first run on the
+# card (PERF.md §6) and printed beside the readings:
+# peak device memory in GB (the fleet, one member's prefill activations and
+# logits, the slots' caches; or the training state) and each phase's wall
+# seconds.
+PREDICTED = {"yi-6b": {"peak_gb": (15, 17.5), "wall_s": (15, 40)},
+             "minitron-4b": {"peak_gb": (19.5, 22), "wall_s": (15, 40)},
+             "spec smoke": {"wall_s": (40, 120)},
+             "granite-moe-3b-a800m": {"peak_gb": (28, 34),
+                                      "wall_s": (60, 140)},
+             "internvl2-1b train": {"peak_gb": (30, 45),
+                                    "wall_s": (20, 60)},
+             "arch train": {"wall_s": (90, 240)}}
 # The serve CLI path: the port's launch/serve.py trains a qwen1.5-0.5b fleet
 # at full width (2 MC-DSGT steps through gossip_mix) and serves it.
 SERVE_CLI_STEPS = 2
@@ -1445,8 +1501,9 @@ def cold_copies(tensors: tuple, n_calls: int) -> list:
 
 
 def device_ms_cold(torch, fn, tensors: tuple, reps: int) -> float:
-    """device_ms of ``fn(*inputs)``, each call on the next of cold_copies."""
-    inputs = iter(cold_copies(tensors, reps))
+    """device_ms of ``fn(*inputs)``, each call on the next of cold_copies,
+    round and round (a session device_ms runs again takes reps more)."""
+    inputs = itertools.cycle(cold_copies(tensors, reps))
     return device_ms(torch, lambda: fn(*next(inputs)), reps)
 
 
@@ -1621,11 +1678,14 @@ def time_dkernel(torch, decode_attention, ref, shape=DECODE_MAIN,
 
 
 def draw_fleet(torch, models, configs, tree, arch: str, n_params: int,
-               members: int):
-    """``arch`` with use_pallas on, and a fleet of ``members`` drawn from
-    seeds 0, 1, ... layer by layer straight into one bf16 tensor per leaf
-    with a leading fleet axis (mamba's A_log f32, as the init makes it)."""
+               members: int, layers: int = 0):
+    """``arch`` with use_pallas on (and ``layers`` layers when given), and a
+    fleet of ``members`` drawn from seeds 0, 1, ... layer by layer straight
+    into one bf16 tensor per leaf with a leading fleet axis (mamba's A_log
+    f32, as the init makes it)."""
     cfg = dataclasses.replace(configs.get(arch), use_pallas=True)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers)
     model = models.build(cfg)
     t0 = time.perf_counter()
     fleet = model.empty(torch.bfloat16, "cuda", lead=(members,))
@@ -1704,7 +1764,8 @@ def serve_path(torch, exp, serve, ops, linear_recurrence, ref, model, fleet,
 
 
 def layer_kinds(cfg) -> dict:
-    """How many layers of each kind the config stacks (units + remainder)."""
+    """How many layers of each kind the config stacks (units + remainder);
+    an ``"attn"`` and a ``"moe"`` layer each run one attention layer."""
     units, rem = cfg.units_and_rem
     kinds = list(cfg.pattern) * units + list(cfg.pattern[:rem])
     return {k: kinds.count(k) for k in sorted(set(kinds))}
@@ -1713,10 +1774,10 @@ def layer_kinds(cfg) -> dict:
 def attention_serve_path(torch, exp, serve, ops, flash_attention,
                          decode_attention, linear_recurrence, ref, model,
                          fleet, counters, sv: dict, label: str) -> dict:
-    """Slice 5's and slice 8's main paths: serve_fleet over the qwen1.5-0.5b
-    or the recurrentgemma-2b fleet with every kernel's count from 0.  It must
-    complete ``sv['requests']`` requests of ``sv['max_new']`` tokens with
-    exactly one flash_attention launch per attention layer and prefill, one
+    """Slice 5's and slice 8's main paths (and slices 14-15's): serve_fleet
+    over the fleet with every kernel's count from 0.  It must complete
+    ``sv['requests']`` requests of ``sv['max_new']`` tokens with exactly
+    one flash_attention launch per attention (or MoE) layer and prefill, one
     decode_attention launch per attention layer, slot and token after the
     first, one linear_recurrence launch per rglru layer and prefill (a
     decode step's one token takes the chunked scan), and no other kernel.
@@ -1757,8 +1818,9 @@ def attention_serve_path(torch, exp, serve, ops, flash_attention,
     launches = {k: c.launches for k, c in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     kinds, n = layer_kinds(model.cfg), sv["requests"]
-    want = {"flash_attention": kinds.get("attn", 0) * n,
-            "decode_attention": kinds.get("attn", 0) * n * (sv["max_new"] - 1),
+    attn_layers = kinds.get("attn", 0) + kinds.get("moe", 0)
+    want = {"flash_attention": attn_layers * n,
+            "decode_attention": attn_layers * n * (sv["max_new"] - 1),
             "linear_recurrence": kinds.get("rglru", 0) * n}
     want = {k: w for k, w in want.items() if w}
     if any(launches[k] != w for k, w in want.items()) or \
@@ -2708,6 +2770,76 @@ class Stopwatch:
         setattr(self.obj, self.name, self.real)
 
 
+def restore_leg(torch, train, exp, ckpt, argv, counters, label: str,
+                smi: str, tmp: str) -> dict:
+    """Checkpoint and restore through the train CLI on ``argv`` (MC-DSGT
+    R=2 through gossip_mix): 3 steps straight, then 2 steps with
+    --checkpoint and 1 more with --restore: losses equal, and the final x,
+    h, g_prev bit-equal to the straight run's (or, failing that, within
+    rtol 1e-4 / atol 1e-5, and the line says which held); the file's size,
+    the free disk before writing, and the write and read seconds; the file
+    deleted after the comparison (a failure still fails); 12 launches in 6
+    steps and nothing else."""
+    import os
+    import shutil
+    ck = os.path.join(tmp, "ck.msgpack")
+    straight = cli_run(torch, train, exp, argv + ["--steps", "3"],
+                       counters, f"{label} 3 steps straight", smi,
+                       keep=("x", "h", "g_prev"))
+    kept = straight.pop("kept")
+    del straight["state"]
+    free_gb = shutil.disk_usage(tmp).free / 1e9
+    try:
+        with Stopwatch(ckpt, "save_checkpoint") as w:
+            first = cli_run(torch, train, exp, argv + [
+                "--steps", "2", "--checkpoint", ck], counters,
+                f"{label} 2 steps + --checkpoint", smi)
+        del first["state"]
+        size_gb = os.path.getsize(ck) / 1e9
+        with Stopwatch(ckpt, "load_checkpoint") as r:
+            rest = cli_run(torch, train, exp, argv + [
+                "--steps", "1", "--restore", ck], counters,
+                f"{label} --restore + 1 step", smi)
+    finally:
+        for f in (ck, ck + ".spec.json", ck + ".tmp"):
+            if os.path.exists(f):
+                os.remove(f)
+    launches = sum(x["launches"]["gossip_mix"]
+                   for x in (straight, first, rest))
+    if launches != 12 or any(sum(x["launches"].values()) != 2 * len(
+            x["losses"]) for x in (straight, first, rest)):
+        fail(f"{label}: launches "
+             f"{[x['launches'] for x in (straight, first, rest)]}; 6 MC-DSGT "
+             "steps need 12 gossip_mix and nothing else")
+    if first["losses"] + rest["losses"] != straight["losses"]:
+        fail(f"{label}: losses {first['losses']} + {rest['losses']} != "
+             f"the straight run's {straight['losses']}")
+    held, errs = "bit-equal", {}
+    for f in ("x", "h", "g_prev"):
+        bad, errs[f] = rows_close(torch, f, getattr(rest["state"], f),
+                                  kept[f], 0.0, 0.0)
+        if bad:
+            held = "within rtol 1e-4 / atol 1e-5 (not bit-equal)"
+            bad, _ = rows_close(torch, f, getattr(rest["state"], f),
+                                kept[f], 1e-4, 1e-5)
+            if bad:
+                fail(f"{label}: restored {f} differs from the straight run "
+                     f"at {bad} entries beyond rtol 1e-4 / atol 1e-5")
+    del rest["state"], kept
+    wsec, rsec = sum(w.seconds), sum(r.seconds)
+    print(f"{label}: checkpoint {size_gb:.3f} GB (free disk before writing "
+          f"{free_gb:.1f} GB) written in {wsec:.3f} s ({size_gb / wsec:.3f} "
+          f"GB/s), read in {rsec:.3f} s ({size_gb / rsec:.3f} GB/s); losses "
+          f"{first['losses']} + {rest['losses']} == {straight['losses']}; "
+          f"final x, h, g_prev {held} (max |diff| {errs}); {launches} "
+          "gossip_mix launches in 6 steps; the file deleted", flush=True)
+    return {"launches": launches, "size_gb": size_gb, "write_s": wsec,
+            "read_s": rsec, "free_gb": free_gb, "held": held,
+            "losses": straight["losses"],
+            "secs": straight["secs"] + first["secs"] + rest["secs"],
+            "peak_gb": max(x["peak_gb"] for x in (straight, first, rest))}
+
+
 def obs_phase(torch, train, exp, counters, smi: str, main_secs) -> dict:
     """ROADMAP Queue 1 items 4 and 10 on the card, through the train CLI:
 
@@ -2734,7 +2866,6 @@ def obs_phase(torch, train, exp, counters, smi: str, main_secs) -> dict:
         (its default reduced preset, 200 steps, with --metrics: the loss
         improves, the log renders), 0 launches."""
     import os
-    import shutil
     import tempfile
     from repro_torch import checkpoint as ckpt
     from repro_torch.obs import metrics as obs_metrics, report as obs_report
@@ -2786,63 +2917,8 @@ def obs_phase(torch, train, exp, counters, smi: str, main_secs) -> dict:
         out["a"]["profile"] = split
 
         # (b) checkpoint and restore at full width, 2 nodes
-        ck = os.path.join(tmp, "ck.msgpack")
-        small = CKPT_ARGV
-        straight = cli_run(torch, train, exp, small + ["--steps", "3"],
-                           counters, "obs (b) 3 steps straight", smi,
-                           keep=("x", "h", "g_prev"))
-        kept = straight.pop("kept")
-        del straight["state"]
-        free_gb = shutil.disk_usage(tmp).free / 1e9
-        try:
-            with Stopwatch(ckpt, "save_checkpoint") as w:
-                first = cli_run(torch, train, exp, small + [
-                    "--steps", "2", "--checkpoint", ck], counters,
-                    "obs (b) 2 steps + --checkpoint", smi)
-            del first["state"]
-            size_gb = os.path.getsize(ck) / 1e9
-            with Stopwatch(ckpt, "load_checkpoint") as r:
-                rest = cli_run(torch, train, exp, small + [
-                    "--steps", "1", "--restore", ck], counters,
-                    "obs (b) --restore + 1 step", smi)
-        finally:
-            for f in (ck, ck + ".spec.json", ck + ".tmp"):
-                if os.path.exists(f):
-                    os.remove(f)
-        launches = sum(x["launches"]["gossip_mix"]
-                       for x in (straight, first, rest))
-        if launches != 12 or any(sum(x["launches"].values()) != 2 * len(
-                x["losses"]) for x in (straight, first, rest)):
-            fail(f"obs (b): launches {[x['launches'] for x in (straight, first, rest)]}"
-                 "; 6 MC-DSGT steps need 12 gossip_mix and nothing else")
-        if first["losses"] + rest["losses"] != straight["losses"]:
-            fail(f"obs (b): losses {first['losses']} + {rest['losses']} != "
-                 f"the straight run's {straight['losses']}")
-        held, errs = "bit-equal", {}
-        for f in ("x", "h", "g_prev"):
-            bad, errs[f] = rows_close(torch, f, getattr(rest["state"], f),
-                                      kept[f], 0.0, 0.0)
-            if bad:
-                held = "within rtol 1e-4 / atol 1e-5 (not bit-equal)"
-                bad, _ = rows_close(torch, f, getattr(rest["state"], f),
-                                    kept[f], 1e-4, 1e-5)
-                if bad:
-                    fail(f"obs (b): restored {f} differs from the straight "
-                         f"run at {bad} entries beyond rtol 1e-4 / atol 1e-5")
-        del rest["state"], kept
-        wsec, rsec = sum(w.seconds), sum(r.seconds)
-        print(f"obs (b): checkpoint {size_gb:.3f} GB (free disk before "
-              f"writing {free_gb:.1f} GB) written in {wsec:.3f} s "
-              f"({size_gb / wsec:.3f} GB/s), read in {rsec:.3f} s "
-              f"({size_gb / rsec:.3f} GB/s); losses {first['losses']} + "
-              f"{rest['losses']} == {straight['losses']}; final x, h, g_prev "
-              f"{held} (max |diff| {errs}); {launches} gossip_mix launches "
-              "in 6 steps; the file deleted", flush=True)
-        out["b"] = {"launches": launches, "size_gb": size_gb,
-                    "write_s": wsec, "read_s": rsec, "free_gb": free_gb,
-                    "held": held, "secs": straight["secs"] + first["secs"]
-                    + rest["secs"], "peak_gb": max(
-                        x["peak_gb"] for x in (straight, first, rest))}
+        out["b"] = restore_leg(torch, train, exp, ckpt, CKPT_ARGV, counters,
+                               "obs (b)", smi, tmp)
 
         # (c) the twins
         for c in counters.values():
@@ -2888,17 +2964,18 @@ def predicted(what: str, key: str, value: float) -> str:
 def attention_serve_phase(torch, exp, serve, ops, flash_attention,
                           decode_attention, linear_recurrence, ref, models,
                           configs, tree, counters, arch: str, n_params: int,
-                          sv: dict, label: str) -> dict:
+                          sv: dict, label: str, layers: int = 0) -> dict:
     """One attention serve path: a fleet of ``arch`` drawn at its
     published widths and full depth in bf16, served through
     :func:`attention_serve_path`, two requests served again one at a time
     and token-equal, one prefill's and one decode step's profile (with
     ``linear_recurrence`` where the model has rglru layers); then the fleet
     is freed.  Its peak memory and wall are printed, beside their
-    predictions for the paths PREDICTED names (yi-6b, minitron-4b)."""
+    predictions for the paths PREDICTED names.  ``layers`` cuts the
+    depth (0: the config's)."""
     t0 = time.perf_counter()
     model, fleet = draw_fleet(torch, models, configs, tree, arch, n_params,
-                              sv["fleet"])
+                              sv["fleet"], layers)
     out = attention_serve_path(torch, exp, serve, ops, flash_attention,
                                decode_attention, linear_recurrence, ref,
                                model, fleet, counters, sv, label)
@@ -2998,6 +3075,97 @@ def spec_smoke_phase(torch, exp, counters) -> dict:
     return {"cells": len(cells), "personalized": res}
 
 
+def cut_depth(models, configs, tree, arch: str) -> str:
+    """``arch`` at its published widths with TRAIN_LAYERS[arch] layers,
+    registered as "<arch>-<L>l" so the train CLI resolves it; fails unless
+    its parameter count is TRAIN_D[arch].  Returns the name."""
+    L = TRAIN_LAYERS[arch]
+    cfg = dataclasses.replace(configs.get(arch), name=f"{arch}-{L}l",
+                              num_layers=L)
+    D = sum(math.prod(s) for _, s in tree.items(models.build(cfg).shapes))
+    if D != TRAIN_D[arch]:
+        fail(f"{cfg.name} has {D} parameters, not {TRAIN_D[arch]}")
+    configs.register(cfg)
+    return cfg.name
+
+
+def arch_train_phase(torch, train, exp, models, configs, tree, counters,
+                     smi: str) -> dict:
+    """Slice 15's training paths on the card, through the train CLI: the
+    pattern-generic arch trainer (use_pallas off, as the reference trains:
+    no kernel has a backward), MC-DSGT R=2 on 4 nodes, the gossip through
+    gossip_mix, 2 launches a step and nothing else:
+
+    (b) internvl2-1b at full width (D = 493,753,344), each node's batch 2 x
+        (256 patch embeddings + 64 text tokens), 3 steps: finite losses, 6
+        launches, the peak beside its prediction and s/step;
+    (c) granite-moe-3b-a800m at its published widths (40 experts top-8, so
+        the routing and its backward run at their real shape), depth cut to
+        4 layers (D = 478,414,848): 3 steps straight, then 2 with
+        --checkpoint and 1 after --restore (restore_leg: the restored run
+        equal to the straight one);
+    (d) falcon-mamba-7b at its published widths, depth cut to 2 layers (D =
+        476,966,912), 3 steps; then the examples/torch/serve_batch.py twin
+        (a reduced falcon-mamba fleet of 4 trained 3 steps on the dense
+        mixer, 16 requests of 48 + 16 tokens served on 8 slots): 0
+        launches, every request completed."""
+    import tempfile
+    from repro_torch import checkpoint as ckpt
+    t_phase = time.perf_counter()
+    out = {}
+    t0 = time.perf_counter()
+    b = cli_run(torch, train, exp, VLM_ARGV, counters,
+                "arch train (b) internvl2-1b", smi)
+    D = b.pop("state").x.shape[1]
+    if D != 493_753_344 or len(b["losses"]) != STEPS:
+        fail(f"arch train (b): D {D}, {len(b['losses'])} steps")
+    if b["launches"]["gossip_mix"] != 2 * STEPS or \
+            sum(b["launches"].values()) != 2 * STEPS:
+        fail(f"arch train (b): launches {b['launches']}; {STEPS} MC-DSGT "
+             "steps need 2 gossip_mix each and nothing else")
+    wall = time.perf_counter() - t0
+    print(f"arch train (b) internvl2-1b: peak device memory "
+          f"{predicted('internvl2-1b train', 'peak_gb', b['peak_gb'])} GB  "
+          f"s/step {b['secs']}  wall "
+          f"{predicted('internvl2-1b train', 'wall_s', wall)} s", flush=True)
+    out["b"] = {k: b[k] for k in ("launches", "losses", "secs", "peak_gb")}
+    gossip = ["--preset", "full", "--nodes", "4", "--algo", "mc_dsgt", "--R",
+              "2", "--gossip-impl", "pallas", "--device", "cuda"]
+    name = cut_depth(models, configs, tree, "granite-moe-3b-a800m")
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch,
+                                     prefix="arch_train_") as tmp:
+        out["c"] = restore_leg(torch, train, exp, ckpt,
+                               ["--arch", name] + gossip, counters,
+                               f"arch train (c) {name}", smi, tmp)
+    name = cut_depth(models, configs, tree, "falcon-mamba-7b")
+    d = cli_run(torch, train, exp, ["--arch", name, "--steps", str(STEPS)]
+                + gossip, counters, f"arch train (d) {name}", smi)
+    del d["state"]
+    if d["launches"]["gossip_mix"] != 2 * STEPS or \
+            sum(d["launches"].values()) != 2 * STEPS:
+        fail(f"arch train (d): launches {d['launches']}; {STEPS} MC-DSGT "
+             "steps need 2 gossip_mix each and nothing else")
+    out["d"] = {k: d[k] for k in ("launches", "losses", "secs", "peak_gb")}
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    res = load_twin("serve_batch").main(["--device", "cuda"])
+    launches = {k: c.launches for k, c in counters.items()}
+    if any(launches.values()) or len(res.completed) != 16 or any(
+            len(c["tokens"]) != 16 for c in res.completed):
+        fail(f"arch train (d) serve_batch twin: launches {launches}, "
+             f"completed {res.completed}")
+    print(f"arch train (d) serve_batch twin: {res.throughput}; launches 0; "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    wall = time.perf_counter() - t_phase
+    print(f"arch train phase: wall "
+          f"{predicted('arch train', 'wall_s', wall)} s", flush=True)
+    out["wall"] = wall
+    return out
+
+
 def main_path(torch, train, argv, counter, name: str) -> dict:
     """Drive one main path through the train CLI with ``counter`` (a
     kernel wrapper's launch count) set to 0 just before it and read just
@@ -3088,6 +3256,10 @@ def main():
                             "one yi-6b decode layer")
     dkern_mt = time_dkernel(torch, decode_attention, ref, DECODE_MT, 0,
                             "one minitron-4b decode layer")
+    fkern_gr = time_fkernel(torch, flash_attention, ref, FLASH_GR, 0,
+                            "one granite-moe-3b-a800m prefill layer")
+    dkern_gr = time_dkernel(torch, decode_attention, ref, DECODE_GR, 0,
+                            "one granite-moe-3b-a800m decode layer")
     print(f"device_ms: launches the profiler did not record in the kernel "
           f"timings above: {device_ms.lost_total}; sessions that recorded "
           f"none and were run again: {device_ms.empty_sessions}", flush=True)
@@ -3158,11 +3330,20 @@ def main():
     lap("recurrentgemma-2b serve")
     dense_served = {
         arch: attention_serve_phase(*phase, arch, n_params, sv,
-                                    f"{arch} serve path")
+                                    f"{arch} serve path", HD128_LAYERS)
         for arch, n_params, sv in (("yi-6b", YI_PARAMS, YSERVE),
                                    ("minitron-4b", MINITRON_PARAMS, MSERVE))}
 
     lap("yi-6b and minitron-4b serve")
+    gserved = attention_serve_phase(*phase, "granite-moe-3b-a800m",
+                                    GRANITE_PARAMS, GSERVE,
+                                    "granite-moe-3b-a800m serve path")
+    lap("granite-moe-3b-a800m serve")
+    trained = arch_train_phase(torch, train, exp, models, configs, tree,
+                               counters, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("arch train (internvl2-1b, granite-moe, falcon-mamba)")
     logreg_phase(torch, exp, counters)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3297,8 +3478,26 @@ def main():
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
             "path": path, "launches": launches,
             "launches_per_step": launches / steps_})
+    # gossip_mix on slice 15's training paths: internvl2-1b, and granite-moe
+    # and falcon-mamba at their published widths, depth cut (the kernel at
+    # n = 4 and D ~ 0.48-0.49 G, the first row's at 0.46 G)
+    base = rows[0]
+    for path, launches, steps_ in (
+            ("arch train (b): internvl2-1b, full width",
+             trained["b"]["launches"]["gossip_mix"], STEPS),
+            ("arch train (c): granite-moe-3b-a800m, 4 layers, 3 straight + "
+             "2 with --checkpoint + 1 after --restore",
+             trained["c"]["launches"], 6),
+            ("arch train (d): falcon-mamba-7b, 2 layers",
+             trained["d"]["launches"]["gossip_mix"], STEPS)):
+        rows.append({**{k: base[k] for k in (
+            "name", "route", "source", "replaces", "max_abs_err", "ms",
+            "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+            "path": path, "launches": launches,
+            "launches_per_step": launches / steps_})
     # the same three kernels at recurrentgemma-2b's serve shapes, then the
-    # attention kernels at yi-6b's and minitron-4b's (head_dim 128)
+    # attention kernels at yi-6b's and minitron-4b's (head_dim 128) and at
+    # granite-moe-3b-a800m's (head_dim 64, G = 3)
     for path, served_, sv, kerns in (
             ("recurrentgemma-2b serve", rgserved, RGSERVE,
              (("linear_recurrence", lkern_rg), ("flash_attention", fkern_rg),
@@ -3307,7 +3506,10 @@ def main():
              (("flash_attention", fkern_yi), ("decode_attention", dkern_yi))),
             ("minitron-4b serve", dense_served["minitron-4b"], MSERVE,
              (("flash_attention", fkern_mt),
-              ("decode_attention", dkern_mt)))):
+              ("decode_attention", dkern_mt))),
+            ("granite-moe-3b-a800m serve", gserved, GSERVE,
+             (("flash_attention", fkern_gr),
+              ("decode_attention", dkern_gr)))):
         n, new = sv["requests"], sv["max_new"]
         for name, kern in kerns:
             per, unit = ((n * (new - 1), "launches_per_slot_token")

@@ -6,8 +6,12 @@ gradient-accumulation rounds see distinct microbatches (Assumption 2's
 independent oracle queries), like the JAX package's ``data/synthetic.py``:
 iid uniform tokens, or with ``hetero_alpha`` each node's tokens from its
 own Dirichlet(alpha) marginal (the federated non-iid protocol; the
-marginals are the reference's numpy draw, bit for bit).  Its tokens come
-from a ``torch.Generator`` seeded by (seed, step); the JAX package's
+marginals are the reference's numpy draw, bit for bit).  For a VLM
+(``arch_type='vlm'``) each batch also holds the stub frontend's
+``prefix_embeds``, (n_nodes, R, batch, frontend_tokens, d_model) f32 of
+0.02 times a standard normal, and the tokens are cut to ``seq −
+frontend_tokens``, as in the reference.  Its tokens and embeddings come
+from torch generators seeded by (seed, step); the JAX package's
 ``jax.random`` stream cannot be replayed in torch, so tests that compare
 the two packages hand both the same batches.
 
@@ -42,6 +46,9 @@ class TokenStream:
     hetero_alpha: Optional[float] = None   # Dirichlet(alpha) per-node token
                                            # marginals; None = iid uniform
     arch_type: str = "dense"
+    d_model: int = 0
+    frontend_tokens: int = 0
+    encoder_seq: int = 0
     _node_logits: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False, compare=False)  # cached Dirichlet draw
 
@@ -69,24 +76,36 @@ class TokenStream:
         drawn on the CPU (a few KB) and moved to ``device``; with
         ``hetero_alpha`` each node's tokens are categorical draws from its
         marginal (:meth:`node_token_logits`), made on ``device`` by a
-        generator there."""
-        if self.arch_type in ("vlm", "audio"):
+        generator there.  A VLM's ``prefix_embeds`` are drawn on ``device``
+        by a generator seeded by (seed, step, 1), where the reference folds
+        1 into the step's key."""
+        if self.arch_type == "audio":
             raise NotImplementedError(
-                f"arch_type={self.arch_type!r}: the stream's prefix_embeds "
-                "and frames fields are not ported yet (ROADMAP.md Queue 1 "
-                "item 9)")
+                "arch_type='audio': the stream's frames field is not ported "
+                "yet (ROADMAP.md Queue 1 item 9 part 6)")
         seed = int(np.random.SeedSequence((self.seed, step)).generate_state(1)[0])
         shape = (self.n_nodes, self.rounds, self.batch, self.seq)
         if self.hetero_alpha is not None:
             probs = self.node_token_logits().exp()
             gen = torch.Generator(device=probs.device).manual_seed(seed)
             tokens = torch.multinomial(probs, math.prod(shape[1:]),
-                                       replacement=True, generator=gen)
-            return {"tokens": tokens.view(shape)}
-        gen = torch.Generator().manual_seed(seed)
-        hi = self.active_vocab or self.vocab_size
-        tokens = torch.randint(0, hi, shape, generator=gen)
-        return {"tokens": tokens.to(self.device)}
+                                       replacement=True,
+                                       generator=gen).view(shape)
+        else:
+            gen = torch.Generator().manual_seed(seed)
+            hi = self.active_vocab or self.vocab_size
+            tokens = torch.randint(0, hi, shape, generator=gen).to(
+                self.device)
+        out = {"tokens": tokens}
+        if self.arch_type == "vlm":
+            pseed = int(np.random.SeedSequence(
+                (self.seed, step, 1)).generate_state(1)[0])
+            gen = torch.Generator(device=self.device).manual_seed(pseed)
+            out["prefix_embeds"] = 0.02 * torch.randn(
+                shape[:3] + (self.frontend_tokens, self.d_model),
+                generator=gen, device=self.device)
+            out["tokens"] = tokens[..., :self.seq - self.frontend_tokens]
+        return out
 
 
 def token_stream_for(cfg, n_nodes: int, rounds: int, batch: int, seq: int,
@@ -96,7 +115,10 @@ def token_stream_for(cfg, n_nodes: int, rounds: int, batch: int, seq: int,
     return TokenStream(vocab_size=cfg.vocab_size, n_nodes=n_nodes,
                        rounds=rounds, batch=batch, seq=seq, seed=seed,
                        active_vocab=active_vocab, device=device,
-                       hetero_alpha=hetero_alpha, arch_type=cfg.arch_type)
+                       hetero_alpha=hetero_alpha, arch_type=cfg.arch_type,
+                       d_model=cfg.d_model,
+                       frontend_tokens=cfg.frontend_tokens,
+                       encoder_seq=cfg.encoder_seq)
 
 
 # ---------------------------------------------------------------------------

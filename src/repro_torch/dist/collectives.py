@@ -70,11 +70,12 @@ class FlatLayout:
         ``xrow`` that requires grad, with its ``.grad`` preset to the same
         slice of ``grow``, so ``backward()`` accumulates the node's gradient
         straight into the flat buffer (autograd adds into a defined
-        ``.grad`` in place).  Layer-stacked leaves are split per layer and
-        ``params["units"]`` is the per-layer list the model's forward takes:
-        a leaf per layer keeps each layer's gradient in its own slice,
-        where indexing one stacked leaf would make every layer's backward
-        write a zero-filled gradient of the whole stack."""
+        ``.grad`` in place).  Layer-stacked leaves are split per unit and
+        ``params["units"]`` is the per-unit list of ``{name: layer}``
+        dicts the model's forward takes: a leaf per layer keeps each
+        layer's gradient in its own slice, where indexing one stacked leaf
+        would make every layer's backward write a zero-filled gradient of
+        the whole stack."""
         def leaf(off, shape):
             size = math.prod(shape)
             p = xrow[off:off + size].view(shape).detach().requires_grad_()
@@ -90,7 +91,7 @@ class FlatLayout:
                 layers = [[] for _ in range(shape[0])]
             size = math.prod(shape[1:])
             for u, pairs in enumerate(layers):
-                pairs.append((path[2:], leaf(off + u * size, shape[1:])))
+                pairs.append((path[1:], leaf(off + u * size, shape[1:])))
         params = tree.build(top)
         params["units"] = [tree.build(pairs) for pairs in layers or []]
         return params

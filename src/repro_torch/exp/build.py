@@ -7,9 +7,12 @@
 post-fault weight schedule, the update rule, the edge plan and its
 telemetry recorder) and the pieces of the runtime ``model.kind`` selects:
 
-* ``arch``   — a registered architecture trained by
+* ``arch``   — a registered architecture of any family
+  :func:`repro_torch.models.build` runs (dense, mamba, the RG-LRU hybrid,
+  MoE, the VLM backbone with its ``prefix_embeds``) trained by
   :func:`repro_torch.dist.steps.make_train_step` on the driver's loop (what
-  ``launch/train.py`` runs);
+  ``launch/train.py`` runs), ``use_pallas`` off as in the reference: no
+  kernel has a backward;
 * ``logreg`` — the host runtime: the paper's §6 non-convex logistic
   regression driven by :func:`repro_torch.core.driver.run_algorithm`, on
   the dense topologies (one matrix product per round, or with
@@ -264,28 +267,11 @@ def _validate(spec: ExperimentSpec) -> None:
                              f"run.nodes) or <= run.nodes={r.nodes}")
 
 
-def _check_ported(spec: ExperimentSpec) -> None:
-    """Raise NotImplementedError, naming its ROADMAP.md Queue 1 item, for
-    the first scenario axis the spec uses that the port does not run yet."""
-    arch_pattern = (configs.get(spec.model.arch).pattern
-                    if spec.model.kind == "arch" else ("attn",))
-    unported = [
-        (arch_pattern != ("attn",),
-         f"training model.arch={spec.model.arch!r} (the arch trainer runs "
-         "the dense ('attn',) pattern)", 9),
-    ]
-    for used, what, item in unported:
-        if used:
-            raise NotImplementedError(f"{what} is not ported yet "
-                                      f"(ROADMAP.md Queue 1 item {item})")
-
-
 def build(spec: ExperimentSpec, *, device="cuda") -> Built:
     """Realize ``spec`` on ``device``: the (possibly fault-degraded) weight
     schedule, the edge plan, the telemetry recorder and the runtime's
     model and data."""
     _validate(spec)
-    _check_ported(spec)
     dev = resolve_device(device)
     rs, al = spec.run, spec.algorithm
     n = rs.nodes

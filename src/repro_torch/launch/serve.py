@@ -14,8 +14,10 @@ scan).  ``--device`` (default ``cuda``) is a runtime argument, not a spec
 field, so ``--dump-config`` prints the same JSON as the reference's CLI
 for the same flags.  Flags whose scenario axis is not ported yet are
 accepted and raise ``NotImplementedError`` naming their ROADMAP.md item
-when the run is built (training a non-dense arch such as recurrentgemma-2b
-or falcon-mamba-7b: item 9).  ``--metrics PATH`` writes the event log,
+when the run is built (the encoder-decoder whisper-tiny: item 9 part 6).
+Every other family trains, then serves (falcon-mamba-7b reduced is
+``examples/torch/serve_batch.py``); a VLM's fleet is refused by the serve
+engine, as in the reference.  ``--metrics PATH`` writes the event log,
 with one ``serve_request`` event per request and the ``serve_summary``.
 
 Config files round-trip exactly as in train: ``--config PATH`` loads a

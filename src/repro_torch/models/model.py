@@ -4,8 +4,12 @@ tree (or serve cache) across.
 
 The port runs the dense decoder (the family of qwen1.5-0.5b, yi-6b,
 minitron-4b and nemotron-4-340b: any MLP activation, tied or untied
-embeddings), the mamba stack (falcon-mamba-7b's family) and the hybrid of
-RG-LRU and local attention (recurrentgemma-2b's family) in every mode.
+embeddings), the mamba stack (falcon-mamba-7b's family), the hybrid of
+RG-LRU and local attention (recurrentgemma-2b's family), the MoE decoder
+(granite-moe-3b-a800m's ``("moe",)`` and llama4-maverick's ``("attn",
+"moe")`` with a shared expert) and the VLM backbone on its stub frontend
+(internvl2-1b: ``prefix_embeds`` in the batch, text positions scored) in
+every mode; serving refuses the VLM as the reference does.
 ``use_pallas`` routes attention to the Hopper ``flash_attention``
 (prefill, and a train-mode forward that cannot be differentiated, as in
 the reference) and ``decode_attention`` (decode), both with the config's
@@ -39,10 +43,15 @@ class Model(NamedTuple):
 # The families the port runs, (arch_type, pattern), each with use_pallas on
 # or off.
 PORTED = {("dense", ("attn",)), ("ssm", ("mamba",)),
-          ("hybrid", ("rglru", "rglru", "attn"))}
+          ("hybrid", ("rglru", "rglru", "attn")), ("moe", ("moe",)),
+          ("moe", ("attn", "moe")), ("vlm", ("attn",))}
 
 
 def _check_supported(cfg) -> None:
+    if cfg.arch_type == "audio":
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder (arch_type='audio') is not "
+            "ported yet (ROADMAP.md Queue 1 item 9 part 6)")
     family = (cfg.arch_type, tuple(cfg.pattern))
     if family not in PORTED:
         raise NotImplementedError(
@@ -53,7 +62,7 @@ def _check_supported(cfg) -> None:
         "logit_softcap": (cfg.logit_softcap, (0.0,)),
         "mlp_act": (cfg.mlp_act, ("swiglu", "geglu", "relu2", "gelu")),
         "norm": (cfg.norm, ("rmsnorm",)),
-        "frontend": (cfg.frontend, ("",)),
+        "frontend": (cfg.frontend, ("", "vision")),
     }
     for field, (have, ported) in unsupported.items():
         if have not in ported:
@@ -67,6 +76,7 @@ def build(cfg) -> Model:
 
     def _prefill(p, b, c):
         return transformer.prefill(p, cfg, b["tokens"], c,
+                                   prefix_embeds=b.get("prefix_embeds"),
                                    last_only=cfg.prefill_last_only)
 
     return Model(

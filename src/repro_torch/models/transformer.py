@@ -4,27 +4,34 @@ serve steps (prefill, decode), the port of the JAX package's
 
 Layers are grouped into pattern units (``cfg.pattern``): the dense decoder's
 unit is one ``"attn"`` layer, falcon-mamba's one ``"mamba"`` layer,
-recurrentgemma's (``"rglru"``, ``"rglru"``, ``"attn"``).  Parameters keep the
+recurrentgemma's (``"rglru"``, ``"rglru"``, ``"attn"``), granite-moe's one
+``"moe"`` layer (attention, then the mixture of experts of
+:mod:`repro_torch.models.moe` in place of the MLP) and llama4's
+(``"attn"``, ``"moe"``).  Parameters keep the
 JAX layout: ``params["units"]["0_attn"]`` (or ``"0_mamba"``, ...) holds every
 unit's leaves stacked on a leading layer axis, and the serve cache
 ``cache["units"]["0_mamba"]`` likewise.  The num_layers % len(pattern)
 remainder layers (recurrentgemma's last two rglru layers) form a second,
 unstacked stack, ``params["rem"]["0_rglru"]`` ... and ``cache["rem"]``,
 walked after the units.  The forward also takes ``params["units"]`` as a
-list of per-layer dicts of a one-layer pattern; the trainer passes that
+list of per-unit ``{name: layer params}`` dicts; the trainer passes that
 form, whose leaves are separate tensors, so each layer's gradient lands in
 its own slice of the flat gradient buffer (see
-:func:`repro_torch.dist.collectives.FlatLayout.grad_leaves`).
+:func:`repro_torch.dist.collectives.FlatLayout.grad_leaves`).  The forward
+returns the MoE layers' load-balance loss beside the logits, and
+``train_loss`` adds it with the reference's weight 0.01.  A VLM batch's
+``prefix_embeds`` (the stub frontend's patch embeddings) go before the
+token embeddings, and the loss scores the text positions only.
 
-Every kind serves: an ``"attn"`` layer's cache is the ring-buffer KV cache
-of :mod:`repro_torch.models.attention`, a mamba or rglru layer's its conv and
-recurrence state.  With ``cfg.use_pallas`` an attention layer's prefill (and
-train-mode forward, which then cannot be differentiated, as in the
-reference) runs the ``flash_attention`` wrapper and its decode the
-``decode_attention`` wrapper, both with the config's window; without it, a
-windowed prefill longer than the window takes the block-local sliding
-attention.  Unlike the reference, prefill and decode write the new cache
-into the ``cache`` they are given and return it.
+Every kind serves: an ``"attn"`` (or ``"moe"``) layer's cache is the
+ring-buffer KV cache of :mod:`repro_torch.models.attention`, a mamba or
+rglru layer's its conv and recurrence state.  With ``cfg.use_pallas`` an
+attention layer's prefill (and train-mode forward, which then cannot be
+differentiated, as in the reference) runs the ``flash_attention`` wrapper
+and its decode the ``decode_attention`` wrapper, both with the config's
+window; without it, a windowed prefill longer than the window takes the
+block-local sliding attention.  Unlike the reference, prefill and decode
+write the new cache into the ``cache`` they are given and return it.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch
 from .. import tree
 from ..kernels import ops
 from . import attention as attn
-from . import layers, rglru, ssm
+from . import layers, moe, rglru, ssm
 
 
 def unit_names(cfg) -> list:
@@ -58,6 +65,11 @@ def _init_one_layer(gen, cfg, kind, dtype, device) -> dict:
                 "ln2": layers.init_norm(cfg, dtype, device),
                 "mlp": layers.init_mlp(gen, cfg.d_model, cfg.d_ff, cfg.mlp_act,
                                        dtype, device)}
+    if kind == "moe":
+        return {"ln1": layers.init_norm(cfg, dtype, device),
+                "attn": attn.init_attention(gen, cfg, dtype, device),
+                "ln2": layers.init_norm(cfg, dtype, device),
+                "moe": moe.init_moe(gen, cfg, dtype, device)}
     if kind == "mamba":
         return {"ln1": layers.init_norm(cfg, dtype, device),
                 "mamba": ssm.init_mamba(gen, cfg, dtype, device)}
@@ -133,17 +145,18 @@ def param_shapes(cfg) -> dict:
 
 def unit_params(units, cfg) -> list:
     """Per-unit {name: layer params} from either the stacked or the list
-    form (one dict per layer of a one-layer pattern)."""
+    form (already one such dict per unit)."""
     if isinstance(units, list):
-        (name,) = unit_names(cfg)
-        return [{name: p} for p in units]
+        return units
     return [tree.map(lambda t: t[u], units)
             for u in range(cfg.units_and_rem[0])]
 
 
 def _apply_attn_layer(p, x, cfg, rope, positions, mode, cache, pos):
-    """mode 'train' (no cache), 'prefill' (the prompt's k, v into
-    ``cache``) or 'decode' (one token at ``pos``, inserted first)."""
+    """The attention half of an ``"attn"`` or ``"moe"`` layer: x plus the
+    attention of its normed input.  mode 'train' (no cache), 'prefill' (the
+    prompt's k, v into ``cache``) or 'decode' (one token at ``pos``,
+    inserted first)."""
     h = layers.apply_norm(p["ln1"], x)
     q = attn.project_q(p["attn"], h, cfg)
     k, v = attn.project_kv(p["attn"], h)
@@ -171,16 +184,22 @@ def _apply_attn_layer(p, x, cfg, rope, positions, mode, cache, pos):
                                  window=cfg.window, q_chunk=cfg.q_chunk)
         if mode == "prefill":
             attn.cache_prefill(cache, k, v, positions)
-    x = x + attn.out_proj(p["attn"], o, cfg)
-    h = layers.apply_norm(p["ln2"], x)
-    return x + layers.apply_mlp(p["mlp"], h, cfg.mlp_act)
+    return x + attn.out_proj(p["attn"], o, cfg)
 
 
 def _apply_layer(p, x, cfg, kind, rope, positions, mode, cache, pos):
-    """One layer; in prefill and decode mode the layer's new cache is
-    written into ``cache`` (views of the stacked cache)."""
-    if kind == "attn":
-        return _apply_attn_layer(p, x, cfg, rope, positions, mode, cache, pos)
+    """One layer: (x, aux), aux the MoE load-balance loss in train mode
+    (None for the other kinds and modes: prefill and decode drop it, as the
+    reference's compiled serve steps do); in prefill and decode mode the
+    layer's new cache is written into ``cache`` (views of the stacked
+    cache)."""
+    if kind in ("attn", "moe"):
+        x = _apply_attn_layer(p, x, cfg, rope, positions, mode, cache, pos)
+        h = layers.apply_norm(p["ln2"], x)
+        if kind == "attn":
+            return x + layers.apply_mlp(p["mlp"], h, cfg.mlp_act), None
+        y, aux = moe.apply_moe(p["moe"], h, cfg, with_aux=mode == "train")
+        return x + y, aux
     if kind == "mamba":
         h = layers.apply_norm(p["ln1"], x)
         y, new = ssm.mamba_forward(
@@ -188,7 +207,7 @@ def _apply_layer(p, x, cfg, kind, rope, positions, mode, cache, pos):
             chunk=cfg.scan_chunk)
         if mode != "train":
             tree.map(lambda dst, src: dst.copy_(src), cache, new)
-        return x + y
+        return x + y, None
     if kind == "rglru":
         h = layers.apply_norm(p["ln1"], x)
         y, new = rglru.rglru_forward(
@@ -198,7 +217,7 @@ def _apply_layer(p, x, cfg, kind, rope, positions, mode, cache, pos):
             tree.map(lambda dst, src: dst.copy_(src), cache, new)
         x = x + y
         h = layers.apply_norm(p["ln2"], x)
-        return x + layers.apply_mlp(p["mlp"], h, cfg.mlp_act)
+        return x + layers.apply_mlp(p["mlp"], h, cfg.mlp_act), None
     raise ValueError(kind)
 
 
@@ -207,7 +226,7 @@ def _apply_layer(p, x, cfg, kind, rope, positions, mode, cache, pos):
 # ---------------------------------------------------------------------------
 
 def _init_layer_cache(cfg, kind, batch, max_len, dtype, device):
-    if kind == "attn":
+    if kind in ("attn", "moe"):
         return attn.init_cache(cfg, batch, max_len, dtype, device)
     if kind == "mamba":
         return ssm.init_mamba_cache(cfg, batch, dtype, device)
@@ -220,7 +239,7 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
                device="cpu") -> dict:
     """Empty serve cache, the reference's tree: ``{"units": {name: leaves
     stacked on the layer axis}, "rem": {name: leaves}}`` (``rem`` empty
-    without remainder layers).  An attention layer's KV cache holds
+    without remainder layers).  An attention (or MoE) layer's KV cache holds
     C = max_len slots, or min(window, max_len) as a ring (kpos -1 = empty);
     a mamba or rglru layer's cache does not grow with ``max_len``."""
     units = cfg.units_and_rem[0]
@@ -240,14 +259,21 @@ def init_cache(cfg, batch: int, max_len: int, dtype=torch.bfloat16,
 # Forward passes
 # ---------------------------------------------------------------------------
 
-def forward(params, cfg, tokens: torch.Tensor, *, mode: str = "train",
-            cache: dict | None = None, pos: int | None = None,
-            last_only: bool = False) -> torch.Tensor:
-    """tokens: (B, S) int -> logits (B, S, V) (B, 1, V with
-    ``last_only``).  ``mode`` is 'train', 'prefill' or 'decode'; the latter
-    two update ``cache`` in place.  In decode mode the one token sits at
-    absolute position ``pos`` (its rope angle and its cache slot)."""
+def forward(params, cfg, tokens: torch.Tensor, *, prefix_embeds=None,
+            mode: str = "train", cache: dict | None = None,
+            pos: int | None = None, last_only: bool = False):
+    """tokens: (B, S) int -> (logits (B, P + S, V) (B, 1, V with
+    ``last_only``), aux): aux is the f32 sum of the MoE layers' load-balance
+    losses in train mode (the number 0.0 without MoE layers or outside
+    train mode: no tensor, no launch).  ``prefix_embeds`` (B, P, D), cast to
+    the activations' dtype, go before the token embeddings.  ``mode`` is
+    'train', 'prefill' or 'decode'; the latter two update ``cache`` in
+    place.  In decode mode the one token sits at absolute position ``pos``
+    (its rope angle and its cache slot)."""
     x = layers.embed_tokens(params["embed"], tokens)
+    if prefix_embeds is not None:
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    aux = 0.0
     positions = rope = None
     if cfg.num_heads:
         positions = (torch.full((1,), pos, device=x.device)
@@ -258,35 +284,47 @@ def forward(params, cfg, tokens: torch.Tensor, *, mode: str = "train",
         for name, kind in zip(unit_names(cfg), cfg.pattern):
             c = (tree.map(lambda t: t[u], cache["units"][name])
                  if cache is not None else None)
-            x = _apply_layer(up[name], x, cfg, kind, rope, positions, mode, c,
-                             pos)
+            x, a = _apply_layer(up[name], x, cfg, kind, rope, positions,
+                                mode, c, pos)
+            if a is not None:
+                aux = aux + a
     rem = rem_pattern(cfg)
     for name, kind in zip(layer_names(rem), rem):
         c = cache["rem"][name] if cache is not None else None
-        x = _apply_layer(params["rem"][name], x, cfg, kind, rope, positions,
-                         mode, c, pos)
+        x, a = _apply_layer(params["rem"][name], x, cfg, kind, rope,
+                            positions, mode, c, pos)
+        if a is not None:
+            aux = aux + a
     if last_only:
         x = x[:, -1:]
     x = layers.apply_norm(params["final_norm"], x)
-    return layers.unembed(params["embed"], x)
+    return layers.unembed(params["embed"], x), aux
 
 
-def train_loss(params, cfg, batch: dict) -> torch.Tensor:
-    """batch: {'tokens': (B, S)}.  Mean next-token cross-entropy over
-    ``tokens[:, 1:]``, log-softmax in f32."""
+def train_loss(params, cfg, batch: dict,
+               aux_weight: float = 0.01) -> torch.Tensor:
+    """batch: {'tokens': (B, S), optional 'prefix_embeds': (B, P, D)}.
+    Mean next-token cross-entropy over the text positions'
+    ``tokens[:, 1:]`` (log-softmax in f32), plus ``aux_weight`` times the
+    MoE load-balance loss."""
     tokens = batch["tokens"]
-    logits = forward(params, cfg, tokens)
-    lp = torch.log_softmax(logits[:, :-1].to(torch.float32), dim=-1)
+    prefix = batch.get("prefix_embeds")
+    logits, aux = forward(params, cfg, tokens, prefix_embeds=prefix)
+    P = 0 if prefix is None else prefix.shape[1]
+    lp = torch.log_softmax(logits[:, P:-1].to(torch.float32), dim=-1)
     tgt = tokens[:, 1:]
     nll = -torch.gather(lp, -1, tgt[..., None])[..., 0]
+    if torch.is_tensor(aux):
+        return nll.mean() + aux_weight * aux
     return nll.mean()
 
 
-def prefill(params, cfg, tokens, cache, *, last_only: bool = False):
-    """The prompt into ``cache`` (updated in place): (logits of the last
-    position (B, 1, V), cache)."""
-    logits = forward(params, cfg, tokens, mode="prefill", cache=cache,
-                     last_only=last_only)
+def prefill(params, cfg, tokens, cache, *, prefix_embeds=None,
+            last_only: bool = False):
+    """The prompt (after ``prefix_embeds``, when given) into ``cache``
+    (updated in place): (logits of the last position (B, 1, V), cache)."""
+    logits, _ = forward(params, cfg, tokens, prefix_embeds=prefix_embeds,
+                        mode="prefill", cache=cache, last_only=last_only)
     return logits[:, -1:], cache
 
 
@@ -294,6 +332,6 @@ def decode_step(params, cfg, token, cache, pos):
     """token: (B, 1) int; pos: its absolute position (a host int: an
     attention layer's rope angle and cache slot; a mamba layer's state does
     not use it).  (logits (B, 1, V), cache updated in place)."""
-    logits = forward(params, cfg, token, mode="decode", cache=cache,
-                     pos=int(pos))
+    logits, _ = forward(params, cfg, token, mode="decode", cache=cache,
+                        pos=int(pos))
     return logits, cache

@@ -806,3 +806,54 @@ def test_attention_wrappers_refuse_nemotrons_hd_192():
     with pytest.raises(ValueError, match="head_dim"):
         decode_attention(q1, x, x, kpos, 127)
     assert (flash_attention.launches, decode_attention.launches) == before
+
+
+# The slice-15 serve path's shapes (chip_smoke.py FLASH_GR, DECODE_GR):
+# granite-moe-3b-a800m's 24 query heads over 8 KV heads of 64 (G = 3), a
+# 1920-token prefill and a full 2048-slot cache read at its last position.
+# bf16 is held at the serve atol, as at head_dim 128.
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_at_granites_serve_shape(dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    B, S, H, KV, hd = 1, 1920, 24, 8, 64
+    rng = np.random.default_rng(27)
+    q = _cuda_normal(rng, (B, S, H, hd), dtype)
+    k = _cuda_normal(rng, (B, S, KV, hd), dtype)
+    v = _cuda_normal(rng, (B, S, KV, hd), dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    atol = HD128_ATOL_BF16["flash"] if dtype == torch.bfloat16 else tol
+    torch.testing.assert_close(got, ref.attention_ref(q, k, v), rtol=tol,
+                               atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_attention_at_granites_serve_shape(dtype):
+    """8 KV heads x 8 splits: 64 blocks of the card's SMs."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    from repro_torch.kernels import decode_attention as da_mod
+    B, C, J, G, hd = 1, 2048, 8, 3, 64
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geometry = da_mod.launch_geometry(B, J, C, hd, dtype, sms)
+    assert geometry["grid"] == (J * da_mod.splits_for(B, J, C, sms, hd), B)
+    rng = np.random.default_rng(28)
+    q = _cuda_normal(rng, (B, 1, J, G, hd), dtype)
+    k = _cuda_normal(rng, (B, C, J, hd), dtype)
+    v = _cuda_normal(rng, (B, C, J, hd), dtype)
+    kpos = torch.arange(C, device="cuda", dtype=torch.int32)
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, kpos, C - 1)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    atol = HD128_ATOL_BF16["decode"] if dtype == torch.bfloat16 else tol
+    torch.testing.assert_close(
+        got, ref.decode_attention_ref(q, k, v, kpos, C - 1), rtol=tol,
+        atol=atol)

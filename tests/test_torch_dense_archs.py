@@ -276,7 +276,8 @@ def test_the_smokes_hd128_serve_paths_fit_the_kernels():
     """``chip_smoke.py``'s yi-6b and minitron-4b serve paths: the prompt
     tiles (a multiple of 128) and the cache (prompt + new, a multiple of
     256) as both kernels need, the member sizes are the configs' parameter
-    counts, and the timed kernel shapes are the configs' heads at
+    counts at the paths' depth (HD128_LAYERS of the published 32; widths
+    as published), and the timed kernel shapes are the configs' heads at
     head_dim 128."""
     import importlib.util
     path = SRC.parent / "chip_smoke.py"
@@ -289,11 +290,13 @@ def test_the_smokes_hd128_serve_paths_fit_the_kernels():
             ("minitron-4b", smoke.MSERVE, smoke.MINITRON_PARAMS,
              smoke.FLASH_MT, smoke.DECODE_MT)):
         cfg = configs.get(arch)
+        assert cfg.num_layers == 32 and 0 < smoke.HD128_LAYERS < 32
+        cut = dataclasses.replace(cfg, num_layers=smoke.HD128_LAYERS)
         assert sv["prompt_len"] % 128 == 0
         assert (sv["prompt_len"] + sv["max_new"]) % 256 == 0
         assert (sv["requests"], sv["batch"], sv["fleet"]) == (8, 4, 4)
         assert sum(int(np.prod(s)) for _, s in tree.items(
-            build(cfg).shapes)) == n_params
+            build(cut).shapes)) == n_params
         H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
         assert flash == (1, sv["prompt_len"], H, KV, hd) and hd == 128
         assert dec == (1, sv["prompt_len"] + sv["max_new"], KV, H // KV, hd)

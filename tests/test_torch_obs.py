@@ -45,6 +45,10 @@ RTOL, ATOL, MIX_RTOL = 1e-5, 1e-6, 1e-4
 # exactly in real arithmetic): both packages' readings must stay below
 # this fraction of ||g|| (readings: 1.4e-8 to 4.2e-8 of it).
 TRACKER_NOISE = 2.0 ** -20
+# The arch trainer's step tolerance (slices 1-3), and the share of a
+# compressed window's entries that may round to the other int8 step
+# (tests/test_torch_slice.py).
+STEP_RTOL, STEP_ATOL, MAX_FLIPS = 1e-4, 1e-5, 2e-3
 N, M, D, SEED, STEPS = 8, 16, 12, 3, 3
 NAMES = engine.OBS_METRICS
 
@@ -155,7 +159,9 @@ ARCH_CASES = {"dense": ("dense", None, 0),
 def _arch_run(impl, scheme, delay):
     """Warm start + 2 MC-DSGT steps of a reduced qwen1.5 through both
     packages' ``make_train_step`` with every scalar requested, from the
-    same parameters and tokens."""
+    same parameters and tokens.  Returns each step's scalars of both, and
+    each step's (h, res_h, g⁻) of both as (n, D) float64 arrays in the
+    port's layout (the port's copied: its step updates them in place)."""
     jsched = jregistry.build_topology(jspec.TopologySpec(kind="sun"), NA,
                                       horizon=64, seed=SEED)
     wps = 2 * R
@@ -181,7 +187,23 @@ def _arch_run(impl, scheme, delay):
                for _ in range(3)]
     js = jwarm(js, {"tokens": jnp.asarray(batches[0])})
     ts = warm(ts, {"tokens": torch.from_numpy(batches[0]).long()})
-    got, want = [], []
+    got, want, states = [], [], []
+    layout = steps.flat_layout(model, comp)
+
+    def flat(mat):
+        return np.asarray(mat, np.float64) if mat is not None else 0.0
+
+    def jflat(tree_):
+        if tree_ is None:
+            return 0.0
+        leaves = {tuple(k.key for k in p): np.asarray(l, np.float64)
+                  for p, l in jax.tree_util.tree_leaves_with_path(tree_)}
+        mat = np.zeros((NA, layout.size))
+        for path, shape, off in layout.entries:
+            mat[:, off:off + int(np.prod(shape))] = \
+                leaves[path].reshape(NA, -1)
+        return mat
+
     for k in (1, 2):
         W = jsched.stacked((k - 1) * wps, wps)
         js, jout = jstep(js, {"tokens": jnp.asarray(batches[k])},
@@ -194,7 +216,12 @@ def _arch_run(impl, scheme, delay):
                    for v in out["obs"].values())
         got.append({m: float(v) for m, v in out["obs"].items()})
         want.append({m: float(v) for m, v in jout["obs"].items()})
-    return got, want
+        res_h = ts.res[1] if ts.res is not None else None
+        jres_h = js.res[1] if js.res is not None else None
+        states.append({
+            "port": (flat(ts.h.clone()), flat(res_h), flat(ts.g_prev)),
+            "reference": (jflat(js.h), jflat(jres_h), jflat(js.g_prev))})
+    return got, want, states
 
 
 @pytest.fixture(scope="module")
@@ -205,18 +232,39 @@ def arch_runs():
 @pytest.mark.parametrize("case", list(ARCH_CASES))
 def test_arch_scalars_match_reference(arch_runs, case):
     """The four scalars after each of 2 steps at the stated tolerances.
-    Under int8 the quantization moves the tracker's node mean for real
-    (error feedback returns it over later rounds): there the tracker
-    residual is a signal of ~2e-3 of ||g||, held at MIX_RTOL; without
-    compression it is rounding noise, held below TRACKER_NOISE."""
-    got, want = arch_runs[case]
+    Without compression the tracker residual is rounding noise, held below
+    TRACKER_NOISE.  Under int8 the quantization moves the tracker's node
+    mean for real, by the node mean of the residual res_h (error feedback
+    returns it over later rounds): a signal of ~2e-3 of ||g|| whose value
+    turns on which entries of the h window round to the other int8 step
+    in each package (tens of its 1.5M; the flips move mass between h and
+    res_h, which the node sum of h + res_h does not see).  So under int8
+    each package's tracker residual is held to what it names on its own
+    state, ||h̄ − ḡ||, at RTOL; h to the reference's up to MAX_FLIPS of its
+    entries and g⁻ entry for entry at the step tolerance; and the
+    flip-free ||mean(h + res_h) − ḡ|| is rounding noise in both."""
+    got, want, states = arch_runs[case]
     _hold(got, want, case)
     if ARCH_CASES[case][1] is None:
         _hold_tracker(got, want, True, case)
-    else:
-        for a, b in zip(got, want):
-            np.testing.assert_allclose(a["tracker_residual"],
-                                       b["tracker_residual"], rtol=MIX_RTOL)
+        return
+    for k, (a, b, st) in enumerate(zip(got, want, states)):
+        for side, o in (("port", a), ("reference", b)):
+            h, res_h, g = st[side]
+            named = np.linalg.norm(h.mean(0) - g.mean(0))
+            np.testing.assert_allclose(o["tracker_residual"], named,
+                                       rtol=RTOL, err_msg=f"step {k} {side}")
+            flip_free = np.linalg.norm((h + res_h).mean(0) - g.mean(0))
+            assert flip_free <= TRACKER_NOISE * o["grad_norm"], (
+                f"step {k} {side}: ||mean(h + res_h) - mean(g)|| "
+                f"{flip_free} past the rounding bound")
+        (h, _, g), (jh, _, jg) = st["port"], st["reference"]
+        np.testing.assert_allclose(g, jg, rtol=STEP_RTOL, atol=STEP_ATOL,
+                                   err_msg=f"step {k}: g_prev")
+        bad = np.abs(h - jh) > STEP_ATOL + STEP_RTOL * np.abs(jh)
+        assert bad.sum() <= MAX_FLIPS * bad.size, (
+            f"step {k}: {int(bad.sum())} of {bad.size} entries of h beyond "
+            "the step tolerance")
 
 
 def test_scalars_are_what_they_name(monkeypatch):

@@ -451,15 +451,23 @@ def test_compressed_window_with_bf16_residuals_matches_reference(route,
     end, as the reference's flatten_grouped / unflatten_grouped do, on the
     dense window and the fused one (its plain version here): sign gossip,
     2 rounds, the mixed stream at rtol 1e-5 and the residual to one bf16
-    ulp (BF16_RTOL)."""
+    ulp (BF16_RTOL).
+
+    The fused route writes the mixed stream into its input.  On the CPU
+    ``jnp.asarray`` takes an aligned numpy array without a copy and JAX
+    runs the reference's ops asynchronously, so the port is handed its own
+    copy, after the reference's results are on the host: a port input that
+    shared the reference's memory let the reference read the port's output
+    whenever its ops ran late (a loaded machine)."""
     from repro.core import compress as jcompress
     from repro_torch.core import compress
     from repro_torch.dist import collectives as coll
     rng = np.random.default_rng(4)
     x = rng.standard_normal((4, 256)).astype(np.float32)
     res = (0.01 * rng.standard_normal((4, 256))).astype(np.float32)
-    Ws = engine.personalized_weights(torch.rand(2, 4, 4), torch.zeros(4),
-                                     1.0).numpy()
+    gen = torch.Generator().manual_seed(4)
+    Ws = engine.personalized_weights(torch.rand(2, 4, 4, generator=gen),
+                                     torch.zeros(4), 1.0).numpy()
     dtype = getattr(torch, stream)
     x = torch.from_numpy(x).to(dtype).float().numpy()
     res = torch.from_numpy(res).to(torch.bfloat16).float().numpy()
@@ -469,8 +477,10 @@ def test_compressed_window_with_bf16_residuals_matches_reference(route,
         lambda i, m: jnp.asarray(Ws[i]) @ m, jcfg)
     jx, jres = jmix(0, 2, jnp.asarray(x, getattr(jnp, stream)),
                     jnp.asarray(res, jnp.bfloat16), None)
-    tx = torch.from_numpy(x).to(dtype)
-    tres = torch.from_numpy(res).to(torch.bfloat16)
+    jx, jres = np.asarray(jx, np.float32), np.asarray(jres, np.float32)
+    tx = torch.from_numpy(x.copy()).to(dtype)
+    tres = torch.from_numpy(res.copy()).to(torch.bfloat16)
+    assert tx.data_ptr() != x.ctypes.data
     if route == "dense":
         got, gres = compress.make_compressed_mixer(
             lambda i, m: torch.from_numpy(Ws[i]) @ m, cfg)(0, 2, tx, tres,
@@ -480,12 +490,10 @@ def test_compressed_window_with_bf16_residuals_matches_reference(route,
                                                    tres, cfg, True)
     assert got.dtype == dtype and gres.dtype == torch.bfloat16
     assert gres.data_ptr() == tres.data_ptr()
-    np.testing.assert_allclose(got.float().numpy(),
-                               np.asarray(jx, np.float32),
+    np.testing.assert_allclose(got.float().numpy(), jx,
                                rtol=BF16_RTOL if stream == "bfloat16"
                                else 1e-5, atol=1e-6)
-    np.testing.assert_allclose(gres.float().numpy(),
-                               np.asarray(jres, np.float32), rtol=BF16_RTOL,
+    np.testing.assert_allclose(gres.float().numpy(), jres, rtol=BF16_RTOL,
                                atol=1e-6)
 
 

@@ -204,8 +204,8 @@ def test_console_prints_and_is_quiet(capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--arch", "recurrentgemma-2b"], 9),
-    (["--arch", "falcon-mamba-7b"], 9),
+    (["--arch", "whisper-tiny"], 9),
+    (["--arch", "whisper-tiny", "--algo", "personalized"], 9),
 ])
 def test_unported_axes_raise_with_their_roadmap_item(flags, item):
     with pytest.raises(NotImplementedError,

@@ -362,12 +362,12 @@ def test_telemetry_recorders_match_reference():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    ({"model.arch": "recurrentgemma-2b"}, "item 9"),
-    # the Dirichlet token streams are ported; they do not make the hybrid
-    # trainable
-    ({"data.hetero_alpha": 0.1, "model.arch": "recurrentgemma-2b"},
+    ({"model.arch": "whisper-tiny"}, "item 9"),
+    # the Dirichlet token streams are ported; they do not make the
+    # encoder-decoder trainable
+    ({"data.hetero_alpha": 0.1, "model.arch": "whisper-tiny"},
      "item 9"),
-    ({"model.arch": "falcon-mamba-7b"}, "item 9"),
+    ({"model.arch": "whisper-tiny", "run.gossip_impl": "pallas"}, "item 9"),
 ])
 def test_unported_axes_still_raise(overrides, match):
     with pytest.raises(NotImplementedError,
