@@ -58,8 +58,9 @@ and then drives the main paths through the train CLI's own functions:
   ``flash_attention`` and of every decode step through ``decode_attention``
   at head_dim 128; two requests of each are served again one at a time and
   must give the same tokens;
-* slice 15, the same serving of a granite-moe-3b-a800m fleet (4 members of
-  3.30B parameters, 26.4 GB in bf16; 32 MoE layers of 40 experts top-8, 24
+* slice 15, the same serving of a granite-moe-3b-a800m fleet (at its
+  published widths, its depth cut to 8 of 32 MoE layers since slice 16: 4
+  members of 0.88B parameters, 7.05 GB in bf16; 40 experts top-8, 24
   query heads over 8 KV heads of 64): 8 requests of a 1920-token prompt
   and 128 new tokens on 4 slots against a 2048-slot KV cache, each MoE
   layer's attention through ``flash_attention`` in every prefill and
@@ -72,6 +73,16 @@ and then drives the main paths through the train CLI's own functions:
   (3 steps straight, then a checkpoint after 2 and a restore, the restored
   run equal to the straight one) and falcon-mamba-7b cut to 2 layers, then
   the ``examples/torch/serve_batch.py`` twin (reduced, 0 launches);
+* slice 16, whisper-tiny's encoder-decoder at its published widths and
+  depth (4 + 4 layers, d_model 384, 1500 frames; D = 36,448,128) through
+  the train CLI: MC-DSGT R=2 on 4 nodes through ``gossip_mix``, then on 32
+  nodes with int8 gossip in groups of 512 through ``quantized_gossip_mix``'s
+  tile route (n past 16, a group past 256), every launch held to the plain
+  version, and one step with sign; then served by hand in bf16 (4 x (1500
+  frames + 64 prompt tokens), 64 greedy decode steps against the cross
+  cache; no kernel), its f32 prefill + teacher-forced decode equal to the
+  forward; and a reduced qwen1.5-0.5b with a logit softcap, equal on the
+  card and the CPU;
 * the paper's §6 on the dense host runtime, through the twins of the
   reference's examples under ``examples/torch/``: the quickstart
   (MC-DSGT <= DSGD on ``sun``), Figure 2 at its default budget (both
@@ -121,6 +132,9 @@ and then drives the main paths through the train CLI's own functions:
   ``examples/personalized_fleet.py`` twin at its own size on Dirichlet(0.1)
   token streams, its assertions holding (0 launches).
 
+``quantized_gossip_mix`` is checked on each of its three routes (the
+first design's registers at n <= 16, a tile of whole groups in shared
+memory, a group streamed through device memory each round).
 ``linear_recurrence`` is checked bit-equal on each of its three routes
 (a ring of time tiles filled by TMA or by cp.async, and the loop) and
 prints its route, geometry and compiled resources at both serve shapes.
@@ -134,18 +148,21 @@ path ``linear_recurrence`` 18 and ``flash_attention`` 8 times per prefill
 and ``decode_attention`` 8 times per slot and token, the yi-6b and
 minitron-4b serve paths ``flash_attention`` 8 times per prefill and
 ``decode_attention`` 8 times per slot and token, the granite-moe serve path
-32 times each (one attention layer a MoE layer), the slice-15
-training legs ``gossip_mix`` 2 times per step, the wireless legs the
+8 times each (one attention layer a MoE layer), the slice-15
+training legs ``gossip_mix`` 2 times per step, the slice-16 legs
+``gossip_mix`` (4 nodes) and ``quantized_gossip_mix`` (32 nodes) 2 times
+per step and nothing in serving or the softcap leg, the wireless legs the
 gossip kernels 2 times per mixing step, the observability and
 checkpoint legs ``gossip_mix`` 2 times per step; the counts are set to 0
 just before a path and read just after it.  It prints the card, its total
 wall time, one JSON line of per-kernel numbers (a second ``gossip_mix`` row
 for the planning path, three rows for the wireless legs, two for the
 observability and checkpoint legs, three for the slice-15 training legs,
-three rows at the recurrentgemma shapes, then the last six: the attention
-kernels at yi-6b's and minitron-4b's head_dim 128 and at
-granite-moe-3b-a800m's head_dim 64 with G = 3), and last ``{"ok": true,
-"device": {...}}``.
+two for the slice-16 legs (``quantized_gossip_mix`` timed at the 32-node
+shape on its tile route), three rows at the recurrentgemma shapes, then
+the last six: the attention kernels at yi-6b's and minitron-4b's
+head_dim 128 and at granite-moe-3b-a800m's head_dim 64 with G = 3), and
+last ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero; so does a machine without a CUDA device or
 a directory without the repository.
 """
@@ -157,6 +174,7 @@ import gc
 import itertools
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
@@ -256,12 +274,16 @@ DECODE_MT = (1, 2048, 8, 3, 128)
 # Slice 15: granite-moe-3b-a800m (configs/granite_moe_3b_a800m.py,
 # hf:ibm-granite/granite-3.0-1b-a400m-base family; 32 MoE layers of 40
 # experts top-8 with d_ff 512, 24 query heads over 8 KV heads of 64, G = 3)
-# served from a fleet of 4 at its published widths and full depth (26.4 GB
-# in bf16), as qwen's: a 1920-token prompt and a 2048-slot cache.  Each MoE
-# layer runs one attention layer, so the kernels launch 32 times a prefill
-# and 32 times a slot-token.
+# served from a fleet of 4 at its published widths, as qwen's: a 1920-token
+# prompt and a 2048-slot cache.  Each MoE layer runs one attention layer, so
+# the kernels launch once a layer a prefill and once a layer a slot-token.
+# Its depth is cut to GRANITE_SERVE_LAYERS of its 32 layers (every kernel
+# shape unchanged) since slice 16, so that the smoke stays inside its time
+# limit: the path took 107.9-130.3 s at full depth, most of it host-bound
+# decode, and the smoke 904.5 s with it.
 GSERVE = dict(YSERVE)
-GRANITE_PARAMS = 3_298_793_472           # per member, from the config's shapes
+GRANITE_SERVE_LAYERS = 8
+GRANITE_PARAMS = 881_326_080             # per member at GRANITE_SERVE_LAYERS
 FLASH_GR = (1, 1920, 24, 8, 64)          # (B, S, H, KV, hd) of one prefill
 DECODE_GR = (1, 2048, 8, 3, 64)          # (B, C, J, G, hd) of one decode
 # Slice 15's training paths, through the train CLI (use_pallas off, as the
@@ -278,6 +300,32 @@ VLM_ARGV = ["--arch", "internvl2-1b", "--preset", "full", "--nodes", "4",
             "--device", "cuda"]
 TRAIN_LAYERS = {"granite-moe-3b-a800m": 4, "falcon-mamba-7b": 2}
 TRAIN_D = {"granite-moe-3b-a800m": 478_414_848, "falcon-mamba-7b": 476_966_912}
+# Slice 16: whisper-tiny (configs/whisper_tiny.py, arXiv:2212.04356), the
+# encoder-decoder at its published widths and depth (4 + 4 layers, d_model
+# 384, 6 heads of 64, vocab 51,865, 1500 frames of the stub frontend, D =
+# 36,448,128), through the train CLI (use_pallas is read by no layer of the
+# encoder-decoder, in either package, so no attention kernel runs): (a) 4
+# nodes through gossip_mix; (b) 32 nodes with int8 gossip in groups of 512
+# through quantized_gossip_mix's tile route (its state, 36,448,768 columns
+# aligned to the group, is 4.67 GB an (n, D) f32 tensor), every launch held
+# to the plain version, then one step with sign; (c) served by hand in
+# bf16 (serve_fleet refuses audio, as the reference's engine does): 4
+# sequences of 1500 frames, a 64-token prefill and 64 greedy decode steps
+# against the cross cache; (d) a reduced qwen1.5-0.5b with a logit softcap
+# of 30, prefill and decode on the card against the CPU.
+WHISPER_D = 36_448_128
+WHISPER_D_ALIGNED = 36_448_768          # each leaf aligned to the group
+WHISPER_GROUP = 512
+WHISPER_ARGV = ["--arch", "whisper-tiny", "--preset", "full", "--algo",
+                "mc_dsgt", "--R", "2", "--gossip-impl", "pallas",
+                "--device", "cuda"]
+WHISPER_NODES = 32
+WSERVE = dict(batch=4, prompt_len=64, max_new=64)
+# quantized_gossip_mix's stream route timed at the 32-node state's width: a
+# group of 1024 does not fit a tile at n = 32 (262 KB)
+STREAM_GROUP = 1024
+STREAM_D = 1024 * 35_594
+SOFTCAP = 30.0
 # Predictions for the slice-14 and slice-15 phases (yi-6b's and
 # minitron-4b's at HD128_LAYERS), written before their first run on the
 # card (PERF.md §6) and printed beside the readings:
@@ -287,11 +335,22 @@ TRAIN_D = {"granite-moe-3b-a800m": 478_414_848, "falcon-mamba-7b": 476_966_912}
 PREDICTED = {"yi-6b": {"peak_gb": (15, 17.5), "wall_s": (15, 40)},
              "minitron-4b": {"peak_gb": (19.5, 22), "wall_s": (15, 40)},
              "spec smoke": {"wall_s": (40, 120)},
-             "granite-moe-3b-a800m": {"peak_gb": (28, 34),
-                                      "wall_s": (60, 140)},
+             # granite at GRANITE_SERVE_LAYERS (slice 16): 7.05 GB of
+             # weights, the MoE's prefill buffers, four 2048-slot caches
+             "granite-moe-3b-a800m": {"peak_gb": (7.5, 10),
+                                      "wall_s": (20, 45)},
              "internvl2-1b train": {"peak_gb": (30, 45),
                                     "wall_s": (20, 60)},
-             "arch train": {"wall_s": (90, 240)}}
+             "arch train": {"wall_s": (90, 240)},
+             # slice 16, written before the phase's first run on the card
+             # (PERF.md §6): leg (a) holds 4 (4, D) f32 tensors and the activations
+             # of 2 x 1500 frames; leg (b) x, h, g_prev, two residuals and
+             # the gradient buffer at 4.67 GB each
+             "whisper (a)": {"peak_gb": (2.5, 8), "s_step": (0.1, 0.6)},
+             "whisper (b)": {"peak_gb": (28, 40), "s_step": (0.8, 3.0)},
+             "whisper serve": {"prefill_tok_s": (5_000, 40_000),
+                               "decode_tok_s": (800, 3_000)},
+             "whisper": {"wall_s": (30, 90)}}
 # The serve CLI path: the port's launch/serve.py trains a qwen1.5-0.5b fleet
 # at full width (2 MC-DSGT steps through gossip_mix) and serves it.
 SERVE_CLI_STEPS = 2
@@ -548,105 +607,133 @@ def qcompare(torch, what, x, res, got, want, R, scheme, group, ef):
     return bad, err
 
 
+def qcase(torch, quantized_gossip, ref, ws, x, res, kw, what) -> int:
+    """One quantized_gossip_mix case against its plain version: R = 1 held
+    tightly (int8's residual exactly: max, division, rint and the product
+    are exact; the mixed x and sign's scale, a sum in another order, at
+    rtol = atol = 1e-5); from R = 2 on up to MAX_FLIPS of the entries may
+    flip; every case passes qcompare's bounds, and in place gives the same
+    bits as out of place.  Returns the flipped entries (R >= 2; 0 for R =
+    1)."""
+    R = ws.shape[0]
+    scheme, group, ef = kw["scheme"], kw["group"], kw["error_feedback"]
+    o, r = quantized_gossip.quantized_gossip_mix(ws, x, res, **kw)
+    wo, wr = ref.quantized_gossip_mix_ref(ws, x, res, **kw)
+    torch.cuda.synchronize()
+    bad, _ = qcompare(torch, what, x, res, (o, r), (wo, wr), R, scheme,
+                      group, ef)
+    if R == 1:
+        if scheme == "int8" or not ef:
+            if not torch.equal(r, wr):
+                fail(f"{what}: residual not exact")
+        else:
+            torch.testing.assert_close(r, wr, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(o, wo, rtol=1e-5, atol=1e-5)
+        bad = 0
+    elif bad > MAX_FLIPS * 2 * o.numel():
+        fail(f"{what}: {bad} entries beyond rtol=atol=1e-5")
+    xi, ri = x.clone(), res.clone()
+    quantized_gossip.quantized_gossip_mix(ws, xi, ri, out=xi, res_out=ri,
+                                          **kw)
+    torch.cuda.synchronize()
+    if not (torch.equal(xi, o) and torch.equal(ri, r)):
+        fail(f"{what}: in place differs from out of place")
+    return bad
+
+
+# The wide routes' cases (n, group, D): n past the regs route's 16 and
+# groups that are not powers of two or wider than 256; D an odd number of
+# groups, so a tile of two groups ends half empty.  (64, 384) just fits a
+# tile (229,632 bytes with R = 2); (32, 1024) and (64, 4096) take the
+# stream route.
+QWIDE_CASES = ((17, 384, 384 * 1001), (32, 512, 512 * 601),
+               (64, 384, 384 * 401), (16, 1024, 1024 * 301),
+               (32, 1024, 1024 * 201), (64, 4096, 4096 * 51))
+
+
 def check_qkernel(torch, quantized_gossip, ref, gossip):
-    """quantized_gossip_mix against its plain version over both schemes,
-    error feedback on and off, R 1/2/4, n 4 and 16 (the largest it takes:
-    16 uses the one-column path, 4 the 16-byte one), group 256 and 8, a D
-    whose last block is partial, out of place and in place.  Round 1 is
-    held tightly: int8's residual exactly (max, division, rint and the
-    product are exact), the mixed x and sign's scale (a sum in another
-    order) at rtol = atol = 1e-5.  From R = 2 on up to MAX_FLIPS of the
-    entries may flip.  Every case also passes qcompare's bounds.  In place
-    must give the same bits as out of place."""
+    """quantized_gossip_mix against its plain version (qcase) over both
+    schemes, error feedback on and off, out of place and in place: on the
+    regs route at R 1/2/4, n 4 and 16 (16 uses the one-column path, 4 the
+    16-byte one), group 256 and 8, a D whose last block is partial; on the
+    tile and stream routes at R 1/2 over QWIDE_CASES (n 17, 32, 64; group
+    384, 512, 1024, 4096), each case's route as launch_geometry names it."""
     gen = torch.Generator(device="cuda").manual_seed(2)
-    cases, worst = 0, 0.0
-    for n in (4, 16):
-        for R in (1, 2, 4):
-            ws = torch.from_numpy(gossip.theorem3_weight_schedule(
-                n, 1 - 1 / n).stacked(0, R)).cuda()
-            for group, D in ((GROUP, 1_000_192), (8, 1_000_008)):
-                x = torch.randn(n, D, device="cuda", generator=gen)
-                res = 0.1 * torch.randn(n, D, device="cuda", generator=gen)
-                for scheme in ("sign", "int8"):
-                    for ef in (True, False):
-                        kw = dict(scheme=scheme, group=group,
-                                  error_feedback=ef)
-                        o, r = quantized_gossip.quantized_gossip_mix(
-                            ws, x, res, **kw)
-                        wo, wr = ref.quantized_gossip_mix_ref(ws, x, res,
-                                                              **kw)
-                        torch.cuda.synchronize()
-                        what = f"n={n} R={R} group={group} {scheme} ef={ef}"
-                        bad, _ = qcompare(torch, what, x, res, (o, r),
-                                          (wo, wr), R, scheme, group, ef)
-                        if R == 1:
-                            if scheme == "int8" or not ef:
-                                if not torch.equal(r, wr):
-                                    fail(f"{what}: residual not exact")
-                            else:
-                                torch.testing.assert_close(r, wr, rtol=1e-5,
-                                                           atol=1e-5)
-                            torch.testing.assert_close(o, wo, rtol=1e-5,
-                                                       atol=1e-5)
-                        else:
-                            worst = max(worst, bad / (2 * o.numel()))
-                            if bad > MAX_FLIPS * 2 * o.numel():
-                                fail(f"{what}: {bad} entries beyond rtol="
-                                     f"atol=1e-5")
-                        xi, ri = x.clone(), res.clone()
-                        quantized_gossip.quantized_gossip_mix(
-                            ws, xi, ri, out=xi, res_out=ri, **kw)
-                        torch.cuda.synchronize()
-                        if not (torch.equal(xi, o) and torch.equal(ri, r)):
-                            fail(f"{what}: in place differs from out of "
-                                 "place")
-                        cases += 1
+    cases, worst, routes = 0, 0.0, {}
+    shapes = [(n, R, group, D) for n in (4, 16) for R in (1, 2, 4)
+              for group, D in ((GROUP, 1_000_192), (8, 1_000_008))]
+    shapes += [(n, R, group, D) for n, group, D in QWIDE_CASES
+               for R in (1, 2)]
+    for n, R, group, D in shapes:
+        ws = torch.from_numpy(gossip.theorem3_weight_schedule(
+            n, 1 - 1 / n).stacked(0, R)).cuda()
+        route = quantized_gossip.launch_geometry(n, group, D, R)["route"]
+        routes.setdefault(route, set()).add((n, group))
+        x = torch.randn(n, D, device="cuda", generator=gen)
+        res = 0.1 * torch.randn(n, D, device="cuda", generator=gen)
+        for scheme in ("sign", "int8"):
+            for ef in (True, False):
+                kw = dict(scheme=scheme, group=group, error_feedback=ef)
+                what = (f"n={n} R={R} group={group} {scheme} ef={ef} "
+                        f"({route})")
+                bad = qcase(torch, quantized_gossip, ref, ws, x, res, kw,
+                            what)
+                if R > 1:
+                    worst = max(worst, bad / (2 * x.numel()))
+                cases += 1
+        del x, res
+    if set(routes) != {"regs", "tile", "stream"}:
+        fail(f"quantized_gossip_mix check reached the routes {routes}")
     print(f"kernel check: quantized_gossip_mix == plain on {cases} cases "
-          f"(sign/int8, EF on/off, n 4/16, R 1/2/4, group {GROUP}/8, D "
-          f"1,000,192/1,000,008; R=1 rtol=atol=1e-5, int8 residual exact; "
-          f"R>=2 flipped entries at most {MAX_FLIPS:.0e}, worst {worst:.2e}, "
-          f"int8 each within max(1, 2R-3) steps; EF on: node sums of x + res "
-          f"kept at rtol=atol=1e-5; in place == out of place bit for bit)",
+          f"(sign/int8, EF on/off; regs route n 4/16, R 1/2/4, group "
+          f"{GROUP}/8, D 1,000,192/1,000,008; routes {routes} at R 1/2; R=1 "
+          f"rtol=atol=1e-5, int8 residual exact; R>=2 flipped entries at most "
+          f"{MAX_FLIPS:.0e}, worst {worst:.2e}, int8 each within "
+          f"max(1, 2R-3) steps; EF on: node sums of x + res kept at "
+          f"rtol=atol=1e-5; in place == out of place bit for bit)",
           flush=True)
 
 
-def time_qkernel(torch, quantized_gossip, ref, gossip) -> dict:
-    """quantized_gossip_mix at the main path's shape (int8, error feedback,
-    group 256): held to its plain version column chunk by column chunk (the
-    plain version is column-separable at group granularity, and whole it
-    would hold ~6 more (n, D) temporaries) with qcompare's bounds and at
-    most MAIN_MAX_FLIPS flipped entries, in place against out of place,
-    then timed beside its bound and the plain version (no single PyTorch
-    call computes this function, so there is no library time)."""
-    n, R, D = MAIN["n"], MAIN["R"], MAIN["D"]
-    kw = dict(scheme="int8", group=GROUP, error_feedback=True)
-    ws = torch.from_numpy(gossip.theorem3_weight_schedule(n, 0.75)
-                          .stacked(0, R)).cuda()
+def time_qkernel(torch, quantized_gossip, ref, gossip, n=MAIN["n"],
+                 D=MAIN["D"], group=GROUP, label="main shape") -> dict:
+    """quantized_gossip_mix at a path's shape (int8, error feedback, R = 2;
+    the main path's by default: n = 4, group 256, the regs route): held to
+    its plain version column chunk by column chunk (the plain version is
+    column-separable at group granularity, and whole it would hold ~6 more
+    (n, D) temporaries) with qcompare's bounds and at most MAIN_MAX_FLIPS
+    flipped entries, in place against out of place, then timed beside its
+    bound and the plain version (no single PyTorch call computes this
+    function, so there is no library time)."""
+    R = MAIN["R"]
+    kw = dict(scheme="int8", group=group, error_feedback=True)
+    ws = torch.from_numpy(gossip.theorem3_weight_schedule(
+        n, 0.75 if n == 4 else 1 - 1 / n).stacked(0, R)).cuda()
+    geo = quantized_gossip.launch_geometry(n, group, D, R)
     gen = torch.Generator(device="cuda").manual_seed(3)
     x = torch.randn(n, D, device="cuda", generator=gen)
     res = 0.1 * torch.randn(n, D, device="cuda", generator=gen)
     out, res_out = quantized_gossip.quantized_gossip_mix(ws, x, res, **kw)
     torch.cuda.synchronize()
-    chunk = GROUP * 65_536
+    chunk = group * (GROUP * 65_536 * MAIN["n"] // (group * n))
     bad, err = 0, 0.0
     for a in range(0, D, chunk):
         cols = slice(a, a + chunk)
         want = ref.quantized_gossip_mix_ref(ws, x[:, cols], res[:, cols],
                                             **kw)
-        b, e = qcompare(torch, f"main shape, columns {a}+", x[:, cols],
+        b, e = qcompare(torch, f"{label}, columns {a}+", x[:, cols],
                         res[:, cols], (out[:, cols], res_out[:, cols]), want,
-                        R, kw["scheme"], GROUP, kw["error_feedback"])
+                        R, kw["scheme"], group, kw["error_feedback"])
         bad, err = bad + b, max(err, e)
     del want
     if bad > MAIN_MAX_FLIPS * 2 * n * D:
-        fail(f"quantized_gossip_mix at the main shape: {bad} entries beyond "
+        fail(f"quantized_gossip_mix at the {label}: {bad} entries beyond "
              "rtol=atol=1e-5")
     xi, ri = x.clone(), res.clone()
     quantized_gossip.quantized_gossip_mix(ws, xi, ri, out=xi, res_out=ri,
                                           **kw)
     torch.cuda.synchronize()
     if not (torch.equal(xi, out) and torch.equal(ri, res_out)):
-        fail("quantized_gossip_mix at the main shape: in place differs from "
+        fail(f"quantized_gossip_mix at the {label}: in place differs from "
              "out of place")
     del xi, ri, out, res_out
     torch.cuda.empty_cache()
@@ -670,11 +757,16 @@ def time_qkernel(torch, quantized_gossip, ref, gossip) -> dict:
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
                 shape=f"ws ({R},{n},{n}) f32, x and res ({n},{D}) f32, int8, "
-                      f"group {GROUP}, EF on")
+                      f"group {group}, EF on", route=geo["route"],
+                geometry={k: geo[k] for k in ("gpt", "threads", "smem")})
+    if geo["route"] != "regs":
+        res_["resources"] = quantized_gossip.resources(geo, "int8", n)
     print(f"quantized_gossip_mix at {res_['shape']}: == plain up to {bad} "
           f"flipped of {2 * n * D} entries (limit {MAIN_MAX_FLIPS:.0e}), "
           f"each within one int8 step of its group, max_abs_err {err:.3e}; "
-          "node sums of x + res kept; in place == out of place", flush=True)
+          "node sums of x + res kept; in place == out of place; route "
+          f"{res_['route']} {res_['geometry']} {res_.get('resources', '')}",
+          flush=True)
     print(f"quantized_gossip_mix at {res_['shape']}: kernel "
           f"{res_['ms']:.4f} ms  plain {res_['plain_ms']:.4f} ms  library "
           f"none  bound {res_['bound_ms']:.4f} ms ({res_['bound_by']})  "
@@ -1948,6 +2040,22 @@ def check_sequential(torch, exp, serve, model, fleet, tree, completed,
           f"{SEQUENTIAL_RIDS}", flush=True)
 
 
+def profile_once(torch, fn) -> tuple:
+    """``fn()`` under torch.profiler, synchronised: (wall ms, [(kernel,
+    device ms, calls)] of every kernel with device time)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    return wall_ms, [(e.key, e.self_device_time_total / 1e3, e.count)
+                     for e in prof.key_averages()
+                     if e.device_type == torch.autograd.DeviceType.CUDA
+                     and e.self_device_time_total > 0]
+
+
 def profile_serve(torch, model, fleet, tree, sv: dict, kernels: tuple):
     """Where one prefill's and one decode step's device time goes:
     torch.profiler over each (after the main path warmed everything),
@@ -1956,21 +2064,12 @@ def profile_serve(torch, model, fleet, tree, sv: dict, kernels: tuple):
     S = sv["prompt_len"]
     cache = model.init_cache(1, S + sv["max_new"], torch.bfloat16, "cuda")
     prompt = torch.randint(0, model.cfg.vocab_size, (1, S), device="cuda")
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    for what in ("prefill", "decode step"):
-        with torch.profiler.profile(activities=acts) as prof:
-            t0 = time.perf_counter()
-            if what == "prefill":
-                logits, _ = model.prefill(params, {"tokens": prompt}, cache)
-            else:
-                logits, _ = model.decode_step(params, prompt[:, :1], cache, S)
-            torch.cuda.synchronize()
-            wall_ms = (time.perf_counter() - t0) * 1e3
-        found = [(e.key, e.self_device_time_total / 1e3, e.count)
-                 for e in prof.key_averages()
-                 if e.device_type == torch.autograd.DeviceType.CUDA
-                 and e.self_device_time_total > 0]
+    steps = {"prefill": lambda: model.prefill(params, {"tokens": prompt},
+                                              cache),
+             "decode step": lambda: model.decode_step(params, prompt[:, :1],
+                                                      cache, S)}
+    for what, fn in steps.items():
+        wall_ms, found = profile_once(torch, fn)
         busy = sum(ms for _, ms, _ in found)
         ours = {name: sum(ms for k, ms, _ in found if name in k)
                 for name in kernels}
@@ -2429,6 +2528,38 @@ def tracker_mean_gap(torch, state, steps: int, scale):
     return gap_max, worst
 
 
+def held_qmix(torch, ref, real, what: str, checks: list):
+    """A stand-in for ``ops.quantized_gossip_mix`` that runs ``real`` (the
+    kernel's wrapper) and holds each launch to the plain version on its own
+    inputs, three windows of QCHECK_COLS columns (first, middle, last;
+    aligned to the call's group: the kernel quantizes and mixes each group
+    on its own) by qcompare (the int8 step bound, node sums of x + res, at
+    most MAX_FLIPS flipped entries); appends (flipped, max error) per
+    window to ``checks``."""
+    def held(ws, x, res, **kw):
+        D, g = x.shape[1], kw["group"]
+        mid = (D // 2) // g * g
+        windows = [slice(a_, a_ + QCHECK_COLS) for a_ in
+                   (0, mid, D - QCHECK_COLS)]
+        inputs = [(x[:, w].clone(), res[:, w].clone()) for w in windows]
+        result = real(ws, x, res, **kw)
+        R = ws.shape[0]
+        for w, (xi, ri) in zip(windows, inputs):
+            want = ref.quantized_gossip_mix_ref(
+                ws, xi, ri, scheme=kw["scheme"], group=g,
+                error_feedback=kw["error_feedback"])
+            bad, err = qcompare(torch, f"{what} launch {len(checks) // 3}, "
+                                f"columns {w.start}+", xi, ri,
+                                (result[0][:, w], result[1][:, w]), want, R,
+                                kw["scheme"], g, kw["error_feedback"])
+            if bad > MAX_FLIPS * 2 * xi.numel():
+                fail(f"{what}: {bad} flipped entries in columns "
+                     f"{w.start}+ of launch {len(checks) // 3}")
+            checks.append((bad, err))
+        return result
+    return held
+
+
 def cli_run(torch, train, exp, argv, counters, what: str, smi: str = "",
             on_step=None, keep=()) -> dict:
     """``train.main(argv)`` on the card with every count from 0 and
@@ -2583,31 +2714,8 @@ def wireless_phase(torch, train, exp, ops, ref, sim_telemetry, counters,
     # (b) compressed and delayed through quantized_gossip_mix
     real = ops.quantized_gossip_mix
     checks = []
-
-    def held(ws, x, res, **kw):
-        D = x.shape[1]
-        mid = (D // 2) // GROUP * GROUP
-        windows = [slice(a_, a_ + QCHECK_COLS) for a_ in
-                   (0, mid, D - QCHECK_COLS)]
-        inputs = [(x[:, w].clone(), res[:, w].clone()) for w in windows]
-        result = real(ws, x, res, **kw)
-        R = ws.shape[0]
-        for w, (xi, ri) in zip(windows, inputs):
-            want = ref.quantized_gossip_mix_ref(
-                ws, xi, ri, scheme=kw["scheme"], group=kw["group"],
-                error_feedback=kw["error_feedback"])
-            bad, err = qcompare(torch, f"wireless (b) launch {len(checks)}, "
-                                f"columns {w.start}+", xi, ri,
-                                (result[0][:, w], result[1][:, w]), want, R,
-                                kw["scheme"], kw["group"],
-                                kw["error_feedback"])
-            if bad > MAX_FLIPS * 2 * xi.numel():
-                fail(f"wireless (b): {bad} flipped entries in columns "
-                     f"{w.start}+ of launch {len(checks)}")
-            checks.append((bad, err))
-        return result
-
-    ops.quantized_gossip_mix = held
+    ops.quantized_gossip_mix = held_qmix(torch, ref, real, "wireless (b)",
+                                         checks)
     try:
         b = cli_run(torch, train, exp,
                          DELAYED_ARGV + ["--gossip-impl", "pallas",
@@ -3166,6 +3274,214 @@ def arch_train_phase(torch, train, exp, models, configs, tree, counters,
     return out
 
 
+def whisper_phase(torch, train, exp, ops, ref, models, configs, tree,
+                  counters, smi: str) -> dict:
+    """Slice 16 on the card (see WHISPER_ARGV's note):
+
+    (a) whisper-tiny at full width on 4 nodes, MC-DSGT R=2, 3 steps
+        through the train CLI: 6 gossip_mix launches and nothing else,
+        finite losses; s/step and peak memory beside their predictions;
+    (b) the same on 32 nodes with --compress int8 --compress-group 512: 6
+        quantized_gossip_mix launches on the tile route and nothing else,
+        each held to the plain version on its own inputs (held_qmix); then
+        one step with --compress sign (2 launches, held likewise);
+    (c) whisper-tiny served in bf16 from seeded weights, 4 sequences: the
+        encoder over 1500 frames and a 64-token prefill, then 64 greedy
+        decode steps against the self ring and the cross cache: 0 launches
+        of every kernel; prefill and decode tok/s, a profile of one prefill
+        and one decode step (idle share); in f32 from the same weights,
+        prefill + teacher-forced decode logits == the train-mode forward's
+        at rtol 5e-2 / atol 5e-3 (the reference's own check,
+        tests/test_archs_smoke.py);
+    (d) a reduced qwen1.5-0.5b with logit_softcap 30 in f32: prefill of 16
+        tokens and 4 decode steps on the card == the same run on the CPU
+        within 1e-4, 0 launches."""
+    t_phase = time.perf_counter()
+    out = {}
+    # (a)
+    a = cli_run(torch, train, exp, WHISPER_ARGV + ["--nodes", "4", "--steps",
+                                                   str(STEPS)],
+                counters, "whisper (a) 4 nodes", smi)
+    D = a.pop("state").x.shape[1]
+    if D != WHISPER_D or len(a["losses"]) != STEPS:
+        fail(f"whisper (a): D {D}, {len(a['losses'])} steps")
+    if a["launches"]["gossip_mix"] != 2 * STEPS or \
+            sum(a["launches"].values()) != 2 * STEPS:
+        fail(f"whisper (a): launches {a['launches']}; {STEPS} MC-DSGT steps "
+             "need 2 gossip_mix each and nothing else")
+    print(f"whisper (a): peak device memory "
+          f"{predicted('whisper (a)', 'peak_gb', a['peak_gb'])} GB  s/step "
+          f"{predicted('whisper (a)', 's_step', statistics.median(a['secs']))}"
+          f" (median of {a['secs']})", flush=True)
+    out["a"] = {k: a[k] for k in ("launches", "losses", "secs", "peak_gb")}
+    # (b)
+    real = ops.quantized_gossip_mix
+    for scheme, steps_ in (("int8", STEPS), ("sign", 1)):
+        checks = []
+        ops.quantized_gossip_mix = held_qmix(torch, ref, real,
+                                             f"whisper (b) {scheme}", checks)
+        try:
+            b = cli_run(torch, train, exp, WHISPER_ARGV + [
+                "--nodes", str(WHISPER_NODES), "--compress", scheme,
+                "--compress-group", str(WHISPER_GROUP), "--steps",
+                str(steps_)], counters,
+                f"whisper (b) {WHISPER_NODES} nodes {scheme}", smi)
+        finally:
+            ops.quantized_gossip_mix = real
+        state = b.pop("state")
+        if state.x.shape[0] != WHISPER_NODES or len(checks) != 3 * 2 * steps_:
+            fail(f"whisper (b) {scheme}: state {tuple(state.x.shape)}, "
+                 f"{len(checks)} windows checked")
+        del state
+        if b["launches"]["quantized_gossip_mix"] != 2 * steps_ or \
+                sum(b["launches"].values()) != 2 * steps_:
+            fail(f"whisper (b) {scheme}: launches {b['launches']}; "
+                 f"{steps_} compressed MC-DSGT steps need 2 "
+                 "quantized_gossip_mix each and nothing else")
+        print(f"whisper (b) {scheme}: every quantized_gossip_mix launch == "
+              f"plain on its first, middle and last {QCHECK_COLS:,} columns "
+              f"(flipped entries and max |diff| per window {checks})",
+              flush=True)
+        if scheme == "int8":
+            s_step = statistics.median(b["secs"])
+            print(f"whisper (b): peak device memory "
+                  f"{predicted('whisper (b)', 'peak_gb', b['peak_gb'])} GB  "
+                  f"s/step {predicted('whisper (b)', 's_step', s_step)} "
+                  f"(median of {b['secs']})", flush=True)
+        out[f"b_{scheme}"] = {k: b[k] for k in ("launches", "losses", "secs",
+                                                "peak_gb")}
+    gc.collect()
+    torch.cuda.empty_cache()
+    out["c"] = whisper_serve_leg(torch, models, configs, tree, counters)
+    out["d"] = softcap_leg(torch, models, configs, tree, counters)
+    wall = time.perf_counter() - t_phase
+    print(f"whisper phase: wall {predicted('whisper', 'wall_s', wall)} s",
+          flush=True)
+    out["wall"] = wall
+    return out
+
+
+def whisper_serve_leg(torch, models, configs, tree, counters) -> dict:
+    """Leg (c) of whisper_phase."""
+    from repro_torch.models import encdec
+    cfg = configs.get("whisper-tiny")
+    model = models.build(cfg)
+    B, P, new = WSERVE["batch"], WSERVE["prompt_len"], WSERVE["max_new"]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    params = model.init(gen, torch.bfloat16, "cuda")
+    frames = 0.02 * torch.randn(B, cfg.encoder_seq, cfg.d_model,
+                                generator=gen, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (B, P), generator=gen,
+                           device="cuda")
+    batch = {"tokens": prompt, "frames": frames.to(torch.bfloat16)}
+
+    def serve():
+        cache = model.init_cache(B, P + new, torch.bfloat16, "cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(params, batch, cache)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        toks = [logits[:, -1].argmax(-1)]
+        for i in range(new):
+            logits, cache = model.decode_step(params, toks[-1][:, None],
+                                              cache, P + i)
+            toks.append(logits[:, -1].argmax(-1))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        return torch.stack(toks[:new], 1), cache, t1 - t0, t2 - t1
+
+    serve()                         # warm-up: first-call costs
+    for c in counters.values():
+        c.launches = 0
+    gen_toks, cache, t_pre, t_dec = serve()
+    launches = {k: c.launches for k, c in counters.items()}
+    if any(launches.values()):
+        fail(f"whisper (c): launches {launches}; the encoder-decoder reaches "
+             "no kernel")
+    res = {"prefill_tok_s": B * P / t_pre, "decode_tok_s": B * new / t_dec,
+           "prefill_s": t_pre, "decode_s": t_dec, "launches": launches}
+    steps = {"prefill": lambda: model.prefill(params, batch, model.init_cache(
+                 B, P + new, torch.bfloat16, "cuda")),
+             "decode step": lambda: model.decode_step(
+                 params, gen_toks[:, :1], cache, P + new - 1)}
+    for what, fn in steps.items():
+        wall_ms, found = profile_once(torch, fn)
+        busy = sum(ms for _, ms, _ in found)
+        res[f"{what.split()[0]}_idle"] = 1 - busy / wall_ms
+        top = sorted(found, key=lambda k: -k[1])[:6]
+        print(f"whisper (c) profile of one {what} (bf16, {B} x ({P} tokens "
+              f"+ {cfg.encoder_seq} frames)): wall {wall_ms:.3f} ms  device "
+              f"busy {busy:.3f} ms (idle share {1 - busy / wall_ms:.4f})  "
+              f"kernels {sum(c for _, _, c in found)}  top (ms, calls): "
+              + "; ".join(f"{k[:50]} {ms:.3f} x{c}" for k, ms, c in top),
+              flush=True)
+    del cache
+    # the teacher-forced check in f32 from the same weights
+    p32 = tree.map(lambda t: t.float(), params)
+    seq = torch.cat([prompt, gen_toks], 1)
+    full = encdec.forward(p32, cfg, seq, frames)
+    c32 = model.init_cache(B, P + new, torch.float32, "cuda")
+    logits, c32 = model.prefill(p32, {"tokens": prompt, "frames": frames},
+                                c32)
+    err = float((logits[:, 0] - full[:, P - 1]).abs().max())
+    torch.testing.assert_close(logits[:, 0], full[:, P - 1], rtol=5e-2,
+                               atol=5e-3)
+    for t in range(P, P + new):
+        logits, c32 = model.decode_step(p32, seq[:, t:t + 1], c32, t)
+        torch.testing.assert_close(
+            logits[:, 0], full[:, t], rtol=5e-2, atol=5e-3,
+            msg=lambda m: f"whisper (c) decode {t}: {m}")
+        err = max(err, float((logits[:, 0] - full[:, t]).abs().max()))
+    res["teacher_forced_max_abs_err"] = err
+    rates = {k: predicted("whisper serve", k, res[k])
+             for k in ("prefill_tok_s", "decode_tok_s")}
+    print(f"whisper (c) serve: {B} x ({cfg.encoder_seq} frames + {P}-token "
+          f"prefill + {new} greedy decode steps), bf16: prefill "
+          f"{rates['prefill_tok_s']} tok/s, decode {rates['decode_tok_s']} "
+          f"tok/s; launches {launches}; f32 teacher-forced prefill + decode "
+          f"== forward (rtol 5e-2, atol 5e-3; max |diff| {err:.3e})",
+          flush=True)
+    del params, p32, full, c32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def softcap_leg(torch, models, configs, tree, counters) -> dict:
+    """Leg (d) of whisper_phase."""
+    cfg = dataclasses.replace(configs.get("qwen1.5-0.5b").reduced(),
+                              logit_softcap=SOFTCAP)
+    model = models.build(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    tokens = torch.randint(0, cfg.vocab_size, (2, 20),
+                           generator=torch.Generator().manual_seed(1))
+
+    def run(dev):
+        p = tree.map(lambda t: t.to(dev), params)
+        cache = model.init_cache(2, 20, torch.float32, dev)
+        outs = [model.prefill(p, {"tokens": tokens[:, :16].to(dev)},
+                              cache)[0]]
+        for t in range(16, 20):
+            outs.append(model.decode_step(p, tokens[:, t:t + 1].to(dev),
+                                          cache, t)[0])
+        return torch.cat([o.cpu() for o in outs], 1)
+
+    for c in counters.values():
+        c.launches = 0
+    got = run("cuda")
+    launches = {k: c.launches for k, c in counters.items()}
+    want = run("cpu")
+    err = float((got - want).abs().max())
+    if any(launches.values()) or err > 1e-4:
+        fail(f"whisper (d) softcap: launches {launches}, max |cuda - cpu| "
+             f"{err:.3e} (limit 1e-4)")
+    print(f"whisper (d): reduced qwen1.5-0.5b with logit_softcap {SOFTCAP}, "
+          f"f32 prefill of 16 + 4 decode steps on the card == on the CPU "
+          f"(max |diff| {err:.3e} <= 1e-4); launches {launches}", flush=True)
+    return {"max_abs_err": err, "launches": launches}
+
+
 def main_path(torch, train, argv, counter, name: str) -> dict:
     """Drive one main path through the train CLI with ``counter`` (a
     kernel wrapper's launch count) set to 0 just before it and read just
@@ -3234,6 +3550,19 @@ def main():
     kern = time_kernel(torch, gossip_matmul, ref, gossip)
     check_qkernel(torch, quantized_gossip, ref, gossip)
     qkern = time_qkernel(torch, quantized_gossip, ref, gossip)
+    if steps.flat_layout(models.build(configs.get("whisper-tiny")),
+                         compress.CompressionConfig(
+                             scheme="int8", group=WHISPER_GROUP)
+                         ).size != WHISPER_D_ALIGNED:
+        fail("whisper-tiny's 32-node state is not WHISPER_D_ALIGNED wide")
+    qkern_w = time_qkernel(torch, quantized_gossip, ref, gossip,
+                           n=WHISPER_NODES, D=WHISPER_D_ALIGNED,
+                           group=WHISPER_GROUP,
+                           label="whisper-tiny 32-node shape")
+    # the stream route at the same width (no path of the smoke reaches it)
+    time_qkernel(torch, quantized_gossip, ref, gossip, n=WHISPER_NODES,
+                 D=STREAM_D, group=STREAM_GROUP,
+                 label="stream route at the 32-node width")
     check_skernel(torch, sparse_gossip, ref, ops)
     check_lkernel(torch, linear_recurrence, ref)
     lkern = time_lkernel(torch, linear_recurrence, ref)
@@ -3337,13 +3666,19 @@ def main():
     lap("yi-6b and minitron-4b serve")
     gserved = attention_serve_phase(*phase, "granite-moe-3b-a800m",
                                     GRANITE_PARAMS, GSERVE,
-                                    "granite-moe-3b-a800m serve path")
+                                    "granite-moe-3b-a800m serve path",
+                                    GRANITE_SERVE_LAYERS)
     lap("granite-moe-3b-a800m serve")
     trained = arch_train_phase(torch, train, exp, models, configs, tree,
                                counters, smi)
     gc.collect()
     torch.cuda.empty_cache()
     lap("arch train (internvl2-1b, granite-moe, falcon-mamba)")
+    whispered = whisper_phase(torch, train, exp, ops, ref, models, configs,
+                              tree, counters, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("whisper-tiny (slice 16)")
     logreg_phase(torch, exp, counters)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3495,6 +3830,32 @@ def main():
             "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
             "path": path, "launches": launches,
             "launches_per_step": launches / steps_})
+    # slice 16: gossip_mix on whisper-tiny's 4-node training (the kernel at
+    # n = 4, D = 36.4M), and quantized_gossip_mix on its 32-node int8
+    # training, timed at that shape on its tile route
+    base = rows[0]
+    rows.append({**{k: base[k] for k in (
+        "name", "route", "source", "replaces", "max_abs_err", "ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "path": "whisper (a): whisper-tiny, 4 nodes",
+        "launches": whispered["a"]["launches"]["gossip_mix"],
+        "launches_per_step": whispered["a"]["launches"]["gossip_mix"]
+        / STEPS})
+    base = rows[1]
+    launches = (whispered["b_int8"]["launches"]["quantized_gossip_mix"]
+                + whispered["b_sign"]["launches"]["quantized_gossip_mix"])
+    rows.append({**{k: base[k] for k in ("name", "route", "source",
+                                         "replaces")},
+                 "path": f"whisper (b): whisper-tiny, {WHISPER_NODES} nodes, "
+                 f"int8 ({STEPS} steps) then sign (1), group "
+                 f"{WHISPER_GROUP}",
+                 "launches": launches, "launches_per_step": launches
+                 / (STEPS + 1),
+                 **{k: qkern_w[k] for k in (
+                     "max_abs_err", "ms", "plain_ms", "bound_ms",
+                     "bound_by", "library_ms", "shape", "geometry",
+                     "resources")},
+                 "variant": qkern_w["route"]})
     # the same three kernels at recurrentgemma-2b's serve shapes, then the
     # attention kernels at yi-6b's and minitron-4b's (head_dim 128) and at
     # granite-moe-3b-a800m's (head_dim 64, G = 3)

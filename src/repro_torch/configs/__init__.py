@@ -4,11 +4,11 @@ The port trains and serves the dense family (qwen1.5-0.5b, yi-6b,
 minitron-4b, and nemotron-4-340b, which fits one card only reduced), the
 mamba falcon-mamba-7b, the hybrid recurrentgemma-2b and the MoE family
 (granite-moe-3b-a800m, and llama4-maverick-400b-a17b, which fits one card
-only reduced), and trains the internvl2-1b VLM backbone on its stub
-frontend.  whisper-tiny is registered, but its encoder-decoder family is
-not ported yet (``models.build`` refuses it, ROADMAP.md Queue 1 item 9
-part 6).  Each config module is a copy of the reference's.  ``logreg_paper`` (a copy) holds the paper's §6 protocols,
-which are not architectures and register nothing."""
+only reduced), trains the internvl2-1b VLM backbone on its stub frontend,
+and trains and decodes the whisper-tiny encoder-decoder on its stub frames.
+Each config module is a copy of the reference's.  ``logreg_paper`` (a copy)
+holds the paper's §6 protocols, which are not architectures and register
+nothing."""
 from .base import INPUT_SHAPES, InputShape, ModelConfig  # noqa: F401
 
 _REGISTRY = {}

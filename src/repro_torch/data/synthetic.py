@@ -10,10 +10,13 @@ marginals are the reference's numpy draw, bit for bit).  For a VLM
 (``arch_type='vlm'``) each batch also holds the stub frontend's
 ``prefix_embeds``, (n_nodes, R, batch, frontend_tokens, d_model) f32 of
 0.02 times a standard normal, and the tokens are cut to ``seq −
-frontend_tokens``, as in the reference.  Its tokens and embeddings come
-from torch generators seeded by (seed, step); the JAX package's
-``jax.random`` stream cannot be replayed in torch, so tests that compare
-the two packages hand both the same batches.
+frontend_tokens``, as in the reference; for the encoder-decoder
+(``arch_type='audio'``) each batch also holds the stub frontend's
+``frames``, (n_nodes, R, batch, encoder_seq, d_model) f32 of 0.02 times a
+standard normal, beside the whole ``seq`` of tokens.  Its tokens and
+embeddings come from torch generators seeded by (seed, step); the JAX
+package's ``jax.random`` stream cannot be replayed in torch, so tests that
+compare the two packages hand both the same batches.
 
 :func:`logreg_dataset` and :func:`logreg_dataset_dirichlet` (with
 :func:`dirichlet_partition`) make the JAX package's numpy data bit for bit
@@ -78,11 +81,8 @@ class TokenStream:
         marginal (:meth:`node_token_logits`), made on ``device`` by a
         generator there.  A VLM's ``prefix_embeds`` are drawn on ``device``
         by a generator seeded by (seed, step, 1), where the reference folds
-        1 into the step's key."""
-        if self.arch_type == "audio":
-            raise NotImplementedError(
-                "arch_type='audio': the stream's frames field is not ported "
-                "yet (ROADMAP.md Queue 1 item 9 part 6)")
+        1 into the step's key, and an encoder-decoder's ``frames`` by one
+        seeded by (seed, step, 2), where it folds in 2."""
         seed = int(np.random.SeedSequence((self.seed, step)).generate_state(1)[0])
         shape = (self.n_nodes, self.rounds, self.batch, self.seq)
         if self.hetero_alpha is not None:
@@ -105,6 +105,13 @@ class TokenStream:
                 shape[:3] + (self.frontend_tokens, self.d_model),
                 generator=gen, device=self.device)
             out["tokens"] = tokens[..., :self.seq - self.frontend_tokens]
+        elif self.arch_type == "audio":
+            fseed = int(np.random.SeedSequence(
+                (self.seed, step, 2)).generate_state(1)[0])
+            gen = torch.Generator(device=self.device).manual_seed(fseed)
+            out["frames"] = 0.02 * torch.randn(
+                shape[:3] + (self.encoder_seq, self.d_model), generator=gen,
+                device=self.device)
         return out
 
 

@@ -24,10 +24,16 @@ from ..core import algorithms as alg
 from ..kernels import ops
 
 
+# Subtrees whose leaves carry a leading layer axis (the reference's
+# dist/sharding.py _STACKED_COLLECTIONS).
+STACKED = ("units", "enc", "dec")
+
+
 class FlatLayout:
     """Where each parameter leaf lives in a flat (D,) row: leaves in
     ``jax.tree.leaves`` order, each contiguous, the layer-stacked leaves
-    (``params["units"]``) with their leading layer axis.
+    (``params["units"]``, or an encoder-decoder's ``enc`` and ``dec``) with
+    their leading layer axis.
 
     ``align`` (the compression group) starts every leaf at a multiple of
     ``align`` and pads D to one, with zero columns that no parameter views:
@@ -70,9 +76,10 @@ class FlatLayout:
         ``xrow`` that requires grad, with its ``.grad`` preset to the same
         slice of ``grow``, so ``backward()`` accumulates the node's gradient
         straight into the flat buffer (autograd adds into a defined
-        ``.grad`` in place).  Layer-stacked leaves are split per unit and
-        ``params["units"]`` is the per-unit list of ``{name: layer}``
-        dicts the model's forward takes: a leaf per layer keeps each
+        ``.grad`` in place).  Layer-stacked leaves (the STACKED subtrees:
+        the decoder's ``units``, the encoder-decoder's ``enc`` and ``dec``)
+        are split per layer, and each such subtree becomes the per-layer
+        list of dicts the model's forward takes: a leaf per layer keeps each
         layer's gradient in its own slice, where indexing one stacked leaf
         would make every layer's backward write a zero-filled gradient of
         the whole stack."""
@@ -82,18 +89,19 @@ class FlatLayout:
             p.grad = grow[off:off + size].view(shape)
             return p
 
-        top, layers = [], None
+        top, stacks = [], {}
         for path, shape, off in self.entries:
-            if path[0] != "units":
+            if path[0] not in STACKED:
                 top.append((path, leaf(off, shape)))
                 continue
-            if layers is None:
-                layers = [[] for _ in range(shape[0])]
+            layers = stacks.setdefault(path[0],
+                                       [[] for _ in range(shape[0])])
             size = math.prod(shape[1:])
             for u, pairs in enumerate(layers):
                 pairs.append((path[1:], leaf(off + u * size, shape[1:])))
         params = tree.build(top)
-        params["units"] = [tree.build(pairs) for pairs in layers or []]
+        for key, layers in stacks.items():
+            params[key] = [tree.build(pairs) for pairs in layers]
         return params
 
 

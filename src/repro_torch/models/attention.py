@@ -2,8 +2,10 @@
 sliding window) and the exact block-local sliding-window attention in plain
 torch ops (no fused attention operator), the ring-buffer KV cache and
 single-token decode against it, the port of the JAX package's
-``models/attention.py`` (its causal paths; the bidirectional and cross ones
-are not ported).
+``models/attention.py``: causal, and for the encoder-decoder bidirectional
+(``causal=False``) and cross attention (queries against another sequence,
+Sq != Sk), with the optional logit softcap ``cap·tanh(s/cap)`` applied to
+the scaled scores before the mask, as in the reference.
 
 Shapes: x (B, S, D); q (B, S, KV, G, hd) with G = H // KV; k, v (B, S, KV, hd).
 Masked scores take the finite value ``NEG_INF`` = -1e30 and the softmax runs
@@ -68,10 +70,14 @@ def out_proj(p, o, cfg):
     return o.reshape(B, S, H * hd) @ p["wo"].reshape(H * hd, D)
 
 
-def _sdpa(q, k, v, mask, scale):
+def _softcap(s, cap):
+    return cap * torch.tanh(s / cap) if cap else s
+
+
+def _sdpa(q, k, v, mask, scale, softcap=0.0):
     """q (B,Sq,J,G,hd); k,v (B,Sk,J,hd); mask broadcastable to (B,J,G,Sq,Sk)."""
     s = torch.einsum("bqjgh,bkjh->bjgqk", q, k).to(torch.float32) * scale
-    return ref.masked_softmax_pv(s, mask, v)
+    return ref.masked_softmax_pv(_softcap(s, softcap), mask, v)
 
 
 def _pos_mask(q_pos, k_pos, causal, window=0):
@@ -85,21 +91,24 @@ def _pos_mask(q_pos, k_pos, causal, window=0):
 
 
 def attend_full(q, k, v, q_pos, k_pos, *, causal=True, window=0,
-                q_chunk=1024):
-    """Attention over query chunks of ``q_chunk``; peak activation
-    O(q_chunk * Sk).  Chunking changes no value: each query row's softmax
-    is its own.  With ``window`` w, key k is also masked for row q when
-    k <= q − w."""
+                softcap=0.0, q_chunk=1024):
+    """Attention of q (B, Sq, ...) at ``q_pos`` over k, v (B, Sk, ...) at
+    ``k_pos``, over query chunks of ``q_chunk``; peak activation O(q_chunk
+    * Sk).  ``causal`` masks key k for row q when k > q (off: the encoder's
+    bidirectional and the decoder's cross attention); with ``window`` w,
+    also when k <= q − w.  Chunking changes no value: each query row's
+    softmax is its own (the reference pads the last chunk with rows at
+    position −1 and slices them away; the port slices the queries)."""
     B, Sq, J, G, hd = q.shape
     scale = 1.0 / math.sqrt(hd)
     outs = [_sdpa(q[:, c:c + q_chunk], k, v,
                   _pos_mask(q_pos[c:c + q_chunk], k_pos, causal, window),
-                  scale)
+                  scale, softcap)
             for c in range(0, Sq, q_chunk)]
     return torch.cat(outs, dim=1).reshape(B, Sq, J * G, hd)
 
 
-def attend_sliding_block(q, k, v, q_pos, *, window):
+def attend_sliding_block(q, k, v, q_pos, *, window, softcap=0.0):
     """Exact sliding-window causal attention in O(S · 2w): queries in blocks
     of w attend to their own and the previous key block (the reference's
     ``attend_sliding_block``; its route for S > window with ``use_pallas``
@@ -135,6 +144,7 @@ def attend_sliding_block(q, k, v, q_pos, *, window):
             & (kp[:, None, :] > qp[:, :, None] - w) & (kp[:, None, :] >= 0))
     mask = mask[None, :, None, None]                     # (1, nb, 1, 1, w, 2w)
     s = torch.einsum("bnqjgh,bnkjh->bnjgqk", qb, k2).to(torch.float32) * scale
+    s = _softcap(s, softcap)
     s = torch.where(mask, s, torch.full((), ref.NEG_INF, device=s.device))
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bnjgqk,bnkjh->bnqjgh", p.to(v2.dtype), v2)
@@ -202,11 +212,23 @@ def cache_prefill(cache: dict, k, v, positions) -> dict:
     return cache
 
 
-def decode_attend(q1, cache: dict, pos: int, *, window: int = 0):
+def decode_attend(q1, cache: dict, pos: int, *, window: int = 0,
+                  softcap: float = 0.0):
     """q1 (B, 1, J, G, hd) against the cache at position ``pos``; returns
     (B, 1, H, hd)-flat.  The plain route (``use_pallas`` off): the kernel's
     plain version, which divides the scores by √hd where the reference's
     ``decode_attend`` multiplies by 1/√hd (the same bits for hd 64, at most
-    an ulp of a score apart otherwise)."""
-    return ref.decode_attention_ref(q1, cache["k"], cache["v"], cache["kpos"],
-                                    pos, window=window)
+    an ulp of a score apart otherwise).  With ``softcap`` the scores take
+    the reference's order instead (times 1/√hd, capped, then masked); the
+    kernel's plain version has no cap, as neither kernel has."""
+    if not softcap:
+        return ref.decode_attention_ref(q1, cache["k"], cache["v"],
+                                        cache["kpos"], pos, window=window)
+    B, _, J, G, hd = q1.shape
+    kpos = cache["kpos"]
+    mask = (kpos >= 0) & (kpos <= pos)
+    if window:
+        mask &= kpos > pos - window
+    s = torch.einsum("bqjgh,bkjh->bjgqk", q1, cache["k"]).to(torch.float32)
+    s = _softcap(s * (1.0 / math.sqrt(hd)), softcap)
+    return ref.masked_softmax_pv(s, mask, cache["v"]).reshape(B, 1, J * G, hd)

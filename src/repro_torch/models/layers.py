@@ -1,14 +1,15 @@
-"""Shared layer primitives: rmsnorm, the MLPs (gated swiglu and geglu, plain
-gelu and squared-ReLU relu2), the embedding with a tied or untied
-unembedding, RoPE.
+"""Shared layer primitives: rmsnorm and layernorm, the MLPs (gated swiglu and
+geglu, plain gelu and squared-ReLU relu2), the embedding with a tied or
+untied unembedding, RoPE and whisper's sinusoidal positions.
 
 Functional like the JAX package's ``models/layers.py``: ``init_*`` builds a
 params dict (same leaf names and layouts), the apply functions are plain
-functions of tensors.  Numerics follow the reference: the norm runs in f32
-with eps 1e-6, RoPE rotates split halves (not interleaved pairs), a tied
-unembedding reuses the embedding matrix (an untied one is its own
-``unembed`` (d_model, vocab) leaf), and every GeLU is the tanh
-approximation, ``jax.nn.gelu``'s default (PyTorch's default is the erf form).
+functions of tensors.  Numerics follow the reference: both norms run in f32
+with eps 1e-6 (layernorm's mean and variance too), RoPE rotates split
+halves (not interleaved pairs), a tied unembedding reuses the embedding
+matrix (an untied one is its own ``unembed`` (d_model, vocab) leaf), and
+every GeLU is the tanh approximation, ``jax.nn.gelu``'s default
+(PyTorch's default is the erf form).
 """
 
 from __future__ import annotations
@@ -30,14 +31,26 @@ def _dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype,
 # ---------------------------------------------------------------------------
 
 def init_norm(cfg, dtype, device) -> dict:
-    return {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    """rmsnorm's ``scale``; layernorm (``cfg.norm == "layernorm"``) adds a
+    zero ``bias``."""
+    p = {"scale": torch.ones((cfg.d_model,), dtype=dtype, device=device)}
+    if cfg.norm == "layernorm":
+        p["bias"] = torch.zeros((cfg.d_model,), dtype=dtype, device=device)
+    return p
 
 
 def apply_norm(p: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
-    """rmsnorm in f32, cast back to ``x.dtype``."""
+    """layernorm where ``p`` has a ``bias``, else rmsnorm; in f32, cast back
+    to ``x.dtype``."""
     xf = x.to(torch.float32)
-    ms = (xf ** 2).mean(-1, keepdim=True)
-    out = xf * torch.rsqrt(ms + eps) * p["scale"].to(torch.float32)
+    if "bias" in p:
+        mu = xf.mean(-1, keepdim=True)
+        var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+        out = (xf - mu) * torch.rsqrt(var + eps)
+        out = out * p["scale"].to(torch.float32) + p["bias"].to(torch.float32)
+    else:
+        ms = (xf ** 2).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * p["scale"].to(torch.float32)
     return out.to(x.dtype)
 
 
@@ -119,3 +132,21 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     c = cos[..., None, :]  # add head axis
     s = sin[..., None, :]
     return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1).to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d_model: int, device="cpu") -> torch.Tensor:
+    """Whisper-style fixed sinusoidal embeddings (seq, d_model) f32: sin of
+    pos·f_k then cos, f_k = exp(−ln(10⁴)·k / max(1, half − 1)) (the
+    reference divides by half − 1, not half)."""
+    return sinusoidal_at(torch.arange(seq, dtype=torch.float32,
+                                      device=device)[:, None], d_model)
+
+
+def sinusoidal_at(pos: torch.Tensor, d_model: int) -> torch.Tensor:
+    """The table's rows at the f32 positions ``pos`` (..., 1): one row of
+    :func:`sinusoidal_positions` for a decode step's position."""
+    half = d_model // 2
+    k = torch.arange(half, dtype=torch.float32, device=pos.device)
+    freq = torch.exp(-math.log(10_000.0) * k / max(1, half - 1))
+    ang = pos * freq
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)

@@ -8,14 +8,18 @@ embeddings), the mamba stack (falcon-mamba-7b's family), the hybrid of
 RG-LRU and local attention (recurrentgemma-2b's family), the MoE decoder
 (granite-moe-3b-a800m's ``("moe",)`` and llama4-maverick's ``("attn",
 "moe")`` with a shared expert) and the VLM backbone on its stub frontend
-(internvl2-1b: ``prefix_embeds`` in the batch, text positions scored) in
-every mode; serving refuses the VLM as the reference does.
-``use_pallas`` routes attention to the Hopper ``flash_attention``
-(prefill, and a train-mode forward that cannot be differentiated, as in
-the reference) and ``decode_attention`` (decode), both with the config's
-sliding window, and the mamba and RG-LRU recurrences to
-``linear_recurrence``; every other configuration raises
-``NotImplementedError`` naming the ROADMAP.md item that ports it.
+(internvl2-1b: ``prefix_embeds`` in the batch, text positions scored) and
+the encoder-decoder (whisper-tiny, ``arch_type='audio'``:
+:mod:`repro_torch.models.encdec`, ``frames`` in the batch) in every mode,
+with rmsnorm or layernorm and the optional attention logit softcap; serving
+refuses the VLM and the encoder-decoder as the reference does.
+``use_pallas`` routes the decoder's attention to the Hopper
+``flash_attention`` (prefill, and a train-mode forward that cannot be
+differentiated, as in the reference) and ``decode_attention`` (decode),
+both with the config's sliding window and without the softcap (neither
+kernel takes one, as in the reference), and the mamba and RG-LRU
+recurrences to ``linear_recurrence``; the encoder-decoder reaches no
+kernel.  ``build`` takes every config the reference's takes.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ import numpy as np
 import torch
 
 from .. import tree
-from . import transformer
+from . import encdec, transformer
 
 
 class Model(NamedTuple):
@@ -40,39 +44,27 @@ class Model(NamedTuple):
     init_cache: Callable      # (batch, max_len, dtype, device) -> cache
 
 
-# The families the port runs, (arch_type, pattern), each with use_pallas on
-# or off.
-PORTED = {("dense", ("attn",)), ("ssm", ("mamba",)),
-          ("hybrid", ("rglru", "rglru", "attn")), ("moe", ("moe",)),
-          ("moe", ("attn", "moe")), ("vlm", ("attn",))}
-
-
-def _check_supported(cfg) -> None:
-    if cfg.arch_type == "audio":
-        raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder (arch_type='audio') is not "
-            "ported yet (ROADMAP.md Queue 1 item 9 part 6)")
-    family = (cfg.arch_type, tuple(cfg.pattern))
-    if family not in PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: arch_type={cfg.arch_type!r} with pattern="
-            f"{cfg.pattern!r} is not ported yet (the port runs "
-            f"{sorted(PORTED)}; ROADMAP.md Queue 1 item 9)")
-    unsupported = {
-        "logit_softcap": (cfg.logit_softcap, (0.0,)),
-        "mlp_act": (cfg.mlp_act, ("swiglu", "geglu", "relu2", "gelu")),
-        "norm": (cfg.norm, ("rmsnorm",)),
-        "frontend": (cfg.frontend, ("", "vision")),
-    }
-    for field, (have, ported) in unsupported.items():
-        if have not in ported:
-            raise NotImplementedError(
-                f"{cfg.name}: {field}={have!r} is not ported yet (the port "
-                f"runs {field} in {ported!r}; ROADMAP.md Queue 1 item 9)")
-
-
 def build(cfg) -> Model:
-    _check_supported(cfg)
+    """The model functions of ``cfg``: the encoder-decoder for
+    ``arch_type='audio'``, else the pattern-generic decoder (an unknown
+    layer kind or activation raises ValueError, as in the reference)."""
+    if cfg.arch_type == "audio":
+        return Model(
+            cfg=cfg,
+            shapes=encdec.param_shapes(cfg),
+            init=lambda gen, dtype=torch.float32, device="cpu", out=None:
+                encdec.init_params(gen, cfg, dtype, device, out),
+            empty=lambda dtype=torch.float32, device="cpu", lead=():
+                encdec.empty_params(cfg, dtype, device, lead),
+            train_loss=lambda p, b: encdec.train_loss(p, cfg, b),
+            prefill=lambda p, b, c: encdec.prefill(p, cfg, b["tokens"],
+                                                   b["frames"], c),
+            decode_step=lambda p, t, c, pos:
+                encdec.decode_step(p, cfg, t, c, pos),
+            init_cache=lambda batch, max_len, dtype=torch.bfloat16,
+            device="cpu": encdec.init_cache(cfg, batch, max_len, dtype,
+                                            device),
+        )
 
     def _prefill(p, b, c):
         return transformer.prefill(p, cfg, b["tokens"], c,
@@ -98,7 +90,8 @@ def build(cfg) -> Model:
 def params_from_jax(params) -> dict:
     """The JAX package's parameter tree or serve cache (nested dicts of
     arrays, e.g. after ``jax.device_get``) as the port's: the same tree,
-    the remainder stack ``rem`` included, the same leaf layouts and dtypes
+    the remainder stack ``rem`` and the encoder-decoder's ``enc``, ``dec``
+    and per-layer ``self``/``cross_*`` caches included, the same leaf layouts and dtypes
     (mamba's A_log and rglru's lam stay f32; bf16 stays bf16, bit for bit),
     as CPU tensors.  A copy, no transpose."""
     return tree.map(_tensor, params)

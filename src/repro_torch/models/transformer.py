@@ -30,7 +30,9 @@ attention layer's prefill (and train-mode forward, which then cannot be
 differentiated, as in the reference) runs the ``flash_attention`` wrapper
 and its decode the ``decode_attention`` wrapper, both with the config's
 window; without it, a windowed prefill longer than the window takes the
-block-local sliding attention.  Unlike the reference, prefill and decode
+block-local sliding attention.  The plain routes apply ``cfg.logit_softcap``
+to the attention scores; the kernel routes drop it, as the reference's do
+(neither kernel takes a cap).  Unlike the reference, prefill and decode
 write the new cache into the ``cache`` they are given and return it.
 """
 
@@ -146,10 +148,15 @@ def param_shapes(cfg) -> dict:
 def unit_params(units, cfg) -> list:
     """Per-unit {name: layer params} from either the stacked or the list
     form (already one such dict per unit)."""
-    if isinstance(units, list):
-        return units
-    return [tree.map(lambda t: t[u], units)
-            for u in range(cfg.units_and_rem[0])]
+    return layer_list(units, cfg.units_and_rem[0])
+
+
+def layer_list(stack, n: int) -> list:
+    """The n per-layer dicts of a subtree stacked on a leading layer axis,
+    or the subtree itself when it is already that list."""
+    if isinstance(stack, list):
+        return stack
+    return [tree.map(lambda t: t[u], stack) for u in range(n)]
 
 
 def _apply_attn_layer(p, x, cfg, rope, positions, mode, cache, pos):
@@ -172,16 +179,19 @@ def _apply_attn_layer(p, x, cfg, rope, positions, mode, cache, pos):
             o = ops.decode_attention(q, cache["k"], cache["v"], cache["kpos"],
                                      pos, window=cfg.window)
         else:
-            o = attn.decode_attend(q, cache, pos, window=cfg.window)
+            o = attn.decode_attend(q, cache, pos, window=cfg.window,
+                                   softcap=cfg.logit_softcap)
     else:
         if cfg.use_pallas:
             o = attn.flash_attend(qf, k, v, window=cfg.window)
         elif cfg.window and S > cfg.window:
             o = attn.attend_sliding_block(q, k, v, positions,
-                                          window=cfg.window)
+                                          window=cfg.window,
+                                          softcap=cfg.logit_softcap)
         else:
             o = attn.attend_full(q, k, v, positions, positions, causal=True,
-                                 window=cfg.window, q_chunk=cfg.q_chunk)
+                                 window=cfg.window, softcap=cfg.logit_softcap,
+                                 q_chunk=cfg.q_chunk)
         if mode == "prefill":
             attn.cache_prefill(cache, k, v, positions)
     return x + attn.out_proj(p["attn"], o, cfg)

@@ -4,9 +4,12 @@ cover.  Its kernel check holds ``gossip_mix`` to its plain version at n
 takes in one launch (n=64, R=8: 128 KB of shared memory, past the 48 KB
 default), the inputs it refuses, and the engine's stale window (``delay``)
 mixing its slots through the kernel.  For ``quantized_gossip_mix`` (held to
-its plain version by ``chip_smoke.py`` at n 4/16, both schemes, EF on and
-off): its largest n and W stack, the one-column path that rows without
-16-byte alignment take, a rerun giving the same bits, and its refusals.  For
+its plain version by ``chip_smoke.py`` at n 4/16 on its regs route and at n
+17/32/64 on its tile and stream routes, both schemes, EF on and off): its
+largest n and W stack on the regs route, the one-column path that rows
+without 16-byte alignment take, each wide route at narrow and wide groups
+(a rerun and in place bit-equal), and its refusals (n > 64, f64, a W stack
+past shared memory).  For
 ``sparse_segment_mix`` (held to its plain version by ``chip_smoke.py`` over
 E, D, S, padding, bf16, U around the staging limit and the sampled-client
 path's rounds): both variants on a state whose rows are not 16-byte
@@ -201,12 +204,13 @@ def test_quantized_gossip_mix_kernel_refuses_what_it_cannot_take():
     qgm = quantized_gossip.quantized_gossip_mix
     z = lambda n, D, **kw: torch.zeros(n, D, device="cuda", **kw)  # noqa: E731
     eye = lambda n: torch.eye(n, device="cuda")[None]  # noqa: E731
-    with pytest.raises(ValueError, match="n <= 16"):
-        qgm(eye(17), z(17, 256), z(17, 256), scheme="sign")
-    with pytest.raises(ValueError, match="power of two <= 256"):
-        qgm(eye(4), z(4, 512), z(4, 512), scheme="int8", group=512)
-    with pytest.raises(ValueError, match="power of two <= 256"):
-        qgm(eye(4), z(4, 96), z(4, 96), scheme="int8", group=3)
+    with pytest.raises(ValueError, match="n <= 64"):
+        qgm(eye(65), z(65, 256), z(65, 256), scheme="sign")
+    with pytest.raises(TypeError, match="f32"):
+        qgm(eye(4), z(4, 512, dtype=torch.float64),
+            z(4, 512, dtype=torch.float64), scheme="int8", group=512)
+    with pytest.raises(ValueError, match="shared-memory limit"):
+        qgm(eye(64).repeat(15, 1, 1), z(64, 256), z(64, 256), scheme="sign")
     with pytest.raises(ValueError, match="multiple of group"):
         qgm(eye(4), z(4, 300), z(4, 300), scheme="sign", group=256)
     with pytest.raises(TypeError, match="f32"):
@@ -214,6 +218,53 @@ def test_quantized_gossip_mix_kernel_refuses_what_it_cannot_take():
             z(4, 256, dtype=torch.bfloat16), scheme="sign")
     with pytest.raises(ValueError, match="contiguous"):
         qgm(eye(4), z(4, 512)[:, ::2], z(4, 256), scheme="sign")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["sign", "int8"])
+@pytest.mark.parametrize("n,R,group,D,route", [
+    (17, 3, 384, 384 * 1001, "tile"),       # two groups a tile, the last half
+    (64, 2, 96, 96 * 333, "tile"),          # 4 narrow groups a tile
+    (32, 2, 512, 512 * 4001, "tile"),       # whisper-tiny's 32-node shape
+    (64, 1, 4096, 4096 * 33, "stream"),
+    (32, 4, 1024, 1024 * 129, "stream")])
+def test_quantized_gossip_mix_wide_routes_match_plain(scheme, n, R, group, D,
+                                                      route):
+    """The tile and stream routes (n past 16, groups that are not powers
+    of two or wider than 256): launch_geometry names the route; a rerun
+    gives the same bits; in place equals out of place bit for bit; against
+    the plain version, R = 1 within rtol = atol = 1e-5 (int8's residual
+    exactly), from R = 2 on up to 1e-3 of the entries flipped, and with
+    error feedback the node sums of x + res kept (float64 sums)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    assert quantized_gossip.launch_geometry(n, group, D, R)["route"] == route
+    ws, x, res = _qgm_inputs(n, R, D)
+    for ef in (True, False):
+        kw = dict(scheme=scheme, group=group, error_feedback=ef)
+        o1, r1 = quantized_gossip.quantized_gossip_mix(ws, x, res, **kw)
+        o2, r2 = quantized_gossip.quantized_gossip_mix(ws, x, res, **kw)
+        xi, ri = x.clone(), res.clone()
+        quantized_gossip.quantized_gossip_mix(ws, xi, ri, out=xi, res_out=ri,
+                                              **kw)
+        torch.cuda.synchronize()
+        assert torch.equal(o1, o2) and torch.equal(r1, r2)
+        assert torch.equal(xi, o1) and torch.equal(ri, r1)
+        want_o, want_r = ref.quantized_gossip_mix_ref(ws, x, res, **kw)
+        tol = 1e-5
+        if R == 1:
+            torch.testing.assert_close(o1, want_o, rtol=tol, atol=tol)
+            if scheme == "int8" or not ef:
+                assert torch.equal(r1, want_r)
+            else:
+                torch.testing.assert_close(r1, want_r, rtol=tol, atol=tol)
+        for got, want in ((o1, want_o), (r1, want_r)):
+            bad = (got - want).abs() > tol + tol * want.abs()
+            assert int(bad.sum()) <= 1e-3 * bad.numel(), int(bad.sum())
+        if ef:
+            torch.testing.assert_close((o1.double() + r1.double()).sum(0),
+                                       (x.double() + res.double()).sum(0),
+                                       rtol=tol, atol=tol)
 
 
 def _sparse_round(n, D, E, S, ids, dtype, seed):

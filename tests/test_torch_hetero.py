@@ -106,11 +106,12 @@ def test_token_stream_for_passes_alpha_and_refuses_unported_fields():
     cfg = configs.get("qwen1.5-0.5b").reduced()
     stream = token_stream_for(cfg, 2, 1, 1, 8, hetero_alpha=0.2)
     assert stream.hetero_alpha == 0.2 and stream.arch_type == "dense"
-    # the vlm fields are ported (tests/test_torch_vlm.py); the audio
-    # frames are not
-    audio = dataclasses.replace(cfg, arch_type="audio")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9 part 6"):
-        token_stream_for(audio, 2, 1, 1, 8).batch_at(0)
+    # every field is ported: the vlm's (tests/test_torch_vlm.py) and the
+    # audio frames (tests/test_torch_encdec.py), beside the Dirichlet tokens
+    audio = dataclasses.replace(cfg, arch_type="audio", encoder_seq=3)
+    b = token_stream_for(audio, 2, 1, 1, 8, hetero_alpha=0.2).batch_at(0)
+    assert b["tokens"].shape == (2, 1, 1, 8)
+    assert b["frames"].shape == (2, 1, 1, 3, cfg.d_model)
 
 
 def test_train_cli_takes_hetero_alpha_on_the_arch_runtime():

@@ -362,16 +362,17 @@ def test_training_the_hybrid_is_not_ported():
     """Training the hybrid through the kernels is not ported in either
     package (no kernel has a backward); with use_pallas off, as the arch
     trainer runs it, the spec builds (its steps are held to the
-    reference's in tests/test_torch_arch_train.py)."""
+    reference's in tests/test_torch_arch_train.py), and so does the
+    encoder-decoder's (tests/test_torch_encdec.py)."""
     spec = exp.with_overrides(exp.ExperimentSpec(),
                               {"model.arch": "recurrentgemma-2b",
                                "model.preset": "reduced"})
     built = exp.build(spec, device="cpu")
     assert built.cfg.pattern == ("rglru", "rglru", "attn")
     assert not built.cfg.use_pallas
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9 part 6"):
-        exp.build(exp.with_overrides(spec, {"model.arch": "whisper-tiny"}),
-                  device="cpu")
+    built = exp.build(exp.with_overrides(spec, {"model.arch": "whisper-tiny"}),
+                      device="cpu")
+    assert built.cfg.arch_type == "audio"
 
 
 @pytest.mark.parametrize("dtype", ["f32", "bf16"])

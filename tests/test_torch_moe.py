@@ -334,9 +334,10 @@ def test_serve_fleet_matches_reference_in_bf16():
 def test_the_smokes_granite_paths_fit_the_kernels():
     """``chip_smoke.py``'s granite-moe serve path: the prompt tiles (a
     multiple of 128) and the cache (a multiple of 256) as both kernels
-    need, the member size is the config's parameter count, the timed
-    kernel shapes are its heads (24 over 8 of 64); and the training paths'
-    cut depths give the D the smoke checks."""
+    need, the member size is the config's parameter count at the path's
+    depth (GRANITE_SERVE_LAYERS of the published 32; widths unchanged),
+    the timed kernel shapes are its heads (24 over 8 of 64); and the
+    training paths' cut depths give the D the smoke checks."""
     import importlib.util
     path = SRC.parent / "chip_smoke.py"
     spec = importlib.util.spec_from_file_location("chip_smoke_moe", path)
@@ -346,8 +347,10 @@ def test_the_smokes_granite_paths_fit_the_kernels():
     assert sv["prompt_len"] % 128 == 0
     assert (sv["prompt_len"] + sv["max_new"]) % 256 == 0
     assert (sv["requests"], sv["batch"], sv["fleet"]) == (8, 4, 4)
+    assert cfg.num_layers == 32 and 0 < smoke.GRANITE_SERVE_LAYERS < 32
+    cut = dataclasses.replace(cfg, num_layers=smoke.GRANITE_SERVE_LAYERS)
     assert sum(int(np.prod(s)) for _, s in tree.items(
-        build(cfg).shapes)) == smoke.GRANITE_PARAMS
+        build(cut).shapes)) == smoke.GRANITE_PARAMS
     H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
     assert smoke.FLASH_GR == (1, sv["prompt_len"], H, KV, hd) and hd == 64
     assert smoke.DECODE_GR == (1, sv["prompt_len"] + sv["max_new"], KV,

@@ -6,8 +6,8 @@ the tokens cut to ``seq − P``), drawn by the port's own generators; reduced
 (8 patches, d_model 256), the prefill's logits and the text-only train loss
 hold to the reference's, 2 MC-DSGT steps from the reference's stream hold
 at rtol 1e-4 / atol 1e-5, the train CLI trains it, and serving refuses it
-as the reference's engine does.  whisper-tiny is registered and still
-refused (ROADMAP.md Queue 1 item 9 part 6)."""
+as the reference's engine does.  whisper-tiny is registered and, since
+ROADMAP.md Queue 1 item 9 part 6, built (tests/test_torch_encdec.py)."""
 
 import dataclasses
 from pathlib import Path
@@ -60,11 +60,13 @@ def test_config_is_a_verbatim_copy_and_registered(arch, mod):
 
 
 def test_encoder_decoder_is_refused_with_its_item():
-    with pytest.raises(NotImplementedError, match="item 9 part 6"):
-        build(configs.get("whisper-tiny").reduced())
-    with pytest.raises(NotImplementedError, match="item 9 part 6"):
-        token_stream_for(configs.get("whisper-tiny").reduced(), 2, 1, 2,
-                         16).batch_at(0)
+    """whisper-tiny, refused until ROADMAP.md Queue 1 item 9 part 6 ported
+    it, builds and its stream gives frames (tests/test_torch_encdec.py
+    holds both to the reference)."""
+    cfg = configs.get("whisper-tiny").reduced()
+    assert build(cfg).cfg is cfg
+    assert token_stream_for(cfg, 2, 1, 2, 16).batch_at(0)["frames"].shape \
+        == (2, 1, 2, cfg.encoder_seq, cfg.d_model)
 
 
 @pytest.mark.parametrize("preset", ["full", "reduced"])
