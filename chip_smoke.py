@@ -77,8 +77,12 @@ and then drives the main paths through the train CLI's own functions:
   depth (4 + 4 layers, d_model 384, 1500 frames; D = 36,448,128) through
   the train CLI: MC-DSGT R=2 on 4 nodes through ``gossip_mix``, then on 32
   nodes with int8 gossip in groups of 512 through ``quantized_gossip_mix``'s
-  tile route (n past 16, a group past 256), every launch held to the plain
-  version, and one step with sign; then served by hand in bf16 (4 x (1500
+  ring route (n past 16, a group past 256; since slice 17), every launch
+  held to the plain version, and one step with sign; slice 17's leg (e),
+  the same 32 nodes with bf16 trackers and residuals (``aux_dtype``)
+  through ``dist.steps.make_train_step``, the kernel taking the bf16
+  residuals as stored (6 launches, each held to the plain version); then
+  served by hand in bf16 (4 x (1500
   frames + 64 prompt tokens), 64 greedy decode steps against the cross
   cache; no kernel), its f32 prefill + teacher-forced decode equal to the
   forward; and a reduced qwen1.5-0.5b with a logit softcap, equal on the
@@ -133,8 +137,13 @@ and then drives the main paths through the train CLI's own functions:
   token streams, its assertions holding (0 launches).
 
 ``quantized_gossip_mix`` is checked on each of its three routes (the
-first design's registers at n <= 16, a tile of whole groups in shared
-memory, a group streamed through device memory each round).
+first design's registers at n <= 16, the ring of clusters at n 16 to 128,
+a group streamed through device memory each round at n up to 200), with
+bf16 x and/or res on every route bit-equal to the f32 launch on upcast
+copies, and the ring's int8 bits equal to the regs route's; it is timed on
+the ring at whisper-tiny's 32-node shape in f32 and bf16, on the stream
+route at PR 28's shape and at a group no cluster holds, and past 64 nodes;
+``gossip_mix`` is also timed at the 32-node shape.
 ``linear_recurrence`` is checked bit-equal on each of its three routes
 (a ring of time tiles filled by TMA or by cp.async, and the loop) and
 prints its route, geometry and compiled resources at both serve shapes.
@@ -159,10 +168,12 @@ wall time, one JSON line of per-kernel numbers (a second ``gossip_mix`` row
 for the planning path, three rows for the wireless legs, two for the
 observability and checkpoint legs, three for the slice-15 training legs,
 two for the slice-16 legs (``quantized_gossip_mix`` timed at the 32-node
-shape on its tile route), three rows at the recurrentgemma shapes, then
-the last six: the attention kernels at yi-6b's and minitron-4b's
-head_dim 128 and at granite-moe-3b-a800m's head_dim 64 with G = 3), and
-last ``{"ok": true, "device": {...}}``.
+shape on its ring route), one for slice 17's leg (e), three rows at the
+recurrentgemma shapes, then the last
+six: the attention kernels at yi-6b's and minitron-4b's head_dim 128 and
+at granite-moe-3b-a800m's head_dim 64 with G = 3; and, under
+``timed_only``, the timings at shapes no path launches), and last
+``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero; so does a machine without a CUDA device or
 a directory without the repository.
 """
@@ -201,6 +212,10 @@ TOL = {"float32": 1e-5, "bfloat16": 1e-2}   # rtol = atol, see check_kernel
 # see qcompare for what else holds every entry.
 MAX_FLIPS = 1e-3
 MAIN_MAX_FLIPS = 1e-5
+# A result stored in bf16: one f32 ulp of difference may round it to the
+# neighbouring bf16 value, 2^-8 of it (as tests/test_torch_rules.py holds
+# bf16 residuals); such entries count as flipped beyond this rtol.
+BF16_RTOL = 2.0 ** -7
 GROUP = 256                  # the default compression group
 # Slice 3: examples/sampled_clients.py's scenario at the paper's MNIST width
 # (configs/logreg_paper.py), through the train CLI.
@@ -321,10 +336,19 @@ WHISPER_ARGV = ["--arch", "whisper-tiny", "--preset", "full", "--algo",
                 "--device", "cuda"]
 WHISPER_NODES = 32
 WSERVE = dict(batch=4, prompt_len=64, max_new=64)
-# quantized_gossip_mix's stream route timed at the 32-node state's width: a
-# group of 1024 does not fit a tile at n = 32 (262 KB)
+# quantized_gossip_mix's stream route timed at the 32-node state's width
+# where PR 28 timed it (group 1024; since slice 17 the ring takes that
+# shape, in clusters of 8, and the stream route is launched there by name),
+# and at group 4096, which no cluster holds (2 MB a group)
 STREAM_GROUP = 1024
 STREAM_D = 1024 * 35_594
+WIDE_GROUP = 4096
+WIDE_GROUP_D = 4096 * 8898
+# the ring past 64 nodes, timed at one shape of as many bytes as whisper's
+# 32-node state: n = 128, group 256 (clusters of 8 blocks of 32 columns, W
+# read from device memory)
+PAST64_NODES = 128
+PAST64_D = 256 * 35_594
 SOFTCAP = 30.0
 # Predictions for the slice-14 and slice-15 phases (yi-6b's and
 # minitron-4b's at HD128_LAYERS), written before their first run on the
@@ -348,6 +372,11 @@ PREDICTED = {"yi-6b": {"peak_gb": (15, 17.5), "wall_s": (15, 40)},
              # the gradient buffer at 4.67 GB each
              "whisper (a)": {"peak_gb": (2.5, 8), "s_step": (0.1, 0.6)},
              "whisper (b)": {"peak_gb": (28, 40), "s_step": (0.8, 3.0)},
+             # slice 17, written before leg (e)'s first run on the card
+             # (PERF.md §6): (b)'s 25.720 GB less h, g_prev and both
+             # residuals halved (4 x 2.33 GB) and with no f32 copies; a step
+             # host-bound as (b)'s
+             "whisper (e)": {"peak_gb": (14, 19), "s_step": (2.5, 5.0)},
              "whisper serve": {"prefill_tok_s": (5_000, 40_000),
                                "decode_tok_s": (800, 3_000)},
              "whisper": {"wall_s": (30, 90)}}
@@ -517,23 +546,24 @@ def check_rows(torch, got, want, what: str) -> float:
     return err
 
 
-def time_kernel(torch, gossip_matmul, ref, gossip) -> dict:
-    """The kernel at the main path's shape, held to its plain version out of
-    place and in place (the main path mixes in place), then timed beside its
-    bound, the plain version and torch.linalg.multi_dot (the library
-    yardstick)."""
-    n, R, D = MAIN["n"], MAIN["R"], MAIN["D"]
-    ws = torch.from_numpy(gossip.theorem3_weight_schedule(n, 0.75)
-                          .stacked(0, R)).cuda()
+def time_kernel(torch, gossip_matmul, ref, gossip, n=MAIN["n"], D=MAIN["D"],
+                label="main shape") -> dict:
+    """The kernel at a path's shape (the main path's by default), held to its
+    plain version out of place and in place (the paths mix in place), then
+    timed beside its bound, the plain version and torch.linalg.multi_dot
+    (the library yardstick)."""
+    R = MAIN["R"]
+    ws = torch.from_numpy(gossip.theorem3_weight_schedule(
+        n, 0.75 if n == 4 else 1 - 1 / n).stacked(0, R)).cuda()
     gen = torch.Generator(device="cuda").manual_seed(1)
     x = torch.randn(n, D, device="cuda", generator=gen)
     want = ref.gossip_mix_ref(ws, x)
     out = torch.empty_like(x)
     gossip_matmul.gossip_mix(ws, x, out=out)
-    max_err = check_rows(torch, out, want, "main shape, out of place")
+    max_err = check_rows(torch, out, want, f"{label}, out of place")
     x2 = x.clone()
     gossip_matmul.gossip_mix(ws, x2, out=x2)
-    max_err = max(max_err, check_rows(torch, x2, want, "main shape, in place"))
+    max_err = max(max_err, check_rows(torch, x2, want, f"{label}, in place"))
     del want, x2
     rounds = {"ms": [], "plain_ms": [], "library_ms": []}
     for _ in range(2):   # alternate, so a drift in clocks hits all three
@@ -541,7 +571,7 @@ def time_kernel(torch, gossip_matmul, ref, gossip) -> dict:
             lambda: gossip_matmul.gossip_mix(ws, x, out=out), 10))
         rounds["plain_ms"].append(timed(lambda: ref.gossip_mix_ref(ws, x), 3))
         rounds["library_ms"].append(timed(
-            lambda: torch.linalg.multi_dot([ws[1], ws[0], x]), 3))
+            lambda: torch.linalg.multi_dot([*ws.flip(0), x]), 3))
     del x, out
     torch.cuda.empty_cache()
     nbytes = R * n * n * 4 + 2 * n * D * 4     # W once, X read, out written
@@ -569,11 +599,13 @@ def flips(got, want, rtol: float = 1e-5, atol: float = 1e-5) -> int:
 def qcompare(torch, what, x, res, got, want, R, scheme, group, ef):
     """The kernel's (x, res) result ``got`` against the plain version's
     ``want`` on the inputs ``x``, ``res`` (all (n, C), C a multiple of
-    ``group``).  Returns (entries beyond rtol = atol = 1e-5, largest
-    absolute error), and fails unless every entry is bounded:
+    ``group``; each pair f32 or bf16).  Returns (entries beyond rtol = atol
+    = 1e-5, or beyond rtol = BF16_RTOL for a bf16 result, largest absolute
+    error), and fails unless every entry is bounded:
 
     * int8: each entry is within max(1, 2R - 3) quantization steps of its
-      group (plus 1e-5).  Round 1 is exact, a flip in a later round moves
+      group (plus 1e-5, and one bf16 step, 2^-7 of it, where it is stored
+      in bf16).  Round 1 is exact, a flip in a later round moves
       one entry by one step, and each round after it can carry that on and
       flip once more (two steps).  The step is bounded by (max|x| + R
       max|res|) / 127 over the group's columns of all nodes: mixing with a
@@ -582,28 +614,41 @@ def qcompare(torch, what, x, res, got, want, R, scheme, group, ef):
     * error feedback on: W is column-stochastic and deq + res = x + res in
       every round, so the node sum of each column of x + res is kept
       whatever flips; the kernel's is held to the input's at rtol = atol =
-      1e-5 (float64 sums)."""
+      1e-5 (float64 sums), plus, for results stored in bf16, the roundings
+      of the stores (bf16's unit roundoff, 2^-8, of each stored
+      |value|)."""
     n, C = x.shape
     tol = 1e-5
+    xf, rf = x.float(), res.float()
     if scheme == "int8":
         def amax(t):
             return t.abs().view(n, C // group, group).amax(dim=(0, 2))
-        steps = max(1, 2 * R - 3) * (amax(x) + R * amax(res)) / 127
+        steps = max(1, 2 * R - 3) * (amax(xf) + R * amax(rf)) / 127
         limit = steps.repeat_interleave(group) + tol
     bad, err = 0, 0.0
+    rounding = 0.0
     for g, w, name in zip(got, want, ("x", "res")):
+        bf16 = g.dtype == torch.bfloat16
+        g, w = g.float(), w.float()
         d = (g - w).abs()
-        bad += int((d > tol + tol * w.abs()).sum())
+        rtol = BF16_RTOL if bf16 else tol
+        bad += int((d > tol + rtol * w.abs()).sum())
         err = max(err, float(d.max()))
-        if scheme == "int8" and bool((d > limit).any()):
-            over = float((d / limit).max())
-            fail(f"{what}: a {name} entry is off by {over:.3f} times its "
-                 "bound of max(1, 2R - 3) int8 steps")
+        if bf16:
+            rounding = rounding + 2.0 ** -8 * g.double().abs().sum(0)
+        if scheme == "int8":
+            lim = limit + (BF16_RTOL * w.abs() if bf16 else 0.0)
+            if bool((d > lim).any()):
+                over = float((d / lim).max())
+                fail(f"{what}: a {name} entry is off by {over:.3f} times "
+                     "its bound of max(1, 2R - 3) int8 steps")
     if ef:
-        torch.testing.assert_close(
-            (got[0].double() + got[1].double()).sum(0),
-            (x.double() + res.double()).sum(0), rtol=tol, atol=tol,
-            msg=lambda m: f"{what}: node sums of x + res not kept: {m}")
+        kept = (got[0].double() + got[1].double()).sum(0)
+        want_sum = (x.double() + res.double()).sum(0)
+        slack = (kept - want_sum).abs() - tol - tol * want_sum.abs()
+        if bool((slack > rounding).any()):
+            fail(f"{what}: node sums of x + res not kept (worst excess "
+                 f"{float((slack - rounding).max()):.3e})")
     return bad, err
 
 
@@ -643,12 +688,26 @@ def qcase(torch, quantized_gossip, ref, ws, x, res, kw, what) -> int:
 
 # The wide routes' cases (n, group, D): n past the regs route's 16 and
 # groups that are not powers of two or wider than 256; D an odd number of
-# groups, so a tile of two groups ends half empty.  (64, 384) just fits a
-# tile (229,632 bytes with R = 2); (32, 1024) and (64, 4096) take the
-# stream route.
+# groups, so a lone block's tile of several groups ends part empty.  The
+# ring takes all but (64, 4096), which no cluster holds (the stream route).
 QWIDE_CASES = ((17, 384, 384 * 1001), (32, 512, 512 * 601),
                (64, 384, 384 * 401), (16, 1024, 1024 * 301),
                (32, 1024, 1024 * 201), (64, 4096, 4096 * 51))
+# Slice 17's inputs: past 64 nodes (the ring with W in shared memory at 65
+# and 96, read from device memory at 128; two units a thread at (128, 512)
+# and at (17, 3072), whose 96 column groups put a thread's units in other
+# columns; the stream route at 200 nodes), at R 1 and 2.
+QPAST64_CASES = ((65, 256, 256 * 1001), (96, 256, 256 * 501),
+                 (128, 256, 256 * 401), (128, 512, 512 * 201),
+                 (200, 4096, 4096 * 9), (17, 3072, 3072 * 81))
+# bf16 x and/or res on each route: (n, group, D, route the shape takes)
+QBF16_CASES = ((4, 256, 256 * 4001, "regs"), (16, 8, 8 * 30_001, "regs"),
+               (32, 512, 512 * 601, "ring"), (17, 384, 384 * 1001, "ring"),
+               (4, 3, 3 * 20_001, "ring"), (64, 4096, 4096 * 51, "stream"),
+               (200, 4096, 4096 * 9, "stream"))
+# int8 on the ring against the regs route, where both take the shape
+QREGS_RING_CASES = ((16, 256, 256 * 4001), (4, 64, 64 * 16_001),
+                    (8, 128, 128 * 8001))
 
 
 def check_qkernel(torch, quantized_gossip, ref, gossip):
@@ -656,13 +715,14 @@ def check_qkernel(torch, quantized_gossip, ref, gossip):
     schemes, error feedback on and off, out of place and in place: on the
     regs route at R 1/2/4, n 4 and 16 (16 uses the one-column path, 4 the
     16-byte one), group 256 and 8, a D whose last block is partial; on the
-    tile and stream routes at R 1/2 over QWIDE_CASES (n 17, 32, 64; group
-    384, 512, 1024, 4096), each case's route as launch_geometry names it."""
+    ring and stream routes at R 1/2 over QWIDE_CASES (n 17, 32, 64; group
+    384, 512, 1024, 4096) and QPAST64_CASES (n 65 to 200), each case's
+    route as launch_geometry names it."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     cases, worst, routes = 0, 0.0, {}
     shapes = [(n, R, group, D) for n in (4, 16) for R in (1, 2, 4)
               for group, D in ((GROUP, 1_000_192), (8, 1_000_008))]
-    shapes += [(n, R, group, D) for n, group, D in QWIDE_CASES
+    shapes += [(n, R, group, D) for n, group, D in QWIDE_CASES + QPAST64_CASES
                for R in (1, 2)]
     for n, R, group, D in shapes:
         ws = torch.from_numpy(gossip.theorem3_weight_schedule(
@@ -682,7 +742,7 @@ def check_qkernel(torch, quantized_gossip, ref, gossip):
                     worst = max(worst, bad / (2 * x.numel()))
                 cases += 1
         del x, res
-    if set(routes) != {"regs", "tile", "stream"}:
+    if set(routes) != {"regs", "ring", "stream"}:
         fail(f"quantized_gossip_mix check reached the routes {routes}")
     print(f"kernel check: quantized_gossip_mix == plain on {cases} cases "
           f"(sign/int8, EF on/off; regs route n 4/16, R 1/2/4, group "
@@ -694,43 +754,141 @@ def check_qkernel(torch, quantized_gossip, ref, gossip):
           flush=True)
 
 
+def check_qkernel_inputs(torch, quantized_gossip, ref, gossip):
+    """Slice 17's bit-for-bit checks of quantized_gossip_mix: bf16 x and/or
+    res on every route (QBF16_CASES; R 2, both schemes, EF on and off) give
+    the f32 launch's bits on upcast copies, cast back, in place as out of
+    place; int8 on the ring (launched by name) gives the regs route's bits
+    (QREGS_RING_CASES, R 1 and 2, EF on and off), and so does the stream
+    route; a rerun of each gives the same bits."""
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    bf, f32 = torch.bfloat16, torch.float32
+    cases = 0
+    for n, group, D, route in QBF16_CASES:
+        R = 2
+        ws = torch.from_numpy(gossip.theorem3_weight_schedule(
+            n, 1 - 1 / n).stacked(0, R)).cuda()
+        x0 = torch.randn(n, D, device="cuda", generator=gen)
+        r0 = 0.1 * torch.randn(n, D, device="cuda", generator=gen)
+        for xdt, rdt in ((bf, bf), (f32, bf), (bf, f32)):
+            x, res = x0.to(xdt), r0.to(rdt)
+            got = quantized_gossip.launch_geometry(
+                n, group, D, R, x.element_size(), res.element_size())
+            if got["route"] != route:
+                fail(f"bf16 check: ({n}, {group}) took {got['route']}, not "
+                     f"{route}")
+            for scheme in ("sign", "int8"):
+                for ef in (True, False):
+                    kw = dict(scheme=scheme, group=group, error_feedback=ef)
+                    what = (f"bf16 check n={n} group={group} {xdt}/{rdt} "
+                            f"{scheme} ef={ef} ({route})")
+                    o, r = quantized_gossip.quantized_gossip_mix(ws, x, res,
+                                                                 **kw)
+                    o32, r32 = quantized_gossip.quantized_gossip_mix(
+                        ws, x.float(), res.float(), **kw)
+                    xi, ri = x.clone(), res.clone()
+                    quantized_gossip.quantized_gossip_mix(
+                        ws, xi, ri, out=xi, res_out=ri, **kw)
+                    o2, r2 = quantized_gossip.quantized_gossip_mix(ws, x, res,
+                                                                   **kw)
+                    torch.cuda.synchronize()
+                    if not (torch.equal(o, o32.to(xdt))
+                            and torch.equal(r, r32.to(rdt))):
+                        fail(f"{what}: not the f32 launch's bits on upcast "
+                             "copies")
+                    if not (torch.equal(xi, o) and torch.equal(ri, r)):
+                        fail(f"{what}: in place differs from out of place")
+                    if not (torch.equal(o2, o) and torch.equal(r2, r)):
+                        fail(f"{what}: a rerun gave other bits")
+                    cases += 1
+        del x0, r0, x, res
+    for n, group, D in QREGS_RING_CASES:
+        for R in (1, 2):
+            ws = torch.from_numpy(gossip.theorem3_weight_schedule(
+                n, 1 - 1 / n).stacked(0, R)).cuda()
+            x = torch.randn(n, D, device="cuda", generator=gen)
+            res = 0.1 * torch.randn(n, D, device="cuda", generator=gen)
+            for ef in (True, False):
+                kw = dict(scheme="int8", group=group, error_feedback=ef)
+                outs = {route: quantized_gossip._launch_route(
+                    ws, x, res, route, **kw)
+                    for route in ("regs", "ring", "stream")}
+                torch.cuda.synchronize()
+                for route in ("ring", "stream"):
+                    if not all(torch.equal(a_, b_) for a_, b_ in
+                               zip(outs[route], outs["regs"])):
+                        fail(f"int8 n={n} group={group} R={R} ef={ef}: the "
+                             f"{route} route differs from the regs route")
+                cases += 1
+    print(f"kernel check: quantized_gossip_mix bit for bit on {cases} cases: "
+          f"bf16 x and/or res == the f32 launch on upcast copies, cast back, "
+          f"on every route ({[(c[0], c[1], c[3]) for c in QBF16_CASES]}; "
+          f"in place and reruns equal); int8 ring == stream == regs at "
+          f"{QREGS_RING_CASES} (R 1/2, EF on/off)", flush=True)
+
+
 def time_qkernel(torch, quantized_gossip, ref, gossip, n=MAIN["n"],
-                 D=MAIN["D"], group=GROUP, label="main shape") -> dict:
+                 D=MAIN["D"], group=GROUP, label="main shape", route=None,
+                 dtypes=("float32", "float32")) -> dict:
     """quantized_gossip_mix at a path's shape (int8, error feedback, R = 2;
-    the main path's by default: n = 4, group 256, the regs route): held to
-    its plain version column chunk by column chunk (the plain version is
-    column-separable at group granularity, and whole it would hold ~6 more
-    (n, D) temporaries) with qcompare's bounds and at most MAIN_MAX_FLIPS
-    flipped entries, in place against out of place, then timed beside its
-    bound and the plain version (no single PyTorch call computes this
-    function, so there is no library time)."""
+    the main path's by default: n = 4, group 256, the regs route; ``route``
+    launches that route instead of launch_geometry's pick; ``dtypes`` those
+    of x and res).  Held to its plain version column chunk by column chunk
+    (the plain version is column-separable at group granularity, and whole
+    it would hold ~6 more (n, D) temporaries) with qcompare's bounds
+    and at most MAIN_MAX_FLIPS flipped entries (bf16 results: MAX_FLIPS at
+    rtol BF16_RTOL), and bf16 launches bit for bit to the f32 launch on
+    upcast copies, cast back.  Then in place against out of
+    place, and timed beside its bound (each input read and each output
+    written once, in its dtype) and the plain version (no single PyTorch
+    call computes this function, so there is no library time)."""
     R = MAIN["R"]
+    xdt, rdt = (getattr(torch, d) for d in dtypes)
     kw = dict(scheme="int8", group=group, error_feedback=True)
+
+    def mix(*args, **k):
+        if route is None:
+            return quantized_gossip.quantized_gossip_mix(*args, **kw, **k)
+        return quantized_gossip._launch_route(*args, route, **kw, **k)
     ws = torch.from_numpy(gossip.theorem3_weight_schedule(
         n, 0.75 if n == 4 else 1 - 1 / n).stacked(0, R)).cuda()
-    geo = quantized_gossip.launch_geometry(n, group, D, R)
+    ex, er = (torch.finfo(t).bits // 8 for t in (xdt, rdt))
+    geo = quantized_gossip._geometry(n, group, D, R, ex, er, route)
     gen = torch.Generator(device="cuda").manual_seed(3)
-    x = torch.randn(n, D, device="cuda", generator=gen)
-    res = 0.1 * torch.randn(n, D, device="cuda", generator=gen)
-    out, res_out = quantized_gossip.quantized_gossip_mix(ws, x, res, **kw)
+    x = torch.randn(n, D, device="cuda", generator=gen).to(xdt)
+    res = (0.1 * torch.randn(n, D, device="cuda", generator=gen)).to(rdt)
+    out, res_out = mix(ws, x, res)
     torch.cuda.synchronize()
-    chunk = group * (GROUP * 65_536 * MAIN["n"] // (group * n))
     bad, err = 0, 0.0
+    chunk = group * (GROUP * 65_536 * MAIN["n"] // (group * n))
     for a in range(0, D, chunk):
         cols = slice(a, a + chunk)
         want = ref.quantized_gossip_mix_ref(ws, x[:, cols], res[:, cols],
                                             **kw)
         b, e = qcompare(torch, f"{label}, columns {a}+", x[:, cols],
-                        res[:, cols], (out[:, cols], res_out[:, cols]), want,
-                        R, kw["scheme"], group, kw["error_feedback"])
+                        res[:, cols], (out[:, cols], res_out[:, cols]),
+                        want, R, kw["scheme"], group, kw["error_feedback"])
         bad, err = bad + b, max(err, e)
     del want
-    if bad > MAIN_MAX_FLIPS * 2 * n * D:
-        fail(f"quantized_gossip_mix at the {label}: {bad} entries beyond "
-             "rtol=atol=1e-5")
+    limit = MAIN_MAX_FLIPS if xdt == rdt == torch.float32 else MAX_FLIPS
+    if bad > limit * 2 * n * D:
+        fail(f"quantized_gossip_mix at the {label}: {bad} flipped entries")
+    held = (f"== plain up to {bad} flipped of {2 * n * D} entries (limit "
+            f"{limit:.0e}; bf16 results at rtol {BF16_RTOL}), each within "
+            f"one int8 step of its group, max_abs_err {err:.3e}; node sums "
+            "of x + res kept")
+    if xdt != torch.float32 or rdt != torch.float32:
+        o32, r32 = mix(ws, x.float(), res.float())
+        for i in range(n):
+            if not (torch.equal(out[i], o32[i].to(xdt))
+                    and torch.equal(res_out[i], r32[i].to(rdt))):
+                fail(f"quantized_gossip_mix at the {label}: row {i} of the "
+                     f"{dtypes} launch differs from the f32 launch on "
+                     "upcast copies, cast back")
+        del o32, r32
+        held += "; == the f32 launch on upcast copies, cast back, bit for bit"
     xi, ri = x.clone(), res.clone()
-    quantized_gossip.quantized_gossip_mix(ws, xi, ri, out=xi, res_out=ri,
-                                          **kw)
+    mix(ws, xi, ri, out=xi, res_out=ri)
     torch.cuda.synchronize()
     if not (torch.equal(xi, out) and torch.equal(ri, res_out)):
         fail(f"quantized_gossip_mix at the {label}: in place differs from "
@@ -740,34 +898,34 @@ def time_qkernel(torch, quantized_gossip, ref, gossip, n=MAIN["n"],
     rounds = {"ms": [], "plain_ms": []}
     for _ in range(2):   # alternate, so a drift in clocks hits both
         rounds["ms"].append(timed(
-            lambda: quantized_gossip.quantized_gossip_mix(
-                ws, x, res, out=x, res_out=res, **kw), 10))
+            lambda: mix(ws, x, res, out=x, res_out=res), 10))
         rounds["plain_ms"].append(timed(
             lambda: ref.quantized_gossip_mix_ref(ws, x, res, **kw), 3))
     del x, res
     torch.cuda.empty_cache()
-    # x and res each read once and written once, W once; per column and
-    # round 2n^2 flops of mixing and ~8n of quantization (add, abs, reduce,
-    # divide, round, clip, multiply, subtract)
-    nbytes = R * n * n * 4 + 4 * n * D * 4
+    # x and res each read once and written once in their dtypes, W once;
+    # per column and round 2n^2 flops of mixing and ~8n of quantization
+    # (add, abs, reduce, divide, round, clip, multiply, subtract)
+    nbytes = R * n * n * 4 + 2 * n * D * (ex + er)
     flops = 2 * R * n * n * D + 8 * R * n * D
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
     res_ = {k: min(v) for k, v in rounds.items()}
+    names = {"float32": "f32", "bfloat16": "bf16"}
     res_.update(max_abs_err=err, flipped=bad, library_ms=None,
                 bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                shape=f"ws ({R},{n},{n}) f32, x and res ({n},{D}) f32, int8, "
-                      f"group {group}, EF on", route=geo["route"],
-                geometry={k: geo[k] for k in ("gpt", "threads", "smem")})
+                shape=f"ws ({R},{n},{n}) f32, x ({n},{D}) {names[dtypes[0]]}"
+                      f", res {names[dtypes[1]]}, int8, group {group}, EF on",
+                route=geo["route"],
+                geometry={k: geo[k] for k in (
+                    "units", "cluster", "cols", "stages", "w_smem",
+                    "slab", "npad", "threads", "smem") if k in geo})
     if geo["route"] != "regs":
-        res_["resources"] = quantized_gossip.resources(geo, "int8", n)
-    print(f"quantized_gossip_mix at {res_['shape']}: == plain up to {bad} "
-          f"flipped of {2 * n * D} entries (limit {MAIN_MAX_FLIPS:.0e}), "
-          f"each within one int8 step of its group, max_abs_err {err:.3e}; "
-          "node sums of x + res kept; in place == out of place; route "
-          f"{res_['route']} {res_['geometry']} {res_.get('resources', '')}",
-          flush=True)
-    print(f"quantized_gossip_mix at {res_['shape']}: kernel "
+        res_["resources"] = quantized_gossip.resources(geo, "int8")
+    print(f"quantized_gossip_mix at {res_['shape']} ({label}): {held}; in "
+          f"place == out of place; route {res_['route']} {res_['geometry']} "
+          f"{res_.get('resources', '')}", flush=True)
+    print(f"quantized_gossip_mix at {res_['shape']} ({label}): kernel "
           f"{res_['ms']:.4f} ms  plain {res_['plain_ms']:.4f} ms  library "
           f"none  bound {res_['bound_ms']:.4f} ms ({res_['bound_by']})  "
           f"rounds {rounds}", flush=True)
@@ -2114,17 +2272,20 @@ def planned_cli_run(torch, train, exp, argv, counters, what: str) -> dict:
 
 
 def planned_steps(torch, exp, driver, dsteps, built, params, steps: int,
-                  counters, **kw):
+                  counters, losses=None, **kw):
     """``steps`` full-width MC-DSGT steps of ``dsteps.make_train_step(...,
     **kw)`` from ``params`` on ``built``'s schedule, plan and batches,
     staged and looped by the driver as ``exp.run`` does; every count from 0
-    just before the loop.  Returns (state, launches, step seconds)."""
+    just before the loop; each step's loss appended to ``losses`` when
+    given.  Returns (state, launches, step seconds)."""
     impl = kw["gossip_impl"]
     init, warm, step = dsteps.make_train_step(
         built.model, built.cfg, algo="mc_dsgt", gamma=built.rule.gamma, R=2,
         plan=built.plan, **kw)
-    state = warm(init(params, built.spec.run.nodes),
-                 built.stream.batch_at(0))
+    # the loop holds the only reference to the warm-started state: a step
+    # that stores its trackers anew (aux_dtype) then frees the old ones
+    first = [warm(init(params, built.spec.run.nodes),
+                  built.stream.batch_at(0))]
     if impl == "auto":
         staged = driver.stage(built.schedule, wps=built.wps, device="cuda",
                               impl="auto", plan=built.plan)
@@ -2146,9 +2307,11 @@ def planned_steps(torch, exp, driver, dsteps, built, params, steps: int,
         c.launches = 0
     secs = []
     state, _ = driver.run_loop(
-        step_fn, state, steps=steps, wps=built.wps, period=staged.period,
+        step_fn, first.pop(), steps=steps, wps=built.wps, period=staged.period,
         extra_fn=lambda k: built.stream.batch_at(k + 1),
-        record=lambda k, t, s, out, dt: secs.append(dt) or None,
+        record=lambda k, t, s, out, dt: (
+            secs.append(dt), losses is None or losses.append(
+                float(out["loss"]))) and None,
         sync=torch.cuda.synchronize)
     # a sum is finite only if every entry is, and makes no temporary of the
     # state's size (isfinite() would make three, 11 GB at full width)
@@ -3275,7 +3438,7 @@ def arch_train_phase(torch, train, exp, models, configs, tree, counters,
 
 
 def whisper_phase(torch, train, exp, ops, ref, models, configs, tree,
-                  counters, smi: str) -> dict:
+                  driver, dsteps, counters, smi: str) -> dict:
     """Slice 16 on the card (see WHISPER_ARGV's note):
 
     (a) whisper-tiny at full width on 4 nodes, MC-DSGT R=2, 3 steps
@@ -3295,7 +3458,10 @@ def whisper_phase(torch, train, exp, ops, ref, models, configs, tree,
         tests/test_archs_smoke.py);
     (d) a reduced qwen1.5-0.5b with logit_softcap 30 in f32: prefill of 16
         tokens and 4 decode steps on the card == the same run on the CPU
-        within 1e-4, 0 launches."""
+        within 1e-4, 0 launches;
+    (e) (slice 17, run between (b) and (c)) (b)'s run with aux_dtype bf16,
+        through dist.steps.make_train_step as the reference's
+        launch/hillclimb.py reaches aux_dtype (whisper_bf16_leg)."""
     t_phase = time.perf_counter()
     out = {}
     # (a)
@@ -3352,6 +3518,10 @@ def whisper_phase(torch, train, exp, ops, ref, models, configs, tree,
                                                 "peak_gb")}
     gc.collect()
     torch.cuda.empty_cache()
+    out["e"] = whisper_bf16_leg(torch, exp, ops, ref, driver, dsteps,
+                                counters)
+    gc.collect()
+    torch.cuda.empty_cache()
     out["c"] = whisper_serve_leg(torch, models, configs, tree, counters)
     out["d"] = softcap_leg(torch, models, configs, tree, counters)
     wall = time.perf_counter() - t_phase
@@ -3359,6 +3529,84 @@ def whisper_phase(torch, train, exp, ops, ref, models, configs, tree,
           flush=True)
     out["wall"] = wall
     return out
+
+
+def whisper_bf16_leg(torch, exp, ops, ref, driver, dsteps, counters) -> dict:
+    """Leg (e) of whisper_phase: whisper-tiny at full width and depth on
+    WHISPER_NODES nodes, MC-DSGT R=2, int8 gossip in groups of
+    WHISPER_GROUP, with aux_dtype bf16 (h, g_prev and both residuals stored
+    in bf16), STEPS steps on the spec's schedule and batches through
+    dist.steps.make_train_step (the reference's train CLI has no flag for
+    aux_dtype).  The kernel takes each bf16 residual as stored, beside the
+    f32 stream it mixes (x, and the tracker's payload h + g - g_prev): 2
+    quantized_gossip_mix launches a step and nothing else, each held to the
+    plain version on its own inputs (held_qmix); finite losses; s/step and
+    peak memory beside their predictions."""
+    spec = exp.with_overrides(exp.ExperimentSpec(), {
+        "model.arch": "whisper-tiny", "model.preset": "full",
+        "run.nodes": WHISPER_NODES, "algorithm.R": 2,
+        "run.gossip_impl": "pallas", "compression.scheme": "int8",
+        "compression.group": WHISPER_GROUP})
+    built = exp.build(spec, device="cuda")
+    params = built.model.init(torch.Generator(device="cuda").manual_seed(0),
+                              torch.float32, "cuda")
+    checks, losses, by_dtype = [], [], {}
+    real = ops.quantized_gossip_mix
+    held = held_qmix(torch, ref, real, "whisper (e)", checks)
+
+    def counted(ws, x, res, **kw):
+        key = (str(x.dtype).split(".")[1], str(res.dtype).split(".")[1])
+        by_dtype[key] = by_dtype.get(key, 0) + 1
+        return held(ws, x, res, **kw)
+    ops.quantized_gossip_mix = counted
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        held_gb = torch.cuda.memory_allocated() / 1e9
+        state, launches, secs = planned_steps(
+            torch, exp, driver, dsteps, built, params, STEPS, counters,
+            losses=losses, gossip_impl="pallas",
+            compression=built.rule.compression, aux_dtype=torch.bfloat16)
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        ops.quantized_gossip_mix = real
+    dtypes = {f: str(getattr(state, f).dtype).split(".")[1]
+              for f in ("x", "h", "g_prev")}
+    dtypes.update(res_x=str(state.res[0].dtype).split(".")[1],
+                  res_h=str(state.res[1].dtype).split(".")[1])
+    if dtypes != {"x": "float32", "h": "bfloat16", "g_prev": "bfloat16",
+                  "res_x": "bfloat16", "res_h": "bfloat16"}:
+        fail(f"whisper (e): state dtypes {dtypes}")
+    if state.x.shape != (WHISPER_NODES, WHISPER_D_ALIGNED):
+        fail(f"whisper (e): state {tuple(state.x.shape)}")
+    del state
+    if launches["quantized_gossip_mix"] != 2 * STEPS or \
+            sum(launches.values()) != 2 * STEPS or \
+            len(checks) != 3 * 2 * STEPS:
+        fail(f"whisper (e): launches {launches}, {len(checks)} windows "
+             f"checked; {STEPS} compressed MC-DSGT steps need 2 "
+             "quantized_gossip_mix each and nothing else")
+    if len(losses) != STEPS or not all(map(math.isfinite, losses)):
+        fail(f"whisper (e): losses {losses}")
+    # both streams mix in f32 beside a bf16 residual: x, and the tracker's
+    # payload h + g - g_prev, taken in the gradient's precision (MC-DSGT's
+    # correction rides in the mix) before h is stored cast
+    if by_dtype != {("float32", "bfloat16"): 2 * STEPS}:
+        fail(f"whisper (e): launches by (x, res) dtype {by_dtype}")
+    s_step = statistics.median(secs)
+    print(f"whisper (e) {WHISPER_NODES} nodes int8 aux_dtype bf16 via "
+          f"make_train_step: losses {losses}  step s {secs}  launches "
+          f"{launches}; state dtypes {dtypes}; every quantized_gossip_mix "
+          f"launch == plain on its first, middle and last {QCHECK_COLS:,} "
+          f"columns (flipped entries and max |diff| per window {checks})",
+          flush=True)
+    print(f"whisper (e): peak device memory "
+          f"{predicted('whisper (e)', 'peak_gb', peak_gb)} GB ({held_gb:.3f} "
+          f"GB held before the run)  s/step "
+          f"{predicted('whisper (e)', 's_step', s_step)} (median of {secs})",
+          flush=True)
+    del params, built
+    return {"launches": launches, "losses": losses, "secs": secs,
+            "peak_gb": peak_gb, "by_dtype": by_dtype}
 
 
 def whisper_serve_leg(torch, models, configs, tree, counters) -> dict:
@@ -3549,20 +3797,42 @@ def main():
     check_kernel(torch, gossip_matmul, ref, gossip)
     kern = time_kernel(torch, gossip_matmul, ref, gossip)
     check_qkernel(torch, quantized_gossip, ref, gossip)
+    check_qkernel_inputs(torch, quantized_gossip, ref, gossip)
     qkern = time_qkernel(torch, quantized_gossip, ref, gossip)
     if steps.flat_layout(models.build(configs.get("whisper-tiny")),
                          compress.CompressionConfig(
                              scheme="int8", group=WHISPER_GROUP)
                          ).size != WHISPER_D_ALIGNED:
         fail("whisper-tiny's 32-node state is not WHISPER_D_ALIGNED wide")
-    qkern_w = time_qkernel(torch, quantized_gossip, ref, gossip,
-                           n=WHISPER_NODES, D=WHISPER_D_ALIGNED,
-                           group=WHISPER_GROUP,
+    wshape = dict(n=WHISPER_NODES, D=WHISPER_D_ALIGNED, group=WHISPER_GROUP)
+    qkern_w = time_qkernel(torch, quantized_gossip, ref, gossip, **wshape,
                            label="whisper-tiny 32-node shape")
-    # the stream route at the same width (no path of the smoke reaches it)
-    time_qkernel(torch, quantized_gossip, ref, gossip, n=WHISPER_NODES,
-                 D=STREAM_D, group=STREAM_GROUP,
-                 label="stream route at the 32-node width")
+    # whisper (e)'s launches (an f32 stream beside a bf16 residual), and
+    # x and res both in bf16 (timed only: no path mixes a bf16 stream)
+    qkern_wb = {dt: time_qkernel(torch, quantized_gossip, ref, gossip,
+                                 **wshape, dtypes=dt,
+                                 label=f"whisper-tiny 32-node shape, {dt}")
+                for dt in (("float32", "bfloat16"), ("bfloat16", "bfloat16"))}
+    # the stream route where PR 28 timed it (group 1024, which the ring
+    # takes since slice 17), launched by name, and the ring there; the
+    # stream route where launch_geometry picks it (group 4096); the ring
+    # past 64 nodes (no path of the smoke reaches these)
+    qkern_s = {
+        label: time_qkernel(torch, quantized_gossip, ref, gossip,
+                            n=n_, D=D_, group=g_, route=route_, label=label)
+        for label, n_, D_, g_, route_ in (
+            ("stream route at the 32-node width, group 1024", WHISPER_NODES,
+             STREAM_D, STREAM_GROUP, "stream"),
+            ("ring route at the 32-node width, group 1024", WHISPER_NODES,
+             STREAM_D, STREAM_GROUP, None),
+            ("stream route at the 32-node width, group 4096", WHISPER_NODES,
+             WIDE_GROUP_D, WIDE_GROUP, None),
+            (f"ring route past 64 nodes, n = {PAST64_NODES}", PAST64_NODES,
+             PAST64_D, GROUP, None))}
+    # gossip_mix at whisper-tiny's 32-node f32 shape (timed only: the
+    # 32-node paths take quantized_gossip_mix)
+    kern_w = time_kernel(torch, gossip_matmul, ref, gossip, n=WHISPER_NODES,
+                         D=WHISPER_D, label="whisper-tiny 32-node shape")
     check_skernel(torch, sparse_gossip, ref, ops)
     check_lkernel(torch, linear_recurrence, ref)
     lkern = time_lkernel(torch, linear_recurrence, ref)
@@ -3675,7 +3945,7 @@ def main():
     torch.cuda.empty_cache()
     lap("arch train (internvl2-1b, granite-moe, falcon-mamba)")
     whispered = whisper_phase(torch, train, exp, ops, ref, models, configs,
-                              tree, counters, smi)
+                              tree, driver, steps, counters, smi)
     gc.collect()
     torch.cuda.empty_cache()
     lap("whisper-tiny (slice 16)")
@@ -3832,7 +4102,7 @@ def main():
             "launches_per_step": launches / steps_})
     # slice 16: gossip_mix on whisper-tiny's 4-node training (the kernel at
     # n = 4, D = 36.4M), and quantized_gossip_mix on its 32-node int8
-    # training, timed at that shape on its tile route
+    # training, timed at that shape on its ring route (since slice 17)
     base = rows[0]
     rows.append({**{k: base[k] for k in (
         "name", "route", "source", "replaces", "max_abs_err", "ms",
@@ -3842,6 +4112,8 @@ def main():
         "launches_per_step": whispered["a"]["launches"]["gossip_mix"]
         / STEPS})
     base = rows[1]
+    qkeys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "shape", "geometry", "resources")
     launches = (whispered["b_int8"]["launches"]["quantized_gossip_mix"]
                 + whispered["b_sign"]["launches"]["quantized_gossip_mix"])
     rows.append({**{k: base[k] for k in ("name", "route", "source",
@@ -3851,11 +4123,19 @@ def main():
                  f"{WHISPER_GROUP}",
                  "launches": launches, "launches_per_step": launches
                  / (STEPS + 1),
-                 **{k: qkern_w[k] for k in (
-                     "max_abs_err", "ms", "plain_ms", "bound_ms",
-                     "bound_by", "library_ms", "shape", "geometry",
-                     "resources")},
+                 **{k: qkern_w[k] for k in qkeys},
                  "variant": qkern_w["route"]})
+    # slice 17: whisper (e), aux_dtype bf16: every launch an f32 stream
+    # beside a bf16 residual, timed at that shape
+    dt = ("float32", "bfloat16")
+    kern = qkern_wb[dt]
+    n_ = whispered["e"]["by_dtype"][dt]
+    rows.append({**{k: base[k] for k in ("name", "route", "source",
+                                         "replaces")},
+                 "path": f"whisper (e): whisper-tiny, {WHISPER_NODES} nodes, "
+                 f"int8, aux_dtype bf16 ({STEPS} steps)",
+                 "launches": n_, "launches_per_step": n_ / STEPS,
+                 **{k: kern[k] for k in qkeys}, "variant": kern["route"]})
     # the same three kernels at recurrentgemma-2b's serve shapes, then the
     # attention kernels at yi-6b's and minitron-4b's (head_dim 128) and at
     # granite-moe-3b-a800m's (head_dim 64, G = 3)
@@ -3893,11 +4173,23 @@ def main():
                 row.update(wrapper_host_us=kern["wrapper_host_us"],
                            timed=base["timed"])
             rows.append(row)
+    # timed only: the kernels at shapes no path of the smoke launches
+    qkern_s["whisper-tiny 32-node shape, x and res bf16"] = \
+        qkern_wb["bfloat16", "bfloat16"]
+    timed_only = [{"name": "quantized_gossip_mix", "path": label,
+                   **{k: kern[k] for k in qkeys}, "variant": kern["route"]}
+                  for label, kern in qkern_s.items()]
+    timed_only.append({"name": "gossip_mix",
+                       "path": "whisper-tiny's 32-node f32 shape",
+                       **{k: kern_w[k] for k in (
+                           "max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms", "shape")}})
     lap("spec smoke")
     print(f"chip_smoke phase walls (s): {walls}", flush=True)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
           "(kernels' build included)", flush=True)
-    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"kernels": rows, "timed_only": timed_only}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -118,17 +118,14 @@ def fused_quantized_consensus(Ws: torch.Tensor, mat: torch.Tensor,
     ``quantized_gossip_mix`` kernel: quantize, mix and update the residual
     for all R rounds in one pass over the flat (n, D) state, in place.
     ``cfg`` is a :class:`repro_torch.core.compress.CompressionConfig`; the
-    layout is aligned to ``cfg.group``, so D needs no padding here.  ``on``
-    is the warmup gate, a host bool: False runs the plain ``gossip_mix``
-    kernel and leaves ``res`` untouched.  Returns (mat, res)."""
+    layout is aligned to ``cfg.group``, so D needs no padding here.  A
+    stream or residual stored in bf16 (``aux_dtype``) is mixed as it is
+    stored: the kernel computes in f32 and rounds on store, as the
+    reference's unflatten casts back.  ``on`` is the warmup gate, a host
+    bool: False runs the plain ``gossip_mix`` kernel and leaves ``res``
+    untouched.  Returns (mat, res)."""
     if not on:
         return fused_multi_consensus(Ws, mat), res
-    if mat.dtype != torch.float32 or res.dtype != torch.float32:
-        # a stream or residual stored in bf16 (aux_dtype): the kernel mixes
-        # f32 copies, cast back on store as the reference's unflatten does
-        m32, r32 = mat.float(), res.float()
-        fused_quantized_consensus(Ws, m32, r32, cfg, on)
-        return mat.copy_(m32), res.copy_(r32)
     return ops.quantized_gossip_mix(
         Ws, mat, res, scheme=cfg.scheme, group=cfg.group,
         error_feedback=cfg.error_feedback, out=mat, res_out=res)

@@ -5,11 +5,14 @@ takes in one launch (n=64, R=8: 128 KB of shared memory, past the 48 KB
 default), the inputs it refuses, and the engine's stale window (``delay``)
 mixing its slots through the kernel.  For ``quantized_gossip_mix`` (held to
 its plain version by ``chip_smoke.py`` at n 4/16 on its regs route and at n
-17/32/64 on its tile and stream routes, both schemes, EF on and off): its
+17 to 200 on its ring and stream routes, both schemes, EF on and off): its
 largest n and W stack on the regs route, the one-column path that rows
 without 16-byte alignment take, each wide route at narrow and wide groups
-(a rerun and in place bit-equal), and its refusals (n > 64, f64, a W stack
-past shared memory).  For
+(a rerun and in place bit-equal), the ring's int8 bits equal to the regs
+route's, bf16 x and/or res on every route equal to the f32 launch on
+upcast copies, n = 65, 96 and 128 at a reduced D, and its refusals (f64,
+f16, a column too large for shared memory, a route named where it cannot
+take the shapes).  For
 ``sparse_segment_mix`` (held to its plain version by ``chip_smoke.py`` over
 E, D, S, padding, bf16, U around the staging limit and the sampled-client
 path's rounds): both variants on a state whose rows are not 16-byte
@@ -199,72 +202,195 @@ def test_quantized_gossip_mix_kernel_matches_plain(scheme, n, R, group,
 
 @pytest.mark.cuda
 def test_quantized_gossip_mix_kernel_refuses_what_it_cannot_take():
+    """Since slice 17 the kernel takes any n whose column fits shared
+    memory, bf16 x and res, and any W stack; it still refuses other dtypes,
+    a D that is not a multiple of the group, inputs that are not
+    contiguous, so many nodes that a column does not fit, and a route named
+    where it cannot take the shapes."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
     qgm = quantized_gossip.quantized_gossip_mix
     z = lambda n, D, **kw: torch.zeros(n, D, device="cuda", **kw)  # noqa: E731
     eye = lambda n: torch.eye(n, device="cuda")[None]  # noqa: E731
-    with pytest.raises(ValueError, match="n <= 64"):
-        qgm(eye(65), z(65, 256), z(65, 256), scheme="sign")
-    with pytest.raises(TypeError, match="f32"):
+    with pytest.raises(TypeError, match="f32 or bf16"):
         qgm(eye(4), z(4, 512, dtype=torch.float64),
             z(4, 512, dtype=torch.float64), scheme="int8", group=512)
+    with pytest.raises(TypeError, match="f32 or bf16"):
+        qgm(eye(4), z(4, 256, dtype=torch.float16), z(4, 256),
+            scheme="sign")
     with pytest.raises(ValueError, match="shared-memory limit"):
-        qgm(eye(64).repeat(15, 1, 1), z(64, 256), z(64, 256), scheme="sign")
+        qgm(torch.zeros(1, 1, 1, device="cuda").expand(1, 30_000, 30_000),
+            z(30_000, 256), z(30_000, 256), scheme="sign")
     with pytest.raises(ValueError, match="multiple of group"):
         qgm(eye(4), z(4, 300), z(4, 300), scheme="sign", group=256)
-    with pytest.raises(TypeError, match="f32"):
-        qgm(eye(4), z(4, 256, dtype=torch.bfloat16),
-            z(4, 256, dtype=torch.bfloat16), scheme="sign")
     with pytest.raises(ValueError, match="contiguous"):
         qgm(eye(4), z(4, 512)[:, ::2], z(4, 256), scheme="sign")
+    named = quantized_gossip._launch_route
+    with pytest.raises(ValueError, match="regs route takes"):
+        named(eye(17), z(17, 256), z(17, 256), "regs", scheme="sign")
+    with pytest.raises(ValueError, match="unknown route"):
+        named(eye(4), z(4, 256), z(4, 256), "tile", scheme="sign")
+
+
+def _qgm_check_wide(n, R, group, D, scheme, ef, ws, x, res):
+    """One launch of a wide shape against the plain version (R = 1 within
+    rtol = atol = 1e-5, int8's residual exactly; from R = 2 on up to 1e-3
+    of the entries flipped; with error feedback the node sums of x + res
+    kept), a rerun and in place giving the same bits."""
+    kw = dict(scheme=scheme, group=group, error_feedback=ef)
+    o1, r1 = quantized_gossip.quantized_gossip_mix(ws, x, res, **kw)
+    o2, r2 = quantized_gossip.quantized_gossip_mix(ws, x, res, **kw)
+    xi, ri = x.clone(), res.clone()
+    quantized_gossip.quantized_gossip_mix(ws, xi, ri, out=xi, res_out=ri,
+                                          **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(o1, o2) and torch.equal(r1, r2)
+    assert torch.equal(xi, o1) and torch.equal(ri, r1)
+    want_o, want_r = ref.quantized_gossip_mix_ref(ws, x, res, **kw)
+    tol = 1e-5
+    if R == 1:
+        torch.testing.assert_close(o1, want_o, rtol=tol, atol=tol)
+        if scheme == "int8" or not ef:
+            assert torch.equal(r1, want_r)
+        else:
+            torch.testing.assert_close(r1, want_r, rtol=tol, atol=tol)
+    for got, want in ((o1, want_o), (r1, want_r)):
+        bad = (got - want).abs() > tol + tol * want.abs()
+        assert int(bad.sum()) <= 1e-3 * bad.numel(), int(bad.sum())
+    if ef:
+        torch.testing.assert_close((o1.double() + r1.double()).sum(0),
+                                   (x.double() + res.double()).sum(0),
+                                   rtol=tol, atol=tol)
+    return o1, r1
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("scheme", ["sign", "int8"])
 @pytest.mark.parametrize("n,R,group,D,route", [
-    (17, 3, 384, 384 * 1001, "tile"),       # two groups a tile, the last half
-    (64, 2, 96, 96 * 333, "tile"),          # 4 narrow groups a tile
-    (32, 2, 512, 512 * 4001, "tile"),       # whisper-tiny's 32-node shape
+    (17, 3, 384, 384 * 1001, "ring"),       # clusters of 2 blocks of 192
+    (64, 2, 96, 96 * 333, "ring"),          # clusters of 2 blocks of 48
+    (32, 2, 512, 512 * 4001, "ring"),       # whisper-tiny's 32-node shape
     (64, 1, 4096, 4096 * 33, "stream"),
-    (32, 4, 1024, 1024 * 129, "stream")])
+    (32, 4, 1024, 1024 * 129, "ring")])     # clusters of 8 (PR 28: stream)
 def test_quantized_gossip_mix_wide_routes_match_plain(scheme, n, R, group, D,
                                                       route):
-    """The tile and stream routes (n past 16, groups that are not powers
-    of two or wider than 256): launch_geometry names the route; a rerun
-    gives the same bits; in place equals out of place bit for bit; against
-    the plain version, R = 1 within rtol = atol = 1e-5 (int8's residual
-    exactly), from R = 2 on up to 1e-3 of the entries flipped, and with
-    error feedback the node sums of x + res kept (float64 sums)."""
+    """The ring and stream routes (n past 16, groups that are not powers
+    of two or wider than 256): launch_geometry names the route; against
+    the plain version as _qgm_check_wide holds it, error feedback on and
+    off."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
     assert quantized_gossip.launch_geometry(n, group, D, R)["route"] == route
     ws, x, res = _qgm_inputs(n, R, D)
     for ef in (True, False):
-        kw = dict(scheme=scheme, group=group, error_feedback=ef)
-        o1, r1 = quantized_gossip.quantized_gossip_mix(ws, x, res, **kw)
-        o2, r2 = quantized_gossip.quantized_gossip_mix(ws, x, res, **kw)
-        xi, ri = x.clone(), res.clone()
-        quantized_gossip.quantized_gossip_mix(ws, xi, ri, out=xi, res_out=ri,
-                                              **kw)
-        torch.cuda.synchronize()
-        assert torch.equal(o1, o2) and torch.equal(r1, r2)
-        assert torch.equal(xi, o1) and torch.equal(ri, r1)
-        want_o, want_r = ref.quantized_gossip_mix_ref(ws, x, res, **kw)
-        tol = 1e-5
-        if R == 1:
-            torch.testing.assert_close(o1, want_o, rtol=tol, atol=tol)
-            if scheme == "int8" or not ef:
-                assert torch.equal(r1, want_r)
-            else:
-                torch.testing.assert_close(r1, want_r, rtol=tol, atol=tol)
-        for got, want in ((o1, want_o), (r1, want_r)):
-            bad = (got - want).abs() > tol + tol * want.abs()
-            assert int(bad.sum()) <= 1e-3 * bad.numel(), int(bad.sum())
-        if ef:
-            torch.testing.assert_close((o1.double() + r1.double()).sum(0),
-                                       (x.double() + res.double()).sum(0),
-                                       rtol=tol, atol=tol)
+        _qgm_check_wide(n, R, group, D, scheme, ef, ws, x, res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["sign", "int8"])
+@pytest.mark.parametrize("n,group,D", [(17, 3072, 3072 * 41),
+                                       (128, 512, 512 * 61)])
+def test_quantized_gossip_mix_ring_two_units_match_plain(scheme, n, group,
+                                                         D):
+    """The ring with two units a thread (tiles of more than 256 units):
+    n = 17 in clusters of 8 blocks of 384 columns (96 column groups, so a
+    thread's two units lie in different columns) and n = 128 in clusters of
+    8 blocks of 64, against the plain version as _qgm_check_wide holds it,
+    R 1 and 2, EF on and off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    for R in (1, 2):
+        geo = quantized_gossip.launch_geometry(n, group, D, R)
+        assert (geo["route"], geo["units"]) == ("ring", 2)
+        ws, x, res = _qgm_inputs(n, R, D)
+        for ef in (True, False):
+            _qgm_check_wide(n, R, group, D, scheme, ef, ws, x, res)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,group,D", [(16, 256, 256 * 4001),
+                                       (4, 64, 64 * 16_001),
+                                       (8, 128, 128 * 8001)])
+def test_quantized_gossip_mix_ring_int8_equals_regs_route(n, group, D):
+    """Where the regs route takes a shape, the ring (launched by name)
+    gives its bits in int8 (a max and the mix's FMA chain in the same
+    order), and so does the stream route; R 1 and 2, EF on and off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    for R in (1, 2):
+        ws, x, res = _qgm_inputs(n, R, D)
+        for ef in (True, False):
+            kw = dict(scheme="int8", group=group, error_feedback=ef)
+            outs = {route: quantized_gossip._launch_route(
+                ws, x, res, route, **kw)
+                for route in ("regs", "ring", "stream")}
+            torch.cuda.synchronize()
+            for route in ("ring", "stream"):
+                assert all(torch.equal(a, b) for a, b in
+                           zip(outs[route], outs["regs"])), (route, R, ef)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("xdt,rdt", [(torch.bfloat16, torch.bfloat16),
+                                     (torch.float32, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("n,group,D,route", [
+    (4, 256, 256 * 4001, "regs"), (32, 512, 512 * 601, "ring"),
+    (4, 3, 3 * 20_001, "ring"), (64, 4096, 4096 * 11, "stream"),
+    (96, 256, 256 * 201, "ring")])
+def test_quantized_gossip_mix_bf16_equals_f32_on_upcast_copies(n, group, D,
+                                                               route, xdt,
+                                                               rdt):
+    """bf16 x and/or res, on each route: the f32 launch's bits on upcast
+    copies, cast back (bf16 widened as read, rounded to nearest even as
+    stored), both schemes, EF on and off, R = 2; in place and a rerun the
+    same bits.  (4, 3) has rows that are not 4-byte aligned in bf16: the
+    ring's plain-copy fill."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    R = 2
+    ws, x0, r0 = _qgm_inputs(n, R, D)
+    x, res = x0.to(xdt), r0.to(rdt)
+    assert quantized_gossip.launch_geometry(
+        n, group, D, R, x.element_size(), res.element_size())["route"] == route
+    for scheme in ("sign", "int8"):
+        for ef in (True, False):
+            kw = dict(scheme=scheme, group=group, error_feedback=ef)
+            o, r = quantized_gossip.quantized_gossip_mix(ws, x, res, **kw)
+            o32, r32 = quantized_gossip.quantized_gossip_mix(
+                ws, x.float(), res.float(), **kw)
+            xi, ri = x.clone(), res.clone()
+            quantized_gossip.quantized_gossip_mix(ws, xi, ri, out=xi,
+                                                  res_out=ri, **kw)
+            o2, r2 = quantized_gossip.quantized_gossip_mix(ws, x, res, **kw)
+            torch.cuda.synchronize()
+            assert o.dtype == xdt and r.dtype == rdt
+            assert torch.equal(o, o32.to(xdt)) and torch.equal(r, r32.to(rdt))
+            assert torch.equal(xi, o) and torch.equal(ri, r)
+            assert torch.equal(o2, o) and torch.equal(r2, r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("scheme", ["sign", "int8"])
+@pytest.mark.parametrize("n,group,route", [(65, 256, "ring"),
+                                           (96, 256, "ring"),
+                                           (128, 256, "ring"),
+                                           (128, 2048, "stream")])
+def test_quantized_gossip_mix_past_64_nodes_matches_plain(scheme, n, group,
+                                                          route):
+    """Past 64 nodes at a reduced D: the ring (W in shared memory at 65 and
+    96, read from device memory at 128) and the stream route (128 nodes,
+    group 2048), against the plain version as
+    _qgm_check_wide holds it, R 1 and 2, EF on and off."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    D = group * 61
+    for R in (1, 2):
+        assert quantized_gossip.launch_geometry(n, group, D,
+                                                R)["route"] == route
+        ws, x, res = _qgm_inputs(n, R, D)
+        for ef in (True, False):
+            _qgm_check_wide(n, R, group, D, scheme, ef, ws, x, res)
 
 
 def _sparse_round(n, D, E, S, ids, dtype, seed):
