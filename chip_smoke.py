@@ -75,7 +75,10 @@ and then drives the main paths through the train CLI's own functions:
   the ``examples/torch/serve_batch.py`` twin (reduced, 0 launches);
 * slice 16, whisper-tiny's encoder-decoder at its published widths and
   depth (4 + 4 layers, d_model 384, 1500 frames; D = 36,448,128) through
-  the train CLI: MC-DSGT R=2 on 4 nodes through ``gossip_mix``, then on 32
+  the train CLI: MC-DSGT R=2 on 4 nodes through ``gossip_mix``; slice 18's
+  leg (f), the paper's 32 nodes in full precision through ``gossip_mix``
+  (6 launches, each held to the plain version on its own
+  inputs); then on 32
   nodes with int8 gossip in groups of 512 through ``quantized_gossip_mix``'s
   ring route (n past 16, a group past 256; since slice 17), every launch
   held to the plain version, and one step with sign; slice 17's leg (e),
@@ -143,7 +146,11 @@ bf16 x and/or res on every route bit-equal to the f32 launch on upcast
 copies, and the ring's int8 bits equal to the regs route's; it is timed on
 the ring at whisper-tiny's 32-node shape in f32 and bf16, on the stream
 route at PR 28's shape and at a group no cluster holds, and past 64 nodes;
-``gossip_mix`` is also timed at the 32-node shape.
+``gossip_mix`` is checked at n 4 to 300 (its warp and block walks, W^T in
+chunks at n = 300), both dtypes, in place; its geometry and compiled
+resources are
+printed, and it is timed at the main shape, at whisper-tiny's 32-node
+shape (leg (f)'s path) and, timed only, at n = 128 and with bf16 x.
 ``linear_recurrence`` is checked bit-equal on each of its three routes
 (a ring of time tiles filled by TMA or by cp.async, and the loop) and
 prints its route, geometry and compiled resources at both serve shapes.
@@ -160,7 +167,8 @@ minitron-4b serve paths ``flash_attention`` 8 times per prefill and
 8 times each (one attention layer a MoE layer), the slice-15
 training legs ``gossip_mix`` 2 times per step, the slice-16 legs
 ``gossip_mix`` (4 nodes) and ``quantized_gossip_mix`` (32 nodes) 2 times
-per step and nothing in serving or the softcap leg, the wireless legs the
+per step and nothing in serving or the softcap leg, leg (f) ``gossip_mix``
+2 times per step, the wireless legs the
 gossip kernels 2 times per mixing step, the observability and
 checkpoint legs ``gossip_mix`` 2 times per step; the counts are set to 0
 just before a path and read just after it.  It prints the card, its total
@@ -168,7 +176,8 @@ wall time, one JSON line of per-kernel numbers (a second ``gossip_mix`` row
 for the planning path, three rows for the wireless legs, two for the
 observability and checkpoint legs, three for the slice-15 training legs,
 two for the slice-16 legs (``quantized_gossip_mix`` timed at the 32-node
-shape on its ring route), one for slice 17's leg (e), three rows at the
+shape on its ring route), one for slice 17's leg (e), one for slice 18's
+leg (f) (``gossip_mix`` timed at the 32-node shape), three rows at the
 recurrentgemma shapes, then the last
 six: the attention kernels at yi-6b's and minitron-4b's head_dim 128 and
 at granite-moe-3b-a800m's head_dim 64 with G = 3; and, under
@@ -327,7 +336,8 @@ TRAIN_D = {"granite-moe-3b-a800m": 478_414_848, "falcon-mamba-7b": 476_966_912}
 # bf16 (serve_fleet refuses audio, as the reference's engine does): 4
 # sequences of 1500 frames, a 64-token prefill and 64 greedy decode steps
 # against the cross cache; (d) a reduced qwen1.5-0.5b with a logit softcap
-# of 30, prefill and decode on the card against the CPU.
+# of 30, prefill and decode on the card against the CPU; (f) 32 nodes in
+# f32 through gossip_mix (its (32, D) state is 4.67 GB).
 WHISPER_D = 36_448_128
 WHISPER_D_ALIGNED = 36_448_768          # each leaf aligned to the group
 WHISPER_GROUP = 512
@@ -349,6 +359,13 @@ WIDE_GROUP_D = 4096 * 8898
 # read from device memory)
 PAST64_NODES = 128
 PAST64_D = 256 * 35_594
+# gossip_mix timed past the 32 nodes no path exceeds, at as many bytes as
+# whisper's 32-node f32 state: n = 128, where the FMAs bound it
+GOSSIP_WIDE_NODES = 128
+GOSSIP_WIDE_D = 9_112_064
+# Each gossip_mix launch of whisper leg (f) is held to its plain version on
+# three windows of this many columns (first, middle, last)
+MIX_CHECK_COLS = 1 << 20
 SOFTCAP = 30.0
 # Predictions for the slice-14 and slice-15 phases (yi-6b's and
 # minitron-4b's at HD128_LAYERS), written before their first run on the
@@ -377,6 +394,11 @@ PREDICTED = {"yi-6b": {"peak_gb": (15, 17.5), "wall_s": (15, 40)},
              # residuals halved (4 x 2.33 GB) and with no f32 copies; a step
              # host-bound as (b)'s
              "whisper (e)": {"peak_gb": (14, 19), "s_step": (2.5, 5.0)},
+             # slice 18, written before leg (f)'s first run on the card
+             # (PERF.md §6): (b)'s 25.720 GB less its two f32 residuals
+             # (2 x 4.67 GB), plus the check's 0.4 GB of windows; a step
+             # host-bound as (b)'s (the 2 mixes ~8 ms of it)
+             "whisper (f)": {"peak_gb": (15.5, 18.5), "s_step": (2.5, 4.5)},
              "whisper serve": {"prefill_tok_s": (5_000, 40_000),
                                "decode_tok_s": (800, 3_000)},
              "whisper": {"wall_s": (30, 90)}}
@@ -501,92 +523,142 @@ def timed(fn, reps: int) -> float:
     return start.elapsed_time(stop) / reps
 
 
+# gossip_mix's check: node counts across both walks (the warp walk, W^T
+# resident, to 200; the block walk at 300, W^T in chunks of 64 rows and two
+# TMA boxes a stage), each at two widths: about 1M columns up to 33 nodes
+# and 100K past (every block's ring still wraps many times)
+GOSSIP_CHECK_NODES = (4, 16, 32, 33, 64, 65, 128, 200, 300)
+
+
 def check_kernel(torch, gossip_matmul, ref, gossip):
-    """gossip_mix against its plain version over node counts, rounds, both
-    dtypes, a ragged D (odd: the one-column path) and a D divisible by 4
-    (the 16-byte path), and in place.  f32: rtol = atol = 1e-5 (sums of n
-    products in another order); bf16: 1e-2 (one bf16 rounding of the
-    output, 2^-8 relative, on values of order 1-4)."""
+    """gossip_mix against its plain version over node counts 4 to 300 (both
+    walks: GOSSIP_CHECK_NODES), R 1/2/4, both dtypes, a ragged D (odd: rows
+    TMA cannot take, filled by copies) and a D divisible by 4 (TMA boxes),
+    out of place and in place.  f32: rtol = atol = 1e-5 (sums of n products
+    in another order, over the collapsed W); bf16: 1e-2 (one bf16 rounding
+    of the output, 2^-8 relative, on values of order 1-4)."""
     gen = torch.Generator(device="cuda").manual_seed(0)
-    cases = 0
-    for n in (4, 16, 64):
+    cases, walks = 0, set()
+
+    def held(got, want, dtype):
+        torch.cuda.synchronize()
+        tol = TOL[str(dtype).split(".")[1]]
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+    for n in GOSSIP_CHECK_NODES:
         for R in (1, 2, 4):
             ws = torch.from_numpy(gossip.theorem3_weight_schedule(
                 n, 1 - 1 / n).stacked(0, R)).cuda()
-            for D in (1_000_003, 1_000_004):
+            for D in ((1_000_003, 1_000_004) if n <= 33 else
+                      (100_003, 100_004)):
                 for dtype in (torch.float32, torch.bfloat16):
-                    x = torch.randn(n, D, device="cuda", generator=gen).to(dtype)
+                    x = torch.randn(n, D, device="cuda",
+                                    generator=gen).to(dtype)
                     want = ref.gossip_mix_ref(ws, x)
-                    got = gossip_matmul.gossip_mix(ws, x)
-                    torch.cuda.synchronize()
-                    tol = TOL[str(dtype).split(".")[1]]
-                    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
-                    if n == 4 and dtype == torch.float32:
-                        gossip_matmul.gossip_mix(ws, x, out=x)  # in place
-                        torch.cuda.synchronize()
-                        torch.testing.assert_close(x, want, rtol=tol, atol=tol)
+                    held(gossip_matmul.gossip_mix(ws, x), want, dtype)
+                    gossip_matmul.gossip_mix(ws, x, out=x)  # in place
+                    held(x, want, dtype)
+                    g = gossip_matmul.launch_geometry(n, D, R,
+                                                      x.element_size())
+                    walks.add("warp" if g["wp"] else "block")
                     cases += 1
+    if len(walks) != 2:
+        fail(f"gossip_mix check reached the walks {sorted(walks)}")
     print(f"kernel check: gossip_mix == plain on {cases} cases "
-          f"(n 4/16/64, R 1/2/4, D 1,000,003/1,000,004, f32 rtol=atol="
-          f"{TOL['float32']}, bf16 rtol=atol={TOL['bfloat16']}, in place)",
-          flush=True)
+          f"(n {'/'.join(map(str, GOSSIP_CHECK_NODES))}, R 1/2/4, D "
+          f"1,000,003/1,000,004 to 33 nodes and 100,003/100,004 past, f32 "
+          f"rtol=atol={TOL['float32']}, bf16 "
+          f"rtol=atol={TOL['bfloat16']}, out of place and in place; walks "
+          f"{sorted(walks)})", flush=True)
 
 
-def check_rows(torch, got, want, what: str) -> float:
-    """``got`` against ``want`` at f32 rtol = atol = 1e-5, one row at a time
-    (a whole-tensor comparison at the main shape would need several 7.4 GB
-    temporaries); returns the largest absolute error."""
+def print_gossip_resources(torch, gossip_matmul):
+    """gossip_mix's launch_geometry and compiled resources at the shapes
+    the smoke times and at n = 300 (the block walk, W^T in chunks)."""
+    for n, D, R, dtype in ((MAIN["n"], MAIN["D"], 2, torch.float32),
+                           (WHISPER_NODES, WHISPER_D, 2, torch.float32),
+                           (WHISPER_NODES, WHISPER_D, 2, torch.bfloat16),
+                           (GOSSIP_WIDE_NODES, GOSSIP_WIDE_D, 2,
+                            torch.float32),
+                           (300, 1_000_004, 2, torch.float32)):
+        g = gossip_matmul.launch_geometry(n, D, R, dtype.itemsize)
+        print(f"gossip_mix at n={n} D={D:,} R={R} "
+              f"{str(dtype).split('.')[1]}: geometry {g}  resources "
+              f"{gossip_matmul.resources(g, dtype)}", flush=True)
+
+
+def check_rows(torch, got, want, what: str, tol: float = TOL["float32"]
+               ) -> float:
+    """``got`` against ``want`` at rtol = atol = ``tol`` (f32's by default),
+    one row at a time (a whole-tensor comparison at the main shape would
+    need several 7.4 GB temporaries); returns the largest absolute
+    error."""
     torch.cuda.synchronize()
-    tol = TOL["float32"]
     err = 0.0
     for i in range(got.shape[0]):
         torch.testing.assert_close(got[i], want[i], rtol=tol, atol=tol,
                                    msg=lambda m: f"{what}, row {i}: {m}")
-        err = max(err, float((got[i] - want[i]).abs().max()))
+        err = max(err, float((got[i].float() - want[i].float()).abs().max()))
     return err
 
 
 def time_kernel(torch, gossip_matmul, ref, gossip, n=MAIN["n"], D=MAIN["D"],
-                label="main shape") -> dict:
-    """The kernel at a path's shape (the main path's by default), held to its
-    plain version out of place and in place (the paths mix in place), then
-    timed beside its bound, the plain version and torch.linalg.multi_dot
-    (the library yardstick)."""
+                label="main shape", dtype=None, rounds_=2) -> dict:
+    """The kernel at a path's shape (the main path's by default; x f32
+    unless ``dtype`` says otherwise), held to its plain version out of place
+    and in place (the paths mix in place), then timed beside its bound, the
+    plain version and torch.linalg.multi_dot (the library yardstick: one
+    pass of the product W_{R-1} ... W_0, on W cast to x's dtype).  Its
+    bound counts the function's least work: X read and out written once,
+    and 2 n^2 D operations for the collapsed product plus 2 (R-1) n^3 to
+    collapse W (chaining the R rounds would take R times the first).
+    ``rounds`` timing rounds, alternating kernel, plain and multi_dot."""
+    dtype = dtype or torch.float32
+    dname = str(dtype).split(".")[1]
     R = MAIN["R"]
     ws = torch.from_numpy(gossip.theorem3_weight_schedule(
         n, 0.75 if n == 4 else 1 - 1 / n).stacked(0, R)).cuda()
     gen = torch.Generator(device="cuda").manual_seed(1)
-    x = torch.randn(n, D, device="cuda", generator=gen)
+    x = torch.randn(n, D, device="cuda", generator=gen).to(dtype)
     want = ref.gossip_mix_ref(ws, x)
     out = torch.empty_like(x)
+    tol = TOL[dname]
     gossip_matmul.gossip_mix(ws, x, out=out)
-    max_err = check_rows(torch, out, want, f"{label}, out of place")
+    max_err = check_rows(torch, out, want, f"{label}, out of place", tol)
     x2 = x.clone()
     gossip_matmul.gossip_mix(ws, x2, out=x2)
-    max_err = max(max_err, check_rows(torch, x2, want, f"{label}, in place"))
+    max_err = max(max_err, check_rows(torch, x2, want, f"{label}, in place",
+                                      tol))
     del want, x2
+    wl = ws.to(dtype)
     rounds = {"ms": [], "plain_ms": [], "library_ms": []}
-    for _ in range(2):   # alternate, so a drift in clocks hits all three
+    for _ in range(rounds_):  # alternate: a drift in clocks hits all three
         rounds["ms"].append(timed(
             lambda: gossip_matmul.gossip_mix(ws, x, out=out), 10))
         rounds["plain_ms"].append(timed(lambda: ref.gossip_mix_ref(ws, x), 3))
         rounds["library_ms"].append(timed(
-            lambda: torch.linalg.multi_dot([*ws.flip(0), x]), 3))
+            lambda: torch.linalg.multi_dot([*wl.flip(0), x]), 3))
     del x, out
     torch.cuda.empty_cache()
-    nbytes = R * n * n * 4 + 2 * n * D * 4     # W once, X read, out written
-    flops = 2 * R * n * n * D
+    # W once, X read, out written
+    nbytes = R * n * n * 4 + 2 * n * D * dtype.itemsize
+    flops = 2 * n * n * D + 2 * (R - 1) * n ** 3
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    geo = gossip_matmul.launch_geometry(n, D, R, dtype.itemsize)
     res = {k: min(v) for k, v in rounds.items()}
     res.update(max_abs_err=max_err, bound_ms=max(t_bytes, t_ops) * 1e3,
                bound_by="bytes" if t_bytes >= t_ops else "operations",
-               shape=f"ws ({R},{n},{n}) f32, x ({n},{D}) f32")
+               shape=f"ws ({R},{n},{n}) f32, x ({n},{D}) {dname}",
+               geometry=geo, resources=gossip_matmul.resources(geo, dtype))
     print(f"gossip_mix at {res['shape']}: == plain out of place and in place "
-          f"(f32 rtol=atol={TOL['float32']}, row by row)", flush=True)
-    print(f"gossip_mix at {res['shape']}: kernel {res['ms']:.4f} ms  plain "
+          f"({dname} rtol=atol={tol}, row by row)", flush=True)
+    print(f"gossip_mix at {res['shape']} ({label}): kernel {res['ms']:.4f} "
+          f"ms ({res['bound_ms'] / res['ms']:.1%} of its bound)  plain "
           f"{res['plain_ms']:.4f} ms  multi_dot {res['library_ms']:.4f} ms  "
           f"bound {res['bound_ms']:.4f} ms ({res['bound_by']})  "
-          f"max_abs_err {max_err:.3e}  rounds {rounds}", flush=True)
+          f"max_abs_err {max_err:.3e}  walk {'warp' if geo['wp'] else 'block'}"
+          f"  rounds {rounds}",
+          flush=True)
     return res
 
 
@@ -2723,6 +2795,28 @@ def held_qmix(torch, ref, real, what: str, checks: list):
     return held
 
 
+def held_mix(torch, ref, real, what: str, checks: list):
+    """A stand-in for ``ops.gossip_mix`` that runs ``real`` and holds each
+    kernel launch to the plain version on its own inputs: three windows of
+    MIX_CHECK_COLS columns (first, middle, last), copied before the launch
+    (the trainer mixes in place), row by row at f32 rtol = atol = 1e-5
+    (check_rows); appends each window's largest error to ``checks``."""
+    def held(ws, x, *, use_kernel=False, out=None):
+        if not use_kernel:   # the plain route launches nothing
+            return real(ws, x, use_kernel=use_kernel, out=out)
+        D = x.shape[1]
+        windows = [slice(a_, a_ + MIX_CHECK_COLS) for a_ in
+                   (0, D // 2, D - MIX_CHECK_COLS)]
+        inputs = [x[:, w].clone() for w in windows]
+        result = real(ws, x, use_kernel=True, out=out)
+        for w, xi in zip(windows, inputs):
+            checks.append(check_rows(
+                torch, result[:, w], ref.gossip_mix_ref(ws, xi),
+                f"{what} launch {len(checks) // 3}, columns {w.start}+"))
+        return result
+    return held
+
+
 def cli_run(torch, train, exp, argv, counters, what: str, smi: str = "",
             on_step=None, keep=()) -> dict:
     """``train.main(argv)`` on the card with every count from 0 and
@@ -3461,7 +3555,9 @@ def whisper_phase(torch, train, exp, ops, ref, models, configs, tree,
         within 1e-4, 0 launches;
     (e) (slice 17, run between (b) and (c)) (b)'s run with aux_dtype bf16,
         through dist.steps.make_train_step as the reference's
-        launch/hillclimb.py reaches aux_dtype (whisper_bf16_leg)."""
+        launch/hillclimb.py reaches aux_dtype (whisper_bf16_leg);
+    (f) (slice 18, run between (a) and (b)) the 32 nodes in full precision
+        through gossip_mix (whisper_f32_leg)."""
     t_phase = time.perf_counter()
     out = {}
     # (a)
@@ -3480,6 +3576,9 @@ def whisper_phase(torch, train, exp, ops, ref, models, configs, tree,
           f"{predicted('whisper (a)', 's_step', statistics.median(a['secs']))}"
           f" (median of {a['secs']})", flush=True)
     out["a"] = {k: a[k] for k in ("launches", "losses", "secs", "peak_gb")}
+    out["f"] = whisper_f32_leg(torch, train, exp, ops, ref, counters, smi)
+    gc.collect()
+    torch.cuda.empty_cache()
     # (b)
     real = ops.quantized_gossip_mix
     for scheme, steps_ in (("int8", STEPS), ("sign", 1)):
@@ -3529,6 +3628,45 @@ def whisper_phase(torch, train, exp, ops, ref, models, configs, tree,
           flush=True)
     out["wall"] = wall
     return out
+
+
+def whisper_f32_leg(torch, train, exp, ops, ref, counters, smi: str) -> dict:
+    """Leg (f) of whisper_phase: whisper-tiny at full width and depth on
+    WHISPER_NODES nodes, MC-DSGT R=2 in full precision, STEPS steps through
+    the train CLI (the reference's arch trainer runs the same argv): 2
+    gossip_mix launches a step at n = 32 (the warp walk) and nothing else,
+    each held to the plain version on its own inputs (held_mix); finite
+    losses; s/step and peak memory beside their predictions."""
+    checks = []
+    real = ops.gossip_mix
+    ops.gossip_mix = held_mix(torch, ref, real, "whisper (f)", checks)
+    try:
+        f = cli_run(torch, train, exp, WHISPER_ARGV + [
+            "--nodes", str(WHISPER_NODES), "--steps", str(STEPS)], counters,
+            f"whisper (f) {WHISPER_NODES} nodes f32", smi)
+    finally:
+        ops.gossip_mix = real
+    state = f.pop("state")
+    if state.x.shape != (WHISPER_NODES, WHISPER_D) or len(f["losses"]) != \
+            STEPS:
+        fail(f"whisper (f): state {tuple(state.x.shape)}, "
+             f"{len(f['losses'])} steps")
+    del state
+    if f["launches"]["gossip_mix"] != 2 * STEPS or \
+            sum(f["launches"].values()) != 2 * STEPS or \
+            len(checks) != 3 * 2 * STEPS:
+        fail(f"whisper (f): launches {f['launches']}, {len(checks)} windows "
+             f"checked; {STEPS} MC-DSGT steps need 2 gossip_mix each and "
+             "nothing else")
+    s_step = statistics.median(f["secs"])
+    print(f"whisper (f): every gossip_mix launch == plain on its first, "
+          f"middle and last {MIX_CHECK_COLS:,} columns (f32 rtol=atol="
+          f"{TOL['float32']}; max |diff| per window {checks})", flush=True)
+    print(f"whisper (f): peak device memory "
+          f"{predicted('whisper (f)', 'peak_gb', f['peak_gb'])} GB  s/step "
+          f"{predicted('whisper (f)', 's_step', s_step)} (median of "
+          f"{f['secs']})", flush=True)
+    return {k: f[k] for k in ("launches", "losses", "secs", "peak_gb")}
 
 
 def whisper_bf16_leg(torch, exp, ops, ref, driver, dsteps, counters) -> dict:
@@ -3829,10 +3967,18 @@ def main():
              WIDE_GROUP_D, WIDE_GROUP, None),
             (f"ring route past 64 nodes, n = {PAST64_NODES}", PAST64_NODES,
              PAST64_D, GROUP, None))}
-    # gossip_mix at whisper-tiny's 32-node f32 shape (timed only: the
-    # 32-node paths take quantized_gossip_mix)
+    # gossip_mix at whisper-tiny's 32-node f32 shape (leg (f)'s path), and
+    # timed only: at n = 128 (FMA-bound) and with bf16 x at 32 nodes
+    print_gossip_resources(torch, gossip_matmul)
     kern_w = time_kernel(torch, gossip_matmul, ref, gossip, n=WHISPER_NODES,
                          D=WHISPER_D, label="whisper-tiny 32-node shape")
+    kern_wide = time_kernel(torch, gossip_matmul, ref, gossip,
+                            n=GOSSIP_WIDE_NODES, D=GOSSIP_WIDE_D,
+                            label=f"n = {GOSSIP_WIDE_NODES}", rounds_=1)
+    kern_wb = time_kernel(torch, gossip_matmul, ref, gossip, n=WHISPER_NODES,
+                          D=WHISPER_D, dtype=torch.bfloat16,
+                          label="whisper-tiny 32-node shape, bf16 x",
+                          rounds_=1)
     check_skernel(torch, sparse_gossip, ref, ops)
     check_lkernel(torch, linear_recurrence, ref)
     lkern = time_lkernel(torch, linear_recurrence, ref)
@@ -3978,7 +4124,8 @@ def main():
          "max_abs_err": kern["max_abs_err"], "ms": kern["ms"],
          "plain_ms": kern["plain_ms"], "bound_ms": kern["bound_ms"],
          "bound_by": kern["bound_by"], "library_ms": kern["library_ms"],
-         "shape": kern["shape"]},
+         "shape": kern["shape"], "geometry": kern["geometry"],
+         "resources": kern["resources"]},
         {"name": "quantized_gossip_mix", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/quantized_gossip_mix.cu",
          "replaces": "src/repro/kernels/quantized_gossip.py:62",
@@ -4111,6 +4258,17 @@ def main():
         "launches": whispered["a"]["launches"]["gossip_mix"],
         "launches_per_step": whispered["a"]["launches"]["gossip_mix"]
         / STEPS})
+    # slice 18: gossip_mix on whisper-tiny's 32-node f32 training, timed
+    # at that shape
+    gkeys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+             "library_ms", "shape", "geometry", "resources")
+    n_ = whispered["f"]["launches"]["gossip_mix"]
+    rows.append({**{k: base[k] for k in ("name", "route", "source",
+                                         "replaces")},
+                 "path": f"whisper (f): whisper-tiny, {WHISPER_NODES} nodes, "
+                 f"f32 ({STEPS} steps)",
+                 "launches": n_, "launches_per_step": n_ / STEPS,
+                 **{k: kern_w[k] for k in gkeys}})
     base = rows[1]
     qkeys = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
              "library_ms", "shape", "geometry", "resources")
@@ -4179,11 +4337,12 @@ def main():
     timed_only = [{"name": "quantized_gossip_mix", "path": label,
                    **{k: kern[k] for k in qkeys}, "variant": kern["route"]}
                   for label, kern in qkern_s.items()]
-    timed_only.append({"name": "gossip_mix",
-                       "path": "whisper-tiny's 32-node f32 shape",
-                       **{k: kern_w[k] for k in (
-                           "max_abs_err", "ms", "plain_ms", "bound_ms",
-                           "bound_by", "library_ms", "shape")}})
+    timed_only += [{"name": "gossip_mix", "path": label,
+                    **{k: kern[k] for k in gkeys}}
+                   for label, kern in (
+                       (f"n = {GOSSIP_WIDE_NODES} at whisper-tiny's 32-node "
+                        "bytes", kern_wide),
+                       ("whisper-tiny's 32-node shape, bf16 x", kern_wb))]
     lap("spec smoke")
     print(f"chip_smoke phase walls (s): {walls}", flush=True)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "

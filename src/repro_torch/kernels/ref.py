@@ -22,6 +22,90 @@ def gossip_mix_ref(ws: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def gossip_mix_tiled_ref(ws: torch.Tensor, x: torch.Tensor, geometry: dict,
+                         blocks: int = 3) -> torch.Tensor:
+    """The Hopper kernel's tile route walked on the CPU, as a
+    :func:`repro_torch.kernels.gossip_matmul.launch_geometry` dict lays it
+    out: the R rounds collapsed into W = W_{R-1} ... W_0 (row i as a row
+    vector times W_{R-2}, ..., W_0), stored transposed and zero-padded to
+    ``rows_pad`` columns; ``blocks`` persistent blocks taking column tiles
+    of ``tc`` in turn, each through a ring of ``stages`` stages (rows and
+    columns past the input staged as zeros, as TMA's fill leaves them); a
+    tile cut in micro-tiles of 8 rows x ``cm`` columns (quads of 4, 4 lc
+    apart), micro-tile u of a pass at the row and column group of its warp
+    tile and lane; W^T resident or in chunks of ``kc`` of its rows, each
+    chunk's sums added to the partial sums kept in the block's f32 buffer;
+    the last chunk storing, rounded once to ``x.dtype``.  Each micro-tile
+    is computed exactly once (checked).  Agrees with :func:`gossip_mix_ref`
+    to f32 rounding."""
+    g = geometry
+    R, n, _ = ws.shape
+    D = x.shape[1]
+    tc, rp, lr, lc, cm = g["tc"], g["rows_pad"], g["lr"], g["lc"], g["cm"]
+    units, threads, kc, stages = g["units"], g["threads"], g["kc"], \
+        g["stages"]
+    if (rp < n or rp % (8 * lr) or tc % (cm * lc)
+            or units != rp // 8 * tc // cm):
+        raise ValueError(f"geometry {g} does not tile n={n}")
+    w = ws.to(torch.float32)
+    v = w[R - 1]
+    for r in range(R - 2, -1, -1):
+        v = v @ w[r]
+    wt = torch.zeros(n, rp)
+    wt[:, :n] = v.T
+    u = torch.arange(units)
+    wtile, lane, wct = u // 32, u % 32, tc // (cm * lc)
+    i0 = 8 * ((wtile // wct) * lr + lane // lc)
+    c0 = (wtile % wct) * cm * lc + 4 * (lane % lc)
+    rows = i0[:, None] + torch.arange(8)          # (units, 8)
+    quads = torch.arange(cm // 4) * 4 * lc        # (cm / 4,)
+    cols = (c0[:, None, None] + quads[None, :, None]
+            + torch.arange(4)).reshape(units, cm)  # (units, cm)
+    if len({(i, c) for i, cs in zip(i0.tolist(), cols.tolist())
+            for c in cs}) != units * cm:
+        raise ValueError(f"geometry {g} computes a micro-tile twice")
+    passes = [slice(v, v + threads) for v in range(0, units, threads)]
+    srows = g["box_rows"] * g["boxes"]
+    tiles = -(-D // tc)
+    out = torch.empty_like(x)
+
+    def fill(ring, s, tile):
+        ring[s].zero_()
+        c = tile * tc
+        ring[s, :n, :min(tc, D - c)] = x[:, c:c + tc]
+
+    for b in range(blocks):
+        mine = list(range(b, tiles, blocks))
+        ring = torch.zeros(stages, srows, tc, dtype=x.dtype)
+        buf = torch.zeros(rp, tc)   # rows past n stay zero
+        for k in range(min(stages, len(mine))):
+            fill(ring, k, mine[k])
+        for k, tile in enumerate(mine):
+            s, col0 = k % stages, tile * tc
+            ncol = min(tc, D - col0)
+            src = ring[s].to(torch.float32)
+            for j0 in range(0, n, kc):
+                j1 = min(j0 + kc, n)
+                for p in passes:
+                    acc = (torch.zeros(rows[p].shape[0], 8, cm) if j0 == 0
+                           else buf[rows[p][:, :, None], cols[p][:, None, :]])
+                    acc = acc + torch.einsum("jup,juq->upq",
+                                             wt[j0:j1][:, rows[p]],
+                                             src[j0:j1][:, cols[p]])
+                    if j1 == n:
+                        keep = ((rows[p] < n)[:, :, None]
+                                & (cols[p] < ncol)[:, None, :])
+                        ri = rows[p][:, :, None].expand_as(acc)[keep]
+                        ci = cols[p][:, None, :].expand_as(acc)[keep]
+                        out[ri, col0 + ci] = acc[keep].to(x.dtype)
+                    else:
+                        buf[rows[p][:, :, None], cols[p][:, None, :]] = \
+                            acc * (rows[p] < n)[:, :, None]
+            if k + stages < len(mine):
+                fill(ring, s, mine[k + stages])
+    return out
+
+
 def quantize_dequantize_ref(buf: torch.Tensor, *, scheme: str,
                             group: int = 256):
     """Group-wise quantize -> dequantize of an (n, D) f32 matrix (D % group

@@ -1,9 +1,9 @@
 """The port's CUDA kernels on the card: the cases ``chip_smoke.py`` does not
-cover.  Its kernel check holds ``gossip_mix`` to its plain version at n
-4/16/64, R 1/2/4 and both dtypes; here are the largest W stack the kernel
-takes in one launch (n=64, R=8: 128 KB of shared memory, past the 48 KB
-default), the inputs it refuses, and the engine's stale window (``delay``)
-mixing its slots through the kernel.  For ``quantized_gossip_mix`` (held to
+cover.  Its kernel check holds ``gossip_mix`` to its plain version at n 4
+to 300, R 1/2/4 and both dtypes; here are n = 4 to 300 at R up to 8 on
+both walks (n = 300 with W^T in chunks and its rows in two TMA boxes),
+each fill (TMA, element copies), in place, the inputs it refuses, and the
+engine's stale window (``delay``) mixing its slots through the kernel.  For ``quantized_gossip_mix`` (held to
 its plain version by ``chip_smoke.py`` at n 4/16 on its regs route and at n
 17 to 200 on its ring and stream routes, both schemes, EF on and off): its
 largest n and W stack on the regs route, the one-column path that rows
@@ -61,23 +61,42 @@ from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("n,R,D,dtype", [(64, 8, 4_097, torch.float32),
-                                         (64, 8, 4_097, torch.bfloat16)])
-def test_gossip_mix_kernel_matches_plain(n, R, D, dtype):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n,R,D,offset", [
+    (4, 2, 4_097, 0), (4, 2, 4_096, 0), (16, 4, 4_096, 0), (16, 4, 4_097, 0),
+    (32, 2, 10_000, 0), (32, 2, 10_001, 0), (32, 2, 10_000, 1),
+    (33, 3, 4_097, 0), (64, 8, 4_097, 0), (65, 2, 4_096, 0),
+    (128, 2, 4_096, 0), (200, 4, 4_097, 0), (300, 2, 1_000, 0)])
+def test_gossip_mix_kernel_matches_plain(n, R, D, offset, dtype):
+    """n from 4 to 300 on both walks (300 streams W^T in chunks of its rows
+    and stages its rows in two TMA boxes), each fill: TMA and element
+    copies (a ragged D, or rows ``offset`` values off 16-byte alignment),
+    out of place and in place."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
     ws = torch.from_numpy(
         gossip.theorem3_weight_schedule(n, 1 - 1 / n).stacked(0, R)).cuda()
-    x = torch.from_numpy(np.random.default_rng(2).standard_normal(
-        (n, D)).astype(np.float32)).cuda().to(dtype)
+    flat = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        n * D + offset).astype(np.float32)).cuda().to(dtype)
+    x = flat[offset:].view(n, D)
+    geo = gossip_matmul.launch_geometry(n, D, R, x.element_size())
+    assert geo["wp"] == (n < 300)
+    if n >= 300:
+        assert geo["kc"] < n and geo["boxes"] == 2
+
+    def mix(**kw):
+        return gossip_matmul.gossip_mix(ws, x, **kw)
+    want = ref.gossip_mix_ref(ws, x)
     before = gossip_matmul.gossip_mix.launches
-    got = gossip_matmul.gossip_mix(ws, x)
+    got = mix()
     torch.cuda.synchronize()
     assert gossip_matmul.gossip_mix.launches == before + 1
     # f32: n products summed in another order; bf16: one output rounding
     tol = 1e-5 if dtype == torch.float32 else 2e-2
-    torch.testing.assert_close(got, ref.gossip_mix_ref(ws, x), rtol=tol,
-                               atol=tol)
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    mix(out=x)   # in place
+    torch.cuda.synchronize()
+    assert torch.equal(x, got)
 
 
 @pytest.mark.cuda
@@ -129,9 +148,9 @@ def test_delayed_window_through_gossip_mix(delay):
 def test_gossip_mix_kernel_refuses_what_it_cannot_take():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
-    x = torch.zeros(65, 8, device="cuda")
-    with pytest.raises(ValueError, match="n <= 64"):
-        gossip_matmul.gossip_mix(torch.eye(65, device="cuda")[None], x)
+    with pytest.raises(ValueError, match="contiguous"):
+        gossip_matmul.gossip_mix(torch.eye(65, device="cuda")[None],
+                                 torch.zeros(65, 16, device="cuda")[:, ::2])
     with pytest.raises(TypeError):
         gossip_matmul.gossip_mix(torch.eye(4, device="cuda")[None],
                                  torch.zeros(4, 8, device="cuda",

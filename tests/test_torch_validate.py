@@ -84,7 +84,8 @@ def test_loading_the_twins_runs_no_main(capsys):
     names = [ex for ex, _, _ in validate.iter_example_specs(TWINS)]
     assert capsys.readouterr().out == ""
     assert "attention_compare" not in names
-    assert len(glob.glob(str(Path(TWINS) / "*_compare.py"))) == 3
+    assert "gossip_compare" not in names
+    assert len(glob.glob(str(Path(TWINS) / "*_compare.py"))) == 4
 
 
 def test_every_pass_runs_on_the_cpu(capsys):
