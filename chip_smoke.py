@@ -65,7 +65,12 @@ and then drives the main paths through the train CLI's own functions:
   and 128 new tokens on 4 slots against a 2048-slot KV cache, each MoE
   layer's attention through ``flash_attention`` in every prefill and
   ``decode_attention`` in every decode step; two requests are served again
-  one at a time and must give the same tokens; then slice 15's training
+  one at a time and must give the same tokens; slice 19, the same serving
+  of a nemotron-4-340b fleet (at its published widths, its depth cut to 2
+  of 96 layers: 2 members of 16.35B parameters, 65.38 GB in bf16; 96 query
+  heads over 8 KV heads of 192, G = 12, relu2, an untied vocabulary of
+  256,000), both kernels at head_dim 192 (decode on its tensor-core
+  route); then slice 15's training
   paths through the train CLI (the pattern-generic arch trainer, use_pallas
   off as in the reference; MC-DSGT R=2 on 4 nodes through ``gossip_mix``):
   internvl2-1b at full width on 256 patch embeddings + 64 tokens a
@@ -151,6 +156,9 @@ chunks at n = 300), both dtypes, in place; its geometry and compiled
 resources are
 printed, and it is timed at the main shape, at whisper-tiny's 32-node
 shape (leg (f)'s path) and, timed only, at n = 128 and with bf16 x.
+``flash_attention`` and ``decode_attention`` are checked at head_dim 32 to
+256 (192 since slice 19) and decode at G up to 33, each row group of a G >
+16 launch bit-equal to its rows launched alone.
 ``linear_recurrence`` is checked bit-equal on each of its three routes
 (a ring of time tiles filled by TMA or by cp.async, and the loop) and
 prints its route, geometry and compiled resources at both serve shapes.
@@ -164,7 +172,8 @@ path ``linear_recurrence`` 18 and ``flash_attention`` 8 times per prefill
 and ``decode_attention`` 8 times per slot and token, the yi-6b and
 minitron-4b serve paths ``flash_attention`` 8 times per prefill and
 ``decode_attention`` 8 times per slot and token, the granite-moe serve path
-8 times each (one attention layer a MoE layer), the slice-15
+8 times each (one attention layer a MoE layer), the nemotron serve path 2
+times each, the slice-15
 training legs ``gossip_mix`` 2 times per step, the slice-16 legs
 ``gossip_mix`` (4 nodes) and ``quantized_gossip_mix`` (32 nodes) 2 times
 per step and nothing in serving or the softcap leg, leg (f) ``gossip_mix``
@@ -179,9 +188,10 @@ two for the slice-16 legs (``quantized_gossip_mix`` timed at the 32-node
 shape on its ring route), one for slice 17's leg (e), one for slice 18's
 leg (f) (``gossip_mix`` timed at the 32-node shape), three rows at the
 recurrentgemma shapes, then the last
-six: the attention kernels at yi-6b's and minitron-4b's head_dim 128 and
-at granite-moe-3b-a800m's head_dim 64 with G = 3; and, under
-``timed_only``, the timings at shapes no path launches), and last
+eight: the attention kernels at yi-6b's and minitron-4b's head_dim 128, at
+granite-moe-3b-a800m's head_dim 64 with G = 3 and at nemotron-4-340b's
+head_dim 192 with G = 12; and, under ``timed_only``, the timings at shapes
+no path launches, decode at G = 48 among them), and last
 ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero; so does a machine without a CUDA device or
 a directory without the repository.
@@ -310,6 +320,23 @@ GRANITE_SERVE_LAYERS = 8
 GRANITE_PARAMS = 881_326_080             # per member at GRANITE_SERVE_LAYERS
 FLASH_GR = (1, 1920, 24, 8, 64)          # (B, S, H, KV, hd) of one prefill
 DECODE_GR = (1, 2048, 8, 3, 64)          # (B, C, J, G, hd) of one decode
+# Slice 19: nemotron-4-340b (configs/nemotron_4_340b.py, arXiv:2402.16819;
+# d_model 18,432, 96 query heads over 8 KV heads of 192, G = 12, relu2 with
+# d_ff 73,728, an untied vocabulary of 256,000) served at its published
+# widths from a fleet of 2, its depth cut to NEMOTRON_LAYERS of its 96
+# layers: 16.35B parameters a member, 65.38 GB for the fleet in bf16 (4
+# members of 1 layer would take 103 GB, 2 of 3 layers 79.2 GB).  The yi-6b
+# path's traffic on 2 members: a 1920-token prompt and a 2048-slot cache,
+# both kernels at head_dim 192 (decode on its tensor-core route).
+NSERVE = dict(YSERVE, fleet=2)
+NEMOTRON_LAYERS = 2
+NEMOTRON_PARAMS = 16_345_294_848         # per member at NEMOTRON_LAYERS
+FLASH_NM = (1, 1920, 96, 8, 192)         # (B, S, H, KV, hd) of one prefill
+DECODE_NM = (1, 2048, 8, 12, 192)        # (B, C, J, G, hd) of one decode
+# decode_attention past 16 query rows a KV head, timed only (no shipped
+# config has G > 16): nemotron's 96 query heads over 2 KV heads, G = 48,
+# three row groups
+DECODE_G48 = (1, 2048, 2, 48, 192)
 # Slice 15's training paths, through the train CLI (use_pallas off, as the
 # reference trains; the gossip through gossip_mix, 2 launches a step):
 # internvl2-1b (configs/internvl2_1b.py, arXiv:2404.16821) at full width,
@@ -401,7 +428,13 @@ PREDICTED = {"yi-6b": {"peak_gb": (15, 17.5), "wall_s": (15, 40)},
              "whisper (f)": {"peak_gb": (15.5, 18.5), "s_step": (2.5, 4.5)},
              "whisper serve": {"prefill_tok_s": (5_000, 40_000),
                                "decode_tok_s": (800, 3_000)},
-             "whisper": {"wall_s": (30, 90)}}
+             "whisper": {"wall_s": (30, 90)},
+             # slice 19, written before the phase's first run on the card
+             # (PERF.md §6): the 65.38 GB fleet, one prefill's activations
+             # and 1920 x 256,000 bf16 logits (~1 GB), four 2048-slot
+             # caches; the draw, 254 decode steps of 4 slots at ~7 ms of
+             # weights a slot, the re-serve and the profile
+             "nemotron-4-340b": {"peak_gb": (66.5, 70), "wall_s": (20, 50)}}
 # The serve CLI path: the port's launch/serve.py trains a qwen1.5-0.5b fleet
 # at full width (2 MC-DSGT steps through gossip_mix) and serves it.
 SERVE_CLI_STEPS = 2
@@ -1666,6 +1699,10 @@ FLASH_CASES = [
     (2, 384, 384, 4, 2, 256, True, 100),     # hd 256, window off the tiles
     (1, 256, 128, 2, 1, 256, True, 64),      # hd 256, rows with no valid key
     (1, 3968, 3968, 10, 1, 256, True, 2048),  # recurrentgemma's prefill
+    (1, 128, 128, 12, 1, 192, True, 0),      # hd 192, G = 12 (nemotron's)
+    (2, 384, 384, 24, 2, 192, True, 100),    # hd 192, window off the tiles
+    (1, 256, 128, 12, 1, 192, True, 64),     # hd 192, rows with no valid key
+    (1, 128, 256, 24, 2, 192, False, 0),     # hd 192, Sk > Sq, bidirectional
 ]
 DECODE_CASES = [
     # (B, C, J, G, hd, window, filled, pos)
@@ -1683,6 +1720,14 @@ DECODE_CASES = [
     (1, 256, 1, 16, 256, 0, 256, 255),       # hd 256, G = 16
     (2, 512, 2, 10, 256, 300, 512, 700),     # hd 256, B 2, ring, window
     (1, 256, 1, 10, 256, 0, 0, 5),           # hd 256, empty cache
+    (1, 256, 2, 12, 192, 0, 256, 255),       # hd 192, G = 12 (nemotron's)
+    (1, 2048, 8, 12, 192, 0, 1921, 1920),    # nemotron's first decode
+    (2, 512, 2, 12, 192, 300, 512, 700),     # hd 192, B 2, ring, window
+    (1, 256, 1, 12, 192, 0, 0, 5),           # hd 192, empty cache
+    (1, 256, 2, 20, 64, 0, 256, 255),        # G = 20: two row groups
+    (1, 512, 1, 33, 64, 128, 512, 700),      # G = 33, ring, window
+    (1, 256, 2, 20, 192, 0, 200, 199),       # hd 192, G = 20, kpos -1 tail
+    (1, 2048, 1, 33, 192, 0, 2048, 2047),    # hd 192, G = 33, 8 splits
 ]
 
 
@@ -1698,9 +1743,10 @@ def ring_kpos(torch, C, filled, pos, window):
 
 def check_fkernel(torch, flash_attention, ref) -> dict:
     """flash_attention against its plain version over FLASH_CASES in f32 and
-    bf16 (G 1/2/8, hd 32/64/128, window on and off, causal and not, rows with
-    no valid key, Sk > Sq, the serve path's prefill); a rerun gives the same
-    bits.  Returns the largest absolute error by dtype."""
+    bf16 (G 1/2/8/10/12, hd 32/64/128/192/256, window on and off, causal and
+    not, rows with no valid key, Sk > Sq, the serve paths' prefills); a
+    rerun gives the same bits.  Returns the largest absolute error by
+    dtype."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     err = {}
     for B, Sq, Sk, H, KV, hd, causal, window in FLASH_CASES:
@@ -1724,7 +1770,8 @@ def check_fkernel(torch, flash_attention, ref) -> dict:
                                                                     **kw)):
                 fail(f"{what}: a rerun differs")
     print(f"kernel check: flash_attention == plain on {2 * len(FLASH_CASES)} "
-          f"cases (G 1/2/8/10, hd 32/64/128/256, window 0/48/64/100/200/2048, "
+          f"cases (G 1/2/8/10/12, hd 32/64/128/192/256, window "
+          f"0/48/64/100/200/2048, "
           f"causal and not, rows with no valid key, Sk > Sq, (1, 1920, 16, "
           f"64), (1, 3968, 10 over 1, 256); f32 and bf16 at rtol=atol {ATOL}, "
           f"bf16 atol {SERVE_ATOL_BF16['flash_attention']} at Sk >= 1920; "
@@ -1735,10 +1782,12 @@ def check_fkernel(torch, flash_attention, ref) -> dict:
 
 def check_dkernel(torch, decode_attention, ref) -> dict:
     """decode_attention against its plain version over DECODE_CASES in f32
-    and bf16 (G 1/2/4/8/16, hd 32/64/128, window on and off, a ring that has
-    wrapped, a kpos -1 tail, an empty cache, the serve path's first decode,
-    a cache whose later splits hold no valid slot); a rerun gives the same
-    bits.  Returns the largest absolute error by dtype."""
+    and bf16 (G 1/2/4/8/10/12/16/20/33, hd 32/64/128/192/256, window on and
+    off, a ring that has wrapped, a kpos -1 tail, an empty cache, the serve
+    paths' first decodes, a cache whose later splits hold no valid slot); a
+    rerun gives the same bits, and at G > 16 each row group's rows are the
+    bits of the same rows launched alone.  Returns the largest absolute
+    error by dtype."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     err = {}
     for B, C, J, G, hd, window, filled, pos in DECODE_CASES:
@@ -1763,13 +1812,23 @@ def check_dkernel(torch, decode_attention, ref) -> dict:
             if not torch.equal(got, decode_attention.decode_attention(
                     q, k, v, kpos, pos, window=window)):
                 fail(f"{what}: a rerun differs")
+            step = decode_attention.ROW_GROUP
+            for g0 in range(0, G, step) if G > step else ():
+                g1 = min(G, g0 + step)
+                alone = decode_attention.decode_attention(
+                    q[:, :, :, g0:g1], k, v, kpos, pos, window=window)
+                if not torch.equal(got.view(B, 1, J, G, hd)[:, :, :, g0:g1],
+                                   alone.view(B, 1, J, g1 - g0, hd)):
+                    fail(f"{what}: rows {g0}..{g1 - 1} differ from the same "
+                         "rows launched alone")
     print(f"kernel check: decode_attention == plain on "
-          f"{2 * len(DECODE_CASES)} cases (G 1/2/4/8/10/16, hd 32/64/128/256, "
-          f"window 0/128/300/1000/2048, rings wrapped, kpos -1 tail, empty "
-          f"cache, splits with no valid slot, C = 2048; "
+          f"{2 * len(DECODE_CASES)} cases (G 1/2/4/8/10/12/16/20/33, hd "
+          f"32/64/128/192/256, window 0/128/300/1000/2048, rings wrapped, "
+          f"kpos -1 tail, empty cache, splits with no valid slot, C = 2048; "
           f"f32 and bf16 at rtol=atol {ATOL}, bf16 atol "
           f"{SERVE_ATOL_BF16['decode_attention']} at C = 2048; reruns "
-          f"bit-equal) max_abs_err {err}", flush=True)
+          f"bit-equal; at G > 16 every row group bit-equal to its rows "
+          f"launched alone) max_abs_err {err}", flush=True)
     return err
 
 
@@ -1778,19 +1837,22 @@ def print_attention_resources(torch, flash_attention, decode_attention):
     static and dynamic shared memory, from cudaFuncGetAttributes) and how it
     launches at the main paths' shapes (grid, block, cluster, and decode's
     route): qwen1.5's hd 64, recurrentgemma's hd 256, yi-6b's and
-    minitron-4b's hd 128."""
+    minitron-4b's hd 128, nemotron-4-340b's hd 192, and decode at G = 48
+    (three row groups)."""
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    for B, S, H, _, hd in (FLASH_MAIN, FLASH_RG, FLASH_YI, FLASH_MT):
+    for B, S, H, _, hd in (FLASH_MAIN, FLASH_RG, FLASH_YI, FLASH_MT,
+                           FLASH_NM):
         for dtype in (torch.bfloat16, torch.float32):
             print(f"flash_attention {str(dtype).split('.')[1]} hd {hd}: "
                   f"{flash_attention.resources(hd, dtype)} at "
                   f"{(B, S, H, hd)}: "
                   f"{flash_attention.launch_geometry(B, S, H, hd, dtype)}",
                   flush=True)
-    for B, C, J, G, hd in (DECODE_MAIN, DECODE_RG, DECODE_YI, DECODE_MT):
+    for B, C, J, G, hd in (DECODE_MAIN, DECODE_RG, DECODE_YI, DECODE_MT,
+                           DECODE_NM, DECODE_G48):
         for dtype in (torch.bfloat16, torch.float32):
             geometry = decode_attention.launch_geometry(B, J, C, hd, dtype,
-                                                        sms)
+                                                        sms, G)
             print(f"decode_attention {str(dtype).split('.')[1]} hd {hd}: "
                   f"{decode_attention.resources(hd, dtype)} at "
                   f"{(B, C, J, G, hd)}: {geometry}", flush=True)
@@ -1848,7 +1910,8 @@ def time_fkernel(torch, flash_attention, ref, shape=FLASH_MAIN,
                  what: str = "one qwen prefill layer") -> dict:
     """flash_attention at ``shape`` (B, S, H, KV, hd) bf16, causal (qwen's
     (1, 1920, 16, 16, 64), yi-6b's (1, 1920, 32, 4, 128), minitron-4b's (1,
-    1920, 24, 8, 128), or recurrentgemma's (1, 3968, 10, 1, 256) with a
+    1920, 24, 8, 128), nemotron-4-340b's (1, 1920, 96, 8, 192), or
+    recurrentgemma's (1, 3968, 10, 1, 256) with a
     2048-key window): held to its plain version, then timed (device time,
     inputs cold in L2 as on the serve path) beside its bound, the plain
     version and torch's scaled_dot_product_attention (causal, or with the
@@ -1923,8 +1986,9 @@ def time_dkernel(torch, decode_attention, ref, shape=DECODE_MAIN,
                  window: int = 0, what: str = "one qwen decode layer"
                  ) -> dict:
     """decode_attention at ``shape`` (B, C, J, G, hd) bf16 against a full
-    cache (qwen's q (1, 1, 16, 1, 64), yi-6b's (1, 1, 4, 8, 128) or
-    minitron-4b's (1, 1, 8, 3, 128) and a 2048-slot cache at pos 2047; or
+    cache (qwen's q (1, 1, 16, 1, 64), yi-6b's (1, 1, 4, 8, 128),
+    minitron-4b's (1, 1, 8, 3, 128), nemotron-4-340b's (1, 1, 8, 12, 192)
+    or G = 48's (1, 1, 2, 48, 192) and a 2048-slot cache at pos 2047; or
     recurrentgemma's q (1, 1, 1, 10, 256) and a 2048-slot ring, wrapped, at
     pos 4000 with a 2048-token window): held to its plain version, then
     timed (device time, the cache cold in L2 as on the serve path, where
@@ -4005,6 +4069,12 @@ def main():
                             "one granite-moe-3b-a800m prefill layer")
     dkern_gr = time_dkernel(torch, decode_attention, ref, DECODE_GR, 0,
                             "one granite-moe-3b-a800m decode layer")
+    fkern_nm = time_fkernel(torch, flash_attention, ref, FLASH_NM, 0,
+                            "one nemotron-4-340b prefill layer")
+    dkern_nm = time_dkernel(torch, decode_attention, ref, DECODE_NM, 0,
+                            "one nemotron-4-340b decode layer")
+    dkern_g48 = time_dkernel(torch, decode_attention, ref, DECODE_G48, 0,
+                             "a G = 48 decode layer")
     print(f"device_ms: launches the profiler did not record in the kernel "
           f"timings above: {device_ms.lost_total}; sessions that recorded "
           f"none and were run again: {device_ms.empty_sessions}", flush=True)
@@ -4085,6 +4155,11 @@ def main():
                                     "granite-moe-3b-a800m serve path",
                                     GRANITE_SERVE_LAYERS)
     lap("granite-moe-3b-a800m serve")
+    nserved = attention_serve_phase(*phase, "nemotron-4-340b",
+                                    NEMOTRON_PARAMS, NSERVE,
+                                    "nemotron-4-340b serve path",
+                                    NEMOTRON_LAYERS)
+    lap("nemotron-4-340b serve")
     trained = arch_train_phase(torch, train, exp, models, configs, tree,
                                counters, smi)
     gc.collect()
@@ -4308,7 +4383,10 @@ def main():
               ("decode_attention", dkern_mt))),
             ("granite-moe-3b-a800m serve", gserved, GSERVE,
              (("flash_attention", fkern_gr),
-              ("decode_attention", dkern_gr)))):
+              ("decode_attention", dkern_gr))),
+            ("nemotron-4-340b serve", nserved, NSERVE,
+             (("flash_attention", fkern_nm),
+              ("decode_attention", dkern_nm)))):
         n, new = sv["requests"], sv["max_new"]
         for name, kern in kerns:
             per, unit = ((n * (new - 1), "launches_per_slot_token")
@@ -4343,6 +4421,12 @@ def main():
                        (f"n = {GOSSIP_WIDE_NODES} at whisper-tiny's 32-node "
                         "bytes", kern_wide),
                        ("whisper-tiny's 32-node shape, bf16 x", kern_wb))]
+    timed_only.append({"name": "decode_attention",
+                       "path": "G = 48 (three row groups), hd 192",
+                       **{k: dkern_g48[k] for k in (
+                           "max_abs_err", "ms", "plain_ms", "bound_ms",
+                           "bound_by", "library_ms", "shape",
+                           "wrapper_host_us")}})
     lap("spec smoke")
     print(f"chip_smoke phase walls (s): {walls}", flush=True)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "

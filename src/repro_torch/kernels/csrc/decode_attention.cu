@@ -8,7 +8,10 @@
 // position of each cache slot, -1 for an empty one), pos the query's
 // absolute position; o (B, 1, J * G, hd) in q's dtype (f32 or bf16).  Slot
 // c is valid when kpos[c] >= 0, kpos[c] <= pos and, with a window w,
-// kpos[c] > pos - w.  scale = 1 / sqrt(hd).
+// kpos[c] > pos - w.  scale = 1 / sqrt(hd).  Any G: a block takes up to 16
+// query rows, and G > 16 launches groups of 16 rows as the grid's z, each
+// group reading the cache on its own, so a row's bits are those of the same
+// row launched in a group of G <= 16.
 //
 // Replaces the TPU kernel `decode_attention` of
 // src/repro/kernels/decode_attention.py (the Pallas `_kernel`, launched by
@@ -20,32 +23,34 @@
 // once, 2 * C * hd values per (b, j), against 4 * G * C * hd flops: at the
 // qwen1.5-0.5b serve path's decode (C = 2048, J = 16, G = 1, hd = 64, bf16)
 // 8.4 MB, 2.5 us at 3.35 TB/s; at recurrentgemma-2b's (C = 2048, J = 1,
-// G = 10, hd = 256, bf16) 2.1 MB, 0.63 us.  To come near that the card
-// needs many bytes in flight on many SMs, and one block per (b, j) gives 16
-// blocks (1 for recurrentgemma's one KV head) for 132 SMs.
+// G = 10, hd = 256, bf16) 2.1 MB, 0.63 us; at nemotron-4-340b's (C =
+// 2048, J = 8, G = 12, hd = 192, bf16) 12.6 MB, 3.76 us.  To come near that
+// the card needs many bytes in flight on many SMs, and one block per (b, j)
+// gives 16 blocks (1 for recurrentgemma's one KV head) for 132 SMs.
 //
-// Two kernels, chosen by shape (`kTensorCores`): bf16 at hd 256 runs the
-// tensor-core kernel of namespace tc below; everything else the SIMT one.
-// They share the split, the ring, the softmax and the combine.
+// Two kernels, chosen by shape (`kTensorCores`): bf16 at hd 192 and 256
+// runs the tensor-core kernel of namespace tc below; everything else the
+// SIMT one.  They share the split, the ring, the softmax and the combine.
 //
 // What the design does (flash-decoding inside one thread-block cluster):
 // the cache axis is split S ways (S = `splits`, 1 .. 8, chosen by the
 // wrapper so that B * J * S fills the SMs), and the S blocks of one (b, j)
 // form a cluster.  Block r streams slots [r C / S, (r + 1) C / S) in tiles
-// of 64 slots (32 at hd 256) through a ring of cp.async stages (k, v and
-// kpos; q joins the first group), k and v kept in their own dtype in shared
-// memory (16-byte chunks XOR-swizzled by slot, so the reads below hit
-// distinct banks) and widened to f32 in registers; the next tiles are in
-// flight while one is computed.  Per tile: TPS = 128 / tile threads per
-// slot (2, or 4 at hd 256) compute its scores for the G rows, each over
-// every TPS-th 16-byte chunk of hd (a shuffle joins them), one warp per row
-// takes the tile's max and sum, and for the PV product a thread owns one
-// column of hd (two at hd 256) and a share of the slots, row by row, its
-// running sums in shared memory.  After one cluster barrier every block's
-// (m, l, acc) is final in its own shared memory, and the blocks of the
-// cluster combine the splits in rank order, each for its share of the G x
-// hd outputs, reading the other blocks' state through distributed shared
-// memory (the loads of all splits issued before any is used):
+// of 64 slots (32 at hd 192 and 256) through a ring of cp.async stages (k,
+// v and kpos; q joins the first group), k and v kept in their own dtype in
+// shared memory (16-byte chunks XOR-swizzled by slot, so the reads below
+// hit distinct banks) and widened to f32 in registers; the next tiles are
+// in flight while one is computed.  Per tile: TPS = 128 / tile threads per
+// slot (2, or 4 at hd 192 and 256) compute its scores for the G rows, each
+// over every TPS-th 16-byte chunk of hd (a shuffle joins them), one warp
+// per row takes the tile's max and sum, and for the PV product a thread
+// owns one column of hd (two at hd 256, three at hd 192) and a share of the
+// slots, row by row, its running sums in shared memory.  After one cluster
+// barrier every block's (m, l, acc) is final in its own shared memory, and
+// the blocks of the cluster combine the splits in rank order, each for its
+// share of the G x hd outputs, reading the other blocks' state through
+// distributed shared memory (the loads of all splits issued before any is
+// used):
 //
 //     M = max_r m_r,  L = sum_r e^(m_r - M) l_r,
 //     o = sum_r e^(m_r - M) acc_r / max(L, 1e-30),
@@ -85,7 +90,7 @@ namespace {
 
 constexpr int kThreads = 128;   // a block (TPS per slot in the score phase)
 constexpr int kWarps = kThreads / 32;
-constexpr int kMaxG = 16;       // query rows per KV head the kernel takes
+constexpr int kMaxG = 16;       // query rows a block takes (a row group)
 constexpr int kMaxSplits = 8;   // the portable cluster size
 constexpr float kNegInf = -1e30f;
 constexpr int kMaxGridY = 65535;
@@ -95,16 +100,19 @@ struct Cfg {
   static constexpr int VEC = 16 / sizeof(T);      // values per 16-byte chunk
   static constexpr int CPR = HD / VEC;            // chunks per cache row
   static constexpr int SWZ = (CPR < 8 ? CPR : 8) - 1;
-  // cache slots per tile: 64, or 32 at hd 256, where a tile's k and v of
-  // 64 slots would take 64 KB (bf16) or 128 KB (f32) a stage
+  // cache slots per tile: 64, or 32 at hd 192 and 256, where a tile's k
+  // and v of 64 slots would take 48-64 KB (bf16) or 96-128 KB (f32) a stage
   static constexpr int TILE = HD > 128 ? 32 : 64;
   static constexpr int TPS = kThreads / TILE;     // threads per slot (scores)
   static constexpr int KR = HD / TPS;             // k values each holds
-  static constexpr int DW = HD < kThreads ? HD : kThreads;
+  // PV: DW adjacent columns, a thread each, in NP slot shares; DW divides
+  // both hd and the block (hd 192: 64 columns, NP 2, 3 columns a thread)
+  static constexpr int DW =
+      HD % kThreads == 0 ? kThreads : (HD < kThreads ? HD : 64);
   static constexpr int NP = kThreads / DW;        // slot shares in PV
   static constexpr int COLS = HD / DW;            // columns a thread owns
   static constexpr int TILE_BYTES = TILE * HD * (int)sizeof(T);
-  // as many stages of k and v as fit in 64 KB (128 KB at hd 256), 2 to 4
+  // as many stages of k and v as fit in 64 KB (128 KB past hd 128), 2 to 4
   static constexpr int NS0 =
       (HD > 128 ? 131072 : 65536) / (2 * TILE_BYTES);
   static constexpr int STAGES = NS0 < 2 ? 2 : (NS0 > 4 ? 4 : NS0);
@@ -117,8 +125,11 @@ struct Cfg {
       RING_BYTES + KPOS_BYTES + Q_BYTES +
       (int)sizeof(float) * (kMaxG * TILE + NP * kMaxG * HD + 3 * kMaxG);
   static_assert(SMEM_BYTES <= 232448, "a block's shared memory");
-  static_assert(KR % VEC == 0 && TILE % 32 == 0 && COLS * DW == HD,
+  static_assert(KR % VEC == 0 && TILE % 32 == 0 && COLS * DW == HD &&
+                    NP * DW == kThreads,
                 "the tile splits evenly over the threads");
+  static_assert(CPR < 8 ? (CPR & (CPR - 1)) == 0 : CPR % 8 == 0,
+                "the swizzle keeps a chunk in its row");
 };
 
 // Where value e of slot s lies in a tile of the ring: its 16-byte chunk
@@ -200,6 +211,8 @@ __global__ void __launch_bounds__(kThreads)
   const int lane = t & 31, warp = t >> 5;
   const int rank = (int)cluster.block_rank();   // == blockIdx.x % splits
   const int j = blockIdx.x / splits, b = blockIdx.y;
+  // this block's query rows: g0 .. g0 + rows - 1 of the G
+  const int g0 = blockIdx.z * kMaxG, rows = min(kMaxG, G - g0);
   const long long row = (long long)J * HD;      // stride of k between slots
   const T* kb = k + (long long)b * C * row + (long long)j * HD;
   const T* vb = v + (long long)b * C * row + (long long)j * HD;
@@ -209,9 +222,9 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = c_end > c_begin ? (c_end - c_begin + TILE - 1) / TILE
                                       : 0;
 
-  // q of the G rows, into the first group
-  const T* qb = q + ((long long)b * J + j) * G * HD;
-  for (int i = t; i < G * CPR; i += kThreads)
+  // q of the rows, into the first group
+  const T* qb = q + (((long long)b * J + j) * G + g0) * HD;
+  for (int i = t; i < rows * CPR; i += kThreads)
     cp_async16_zfill(sQ + i * VEC, qb + i * VEC, 16);
   // tile `it` of this split into stage `it % NS`: TILE CPR / 128 chunks of
   // k and of v per thread, slots past c_end as zeros; its kpos, 4 slots a
@@ -242,14 +255,14 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int it = 0; it < NS - 1; ++it) issue(it);
 
-  if (t < G) {
+  if (t < rows) {
     sM[t] = kNegInf;
     sL[t] = 0.f;
   }
-  // PV: this thread owns columns d0 + c DW (c < COLS) of rows 0 .. G - 1
+  // PV: this thread owns columns d0 + c DW (c < COLS) of rows 0 .. rows - 1
   // over the tile's slots part, part + NP, ...; its running sums sit in sO
   const int d0 = t % DW, part = t / DW;
-  for (int g = 0; g < G; ++g)
+  for (int g = 0; g < rows; ++g)
 #pragma unroll
     for (int c = 0; c < COLS; ++c)
       sO[(part * kMaxG + g) * HD + d0 + c * DW] = 0.f;
@@ -277,7 +290,7 @@ __global__ void __launch_bounds__(kThreads)
         unpack_f32(T(), *reinterpret_cast<const uint4*>(tk + swz<T, HD>(s, e)),
                    kr + n * VEC);
       }
-      for (int g = 0; g < G; ++g) {
+      for (int g = 0; g < rows; ++g) {
         const T* qg = sQ + g * HD;
         float a = 0.f;
 #pragma unroll
@@ -299,7 +312,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     // online softmax over the tile, one warp per row
-    for (int g = warp; g < G; g += kWarps) {
+    for (int g = warp; g < rows; g += kWarps) {
       float sv[TILE / 32];
       float mx = kNegInf;
 #pragma unroll
@@ -332,7 +345,7 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     // PV: o = o alpha + the tile's sum of p v, row by row
-    for (int g = 0; g < G; ++g) {
+    for (int g = 0; g < rows; ++g) {
       const float* p = sS + g * TILE;
       float a[COLS];
 #pragma unroll
@@ -357,32 +370,37 @@ __global__ void __launch_bounds__(kThreads)
 
   // this split's acc: the NP shares summed in order into share 0
   if (NP > 1 && part == 0)
-    for (int g = 0; g < G; ++g) {
-      float a = sO[g * HD + d0];
-      for (int p = 1; p < NP; ++p) a += sO[(p * kMaxG + g) * HD + d0];
-      sO[g * HD + d0] = a;
-    }
+    for (int g = 0; g < rows; ++g)
+#pragma unroll
+      for (int c = 0; c < COLS; ++c) {
+        const int d = d0 + c * DW;
+        float a = sO[g * HD + d];
+        for (int p = 1; p < NP; ++p) a += sO[(p * kMaxG + g) * HD + d];
+        sO[g * HD + d] = a;
+      }
   combine_splits(cluster, sM, sL, sO,
-                 o + ((long long)b * J + j) * G * HD, G * HD, HD, splits,
-                 rank, t);
+                 o + (((long long)b * J + j) * G + g0) * HD, rows * HD, HD,
+                 splits, rank, t);
 }
 
-// The route by shape: bf16 at hd 256 on the tensor cores, the rest SIMT.
+// The route by shape: bf16 at hd 192 and 256 on the tensor cores, the rest
+// SIMT.
 template <typename T, int HD>
 constexpr bool kTensorCores =
-    std::is_same<T, __nv_bfloat16>::value && HD == 256;
+    std::is_same<T, __nv_bfloat16>::value && HD > 128;
 
-// ==== bf16 at hd 256: tensor cores ========================================
+// ==== bf16 at hd 192 and 256: tensor cores ================================
 //
 // recurrentgemma's decode has G = 10 query rows per KV head at hd 256, and
 // the SIMT kernel above then reads every k and v value from shared memory
 // once per row: 0.058 ms at its serve shape on an H100, bound by shared
-// memory's wavefronts, slower than its plain version (this kernel: 0.014).  Here the G rows (up
-// to 16, zero-padded) are the M = 16 of mma.sync m16n8k16 (bf16 in, f32
-// out): q's A fragments stay in registers for the whole walk, each warp
-// takes 8 slots of a 32-slot tile for S = q k^T (k's B fragments by
-// ldmatrix from the swizzled ring) and 64 columns of hd for O += p v (v's
-// by ldmatrix.trans; p as bf16 through shared memory, since the online
+// memory's wavefronts, slower than its plain version (this kernel: 0.014).
+// nemotron-4-340b's has G = 12 at hd 192, the same case.  Here a block's
+// rows (up to 16, zero-padded) are the M = 16 of mma.sync m16n8k16 (bf16
+// in, f32 out): q's A fragments stay in registers for the whole walk, each
+// warp takes 8 slots of a 32-slot tile for S = q k^T (k's B fragments by
+// ldmatrix from the swizzled ring) and hd / 4 columns of hd for O += p v
+// (v's by ldmatrix.trans; p as bf16 through shared memory, since the online
 // softmax needs a row's max over the 4 warps' slots).  The 16-byte chunks
 // of a ring row are XORed with (slot & 7), so the 8 rows an ldmatrix reads
 // lie in 8 distinct bank groups.  The softmax, the splits and their combine
@@ -394,7 +412,7 @@ constexpr bool kTensorCores =
 
 namespace tc {
 
-constexpr int kRows = 16;      // mma M: query rows, G <= 16 zero-padded
+constexpr int kRows = 16;      // mma M: a block's rows, zero-padded
 constexpr int kTile = 32;      // slots per tile: 8 per warp
 
 template <int HD>
@@ -483,6 +501,7 @@ __global__ void __launch_bounds__(kThreads)
   const int gq = lane >> 2, tq = lane & 3;      // fragment row, column pair
   const int rank = (int)cluster.block_rank();
   const int j = blockIdx.x / splits, b = blockIdx.y;
+  const int g0 = blockIdx.z * kMaxG, rows = min(kMaxG, G - g0);
   const long long row = (long long)J * HD;
   const bf16* kb = k + (long long)b * C * row + (long long)j * HD;
   const bf16* vb = v + (long long)b * C * row + (long long)j * HD;
@@ -492,11 +511,11 @@ __global__ void __launch_bounds__(kThreads)
   const int n_tiles = c_end > c_begin ? (c_end - c_begin + kTile - 1) / kTile
                                       : 0;
 
-  // q's G rows into the first group; rows G .. 15 zero
-  const bf16* qb = q + ((long long)b * J + j) * G * HD;
+  // q's rows into the first group; rows past them zero
+  const bf16* qb = q + (((long long)b * J + j) * G + g0) * HD;
   for (int i = t; i < kRows * CPR; i += kThreads) {
     const int r = i / CPR, c = i % CPR;
-    if (r < G)
+    if (r < rows)
       cp_async16_zfill(sQ + r * Cf::QLD + c * 8, qb + r * HD + c * 8, 16);
     else
       *reinterpret_cast<uint4*>(sQ + r * Cf::QLD + c * 8) =
@@ -585,7 +604,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
 
     // online softmax over the tile, a warp for rows warp, warp + 4, ...,
-    // all 16 at once (rows past G, from q's zero rows, are never output)
+    // all 16 at once (rows past `rows`, from q's zero rows, are never
+    // output)
     {
       float sv[kRows / kWarps], mx[kRows / kWarps], sum[kRows / kWarps];
 #pragma unroll
@@ -665,8 +685,9 @@ __global__ void __launch_bounds__(kThreads)
     *reinterpret_cast<float2*>(sO + (gq + 8) * HD + col) =
         make_float2(oacc[n][2], oacc[n][3]);
   }
-  combine_splits(cluster, sM, sL, sO, o + ((long long)b * J + j) * G * HD,
-                 G * HD, HD, splits, rank, t);
+  combine_splits(cluster, sM, sL, sO,
+                 o + (((long long)b * J + j) * G + g0) * HD, rows * HD, HD,
+                 splits, rank, t);
 }
 
 }  // namespace tc
@@ -680,7 +701,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   if (splits > 1 && C % (Cf::TILE * splits) != 0)
     return cudaErrorInvalidValue;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(J * splits, B);
+  cfg.gridDim = dim3(J * splits, B, (G + kMaxG - 1) / kMaxG);
   cfg.blockDim = dim3(kThreads);
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
@@ -733,6 +754,9 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
     case 128:
       return launch<T, 128>(q, k, v, kpos, o, B, C, J, G, splits, pos,
                             window, scale, s);
+    case 192:
+      return launch<T, 192>(q, k, v, kpos, o, B, C, J, G, splits, pos,
+                            window, scale, s);
     case 256:
       return launch<T, 256>(q, k, v, kpos, o, B, C, J, G, splits, pos,
                             window, scale, s);
@@ -745,19 +769,20 @@ cudaError_t dispatch(const void* q, const void* k, const void* v,
 
 // q: (B, 1, J, G, hd), k and v: (B, C, J, hd), o: (B, 1, J * G, hd), all
 // contiguous, 16-byte aligned and of one dtype, f32 (dtype 0) or bf16
-// (dtype 1); kpos: (C,) int32; hd 32, 64, 128 or 256; 1 <= G <= 16; window
+// (dtype 1); kpos: (C,) int32; hd 32, 64, 128, 192 or 256; G >= 1; window
 // 0 = none; 1 <= splits <= 8, and with splits > 1 C a multiple of tile *
-// splits (tile 64, or 32 at hd 256).
-// One launch on `stream` of J * splits x B blocks in clusters of `splits`;
-// returns the launch's cudaError_t (0 = queued).
+// splits (tile 64, or 32 at hd 192 and 256).
+// One launch on `stream` of J * splits x B x ceil(G / 16) blocks in
+// clusters of `splits`; returns the launch's cudaError_t (0 = queued).
 extern "C" int decode_attention_launch(const void* q, const void* k,
                                        const void* v, const void* kpos,
                                        void* o, int B, int C, int J, int G,
                                        int hd, int splits, int pos,
                                        int window, float scale, int dtype,
                                        void* stream) {
-  if (B < 1 || C < 1 || J < 1 || G < 1 || G > kMaxG || window < 0 ||
-      B > kMaxGridY || splits < 1 || splits > kMaxSplits)
+  if (B < 1 || C < 1 || J < 1 || G < 1 || window < 0 || B > kMaxGridY ||
+      (G + kMaxG - 1) / kMaxG > kMaxGridY || splits < 1 ||
+      splits > kMaxSplits)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* kp = static_cast<const int*>(kpos);
@@ -780,18 +805,21 @@ extern "C" int decode_attention_resources(int hd, int dtype, int* out) {
     return (int)kernel_resources<decode_attention_kernel<T, HD>>(    \
         Cfg<T, HD>::SMEM_BYTES, out);                                \
   }
+#define DECODE_TC_CASE(HD)                                           \
+  if (hd == HD) {                                                    \
+    out[4] = kThreads;                                               \
+    return (int)kernel_resources<tc::decode_attention_tc_kernel<HD>>( \
+        tc::Cfg<HD>::SMEM_BYTES, out);                               \
+  }
   if (dtype == 0) {
     DECODE_CASE(float, 32) DECODE_CASE(float, 64) DECODE_CASE(float, 128)
-    DECODE_CASE(float, 256)
+    DECODE_CASE(float, 192) DECODE_CASE(float, 256)
   } else if (dtype == 1) {
     DECODE_CASE(__nv_bfloat16, 32) DECODE_CASE(__nv_bfloat16, 64)
     DECODE_CASE(__nv_bfloat16, 128)
-    if (hd == 256) {
-      out[4] = kThreads;
-      return (int)kernel_resources<tc::decode_attention_tc_kernel<256>>(
-          tc::Cfg<256>::SMEM_BYTES, out);
-    }
+    DECODE_TC_CASE(192) DECODE_TC_CASE(256)
   }
+#undef DECODE_TC_CASE
 #undef DECODE_CASE
   return (int)cudaErrorInvalidValue;
 }

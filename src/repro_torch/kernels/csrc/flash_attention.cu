@@ -40,9 +40,10 @@
 //   columns with the matching swizzle (128 B, or 64 B), two boxes per tile
 //   at hd 128; the wgmma descriptors name the same swizzle.  Blocks take the
 //   heads fastest and the q-tiles from the last (the longest causal walk)
-//   to the first.  At hd 256 (recurrentgemma-2b) the tiles halve: a block
-//   of 160 threads, one consumer warpgroup of 64 query rows, 64-key tiles
-//   in a 3-stage ring (see Cfg); the rest is the same code.
+//   to the first.  At hd 192 (nemotron-4-340b) and 256 (recurrentgemma-2b)
+//   the tiles halve: a block of 160 threads, one consumer warpgroup of 64
+//   query rows, 64-key tiles in a 3-stage ring, three or four boxes a tile
+//   (see Cfg); the rest is the same code.
 // * f32: the SIMT kernel of the first port.  wgmma on f32 is TF32, too
 //   coarse for the f32 tolerance; a block of 128 threads holds a 64-row
 //   q-tile and 64-key K and V tiles in shared memory, products as f32 FMAs.
@@ -68,7 +69,9 @@
 // path's prefill (1, 1920, 16, 64) bf16, causal, the QK^T and PV products
 // are 7.55 GFLOP, 7.6 us at the 989 TFLOP/s of bf16 wgmma, against ~16 MB
 // moved (4.7 us); at recurrentgemma-2b's (1, 3968, 10 over 1 KV head, 256)
-// bf16 with a 2048-key window, 61.8 GFLOP, 62.5 us, against ~22 MB.
+// bf16 with a 2048-key window, 61.8 GFLOP, 62.5 us, against ~22 MB; at
+// nemotron-4-340b's (1, 1920, 96 over 8 KV heads, 192) bf16, causal, 136.0
+// GFLOP, 137.5 us, against ~153 MB.
 //
 // Plain C interface, built by nvcc and loaded with ctypes (kernels/build.py);
 // the TMA descriptors are encoded on the host by cuTensorMapEncodeTiled,
@@ -271,7 +274,9 @@ namespace tc {
 // thread, which beside a 64 x 128 S fragment exceeds the 168 registers that
 // 288 threads leave: one consumer warpgroup of 64 rows, 64-key tiles (an S
 // fragment of 32 registers) and a 3-stage ring (Q 32 KB + 3 x (K + V) of
-// 32 KB each = 224 KB).
+// 32 KB each = 224 KB).  hd 192 takes the same tiling: its O accumulator
+// (96 registers) with S (64) and P (32) would still pass 168 beside a
+// second warpgroup, and its ring is Q 24 KB + 3 x 48 KB = 168 KB.
 template <int HD>
 struct Cfg {
   static constexpr bool WIDE = HD > 128;
@@ -770,9 +775,9 @@ cudaError_t launch_f32(const void* q, const void* k, const void* v, void* o,
 
 // q: (B, Sq, H, hd), k and v: (B, Sk, KV, hd), o: (B, Sq, H, hd), all
 // contiguous, 16-byte aligned and of one dtype: f32 (dtype 0, the SIMT
-// kernel) or bf16 (dtype 1, the tensor-core kernel); hd 32, 64, 128 or
-// 256; KV divides H.  window 0 = none.  Launches on `stream` and returns the
-// launch's cudaError_t (0 = queued).
+// kernel) or bf16 (dtype 1, the tensor-core kernel); hd 32, 64, 128, 192
+// or 256; KV divides H.  window 0 = none.  Launches on `stream` and returns
+// the launch's cudaError_t (0 = queued).
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int Sq,
                                       int Sk, int H, int KV, int hd,
@@ -787,11 +792,13 @@ extern "C" int flash_attention_launch(const void* q, const void* k,
     if (hd == 32) return (int)launch_f32<32>(FLASH_ARGS);
     if (hd == 64) return (int)launch_f32<64>(FLASH_ARGS);
     if (hd == 128) return (int)launch_f32<128>(FLASH_ARGS);
+    if (hd == 192) return (int)launch_f32<192>(FLASH_ARGS);
     if (hd == 256) return (int)launch_f32<256>(FLASH_ARGS);
   } else if (dtype == 1) {
     if (hd == 32) return (int)tc::launch<32>(FLASH_ARGS);
     if (hd == 64) return (int)tc::launch<64>(FLASH_ARGS);
     if (hd == 128) return (int)tc::launch<128>(FLASH_ARGS);
+    if (hd == 192) return (int)tc::launch<192>(FLASH_ARGS);
     if (hd == 256) return (int)tc::launch<256>(FLASH_ARGS);
   }
 #undef FLASH_ARGS
@@ -812,7 +819,8 @@ extern "C" int flash_attention_resources(int hd, int dtype, int* out) {
                      tc::Cfg<HD>::SMEM_BYTES, out);                        \
   }
   if (dtype == 0 || dtype == 1) {
-    FLASH_CASE(32) FLASH_CASE(64) FLASH_CASE(128) FLASH_CASE(256)
+    FLASH_CASE(32) FLASH_CASE(64) FLASH_CASE(128) FLASH_CASE(192)
+    FLASH_CASE(256)
   }
 #undef FLASH_CASE
   return (int)cudaErrorInvalidValue;

@@ -8,8 +8,11 @@ and, with a window, kpos[c] > pos - window.  The kernel
 (``csrc/decode_attention.cu``) splits the cache of each (batch, KV head)
 over a cluster of :func:`splits_for` blocks, streams it once and combines
 the splits in distributed shared memory, in one launch: with FMAs, or for
-bf16 at hd 256 on the tensor cores (:func:`tensor_cores`); see the note at
-the top of the source.
+bf16 at hd 192 and 256 on the tensor cores (:func:`tensor_cores`); see the
+note at the top of the source.  A block takes up to ``ROW_GROUP`` query
+rows; a larger G is launched as groups of rows on the grid's z axis, each
+reading the cache on its own, so every row has the bits of the same row
+launched in a group alone.
 
 Dispatch is by where the tensors lie, never by a fallback: CUDA tensors
 launch the kernel (and anything the kernel does not take raises), CPU
@@ -31,11 +34,11 @@ import torch
 from . import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)
-MAX_G = 16                      # query rows per KV head the kernel takes
+HEAD_DIMS = (32, 64, 128, 192, 256)
+ROW_GROUP = 16                  # query rows a block takes
 BLOCK = 256                     # the JAX kernel's default block_k
 MAX_SPLITS = 8                  # blocks per cluster (the portable most)
-_MAX_GRID = 65_535              # B rides the grid's y dimension
+_MAX_GRID = 65_535              # B and the row groups ride y and z
 
 
 @functools.cache
@@ -63,8 +66,8 @@ def _sm_count(index: int) -> int:
 
 
 def tile_for(hd: int) -> int:
-    """Cache slots per tile of the kernel for ``hd``: 64, or 32 at hd 256
-    (a stage's k and v then take 32 KB in bf16)."""
+    """Cache slots per tile of the kernel for ``hd``: 64, or 32 at hd 192
+    and 256 (a stage's k and v then take 24 or 32 KB in bf16)."""
     return 32 if hd > 128 else 64
 
 
@@ -72,9 +75,11 @@ def splits_for(B: int, J: int, C: int, sms: int, hd: int) -> int:
     """How many blocks (one cluster) share the cache of one (batch, KV
     head): doubled from 1 while B·J·splits stays within ``sms`` (the SMs of
     the card), up to MAX_SPLITS, each split a whole number of tiles.  At
-    both serve paths' decode (qwen1.5: B 1, J 16, C 2048, hd 64;
-    recurrentgemma: B 1, J 1, C 2048, hd 256; 132 SMs): 8.  No split count
-    costs shared memory: each block keeps its own state."""
+    the serve paths' decode (qwen1.5: B 1, J 16, C 2048, hd 64;
+    recurrentgemma: B 1, J 1, C 2048, hd 256; nemotron: B 1, J 8, C 2048,
+    hd 192; 132 SMs): 8.  No split count costs shared memory: each block
+    keeps its own state.  G does not enter: a row's split, and so its bits,
+    is the same in every group of rows."""
     s, tile = 1, tile_for(hd)
     while (2 * s <= MAX_SPLITS and B * J * 2 * s <= sms
            and C % (2 * s * tile) == 0):
@@ -83,18 +88,25 @@ def splits_for(B: int, J: int, C: int, sms: int, hd: int) -> int:
 
 
 def tensor_cores(hd: int, dtype: torch.dtype) -> bool:
-    """Whether (hd, dtype) takes the tensor-core kernel (bf16 at hd 256:
-    the G <= 16 query rows as the M of mma.sync) or the SIMT one."""
-    return dtype == torch.bfloat16 and hd == 256
+    """Whether (hd, dtype) takes the tensor-core kernel (bf16 at hd 192 and
+    256: a block's query rows as the M = 16 of mma.sync) or the SIMT
+    one."""
+    return dtype == torch.bfloat16 and hd > 128
+
+
+def row_groups(G: int) -> int:
+    """Groups of at most ROW_GROUP query rows a (b, KV head) launches."""
+    return -(-G // ROW_GROUP)
 
 
 def launch_geometry(B: int, J: int, C: int, hd: int, dtype: torch.dtype,
-                    sms: int) -> dict:
-    """The grid, block and cluster the kernel launches with: J·splits x B
-    blocks of 128 threads, the splits of one (b, j) in one cluster."""
+                    sms: int, G: int = 1) -> dict:
+    """The grid, block and cluster the kernel launches with: J·splits x B x
+    row_groups(G) blocks of 128 threads, the splits of one (b, j) and row
+    group in one cluster."""
     splits = splits_for(B, J, C, sms, hd)
-    return {"grid": (J * splits, B), "block": 128, "cluster": splits,
-            "tile": tile_for(hd),
+    return {"grid": (J * splits, B, row_groups(G)), "block": 128,
+            "cluster": splits, "tile": tile_for(hd),
             "route": "tensor cores" if tensor_cores(hd, dtype) else "simt"}
 
 
@@ -138,9 +150,9 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      window: int = 0) -> torch.Tensor:
     """q: (B, 1, J, G, hd); k, v: (B, C, J, hd); kpos: (C,) int32; pos: the
     query's absolute position (a host int) -> (B, 1, J·G, hd) in q's dtype.
-    The kernel takes f32 or bf16 (q, k, v of one dtype), hd 32, 64, 128 or
-    256 and G <= 16; the plain version on the CPU takes any float dtype and
-    hd (the JAX kernel takes any)."""
+    The kernel takes f32 or bf16 (q, k, v of one dtype), hd 32, 64, 128,
+    192 or 256 and any G; the plain version on the CPU takes any float
+    dtype and hd (the JAX kernel takes any)."""
     _check_shapes(q, k, v, kpos)
     if window < 0:
         raise ValueError(f"window={window} must be >= 0 (0 = none)")
@@ -171,12 +183,9 @@ def _launch(q, k, v, kpos, pos, window):
     if hd not in HEAD_DIMS:
         raise ValueError(f"decode_attention kernel takes head_dim in "
                          f"{HEAD_DIMS}, got {hd}")
-    if G > MAX_G:
-        raise ValueError(f"decode_attention kernel takes G <= {MAX_G} query "
-                         f"rows per KV head, got {G}")
-    if B > _MAX_GRID:
-        raise ValueError(f"decode_attention kernel takes B <= {_MAX_GRID}, "
-                         f"got {B}")
+    if B > _MAX_GRID or row_groups(G) > _MAX_GRID:
+        raise ValueError(f"decode_attention kernel takes B and G / "
+                         f"{ROW_GROUP} <= {_MAX_GRID}, got {B}, {G}")
     q, k, v, kpos = (_aligned(t) for t in (q, k, v, kpos))
     o = torch.empty((B, 1, J * G, hd), dtype=q.dtype, device=q.device)
     lib = _lib()

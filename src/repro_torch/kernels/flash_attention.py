@@ -6,8 +6,8 @@ for q (B, Sq, H, hd) and k, v (B, Sk, KV, hd), query head h reading KV head
 h // (H / KV).  The kernel (``csrc/flash_attention.cu``) gives a block one
 (batch, head, q-tile) and walks the k-tiles with an online softmax: for bf16
 on the tensor cores (wgmma on TMA tiles of 128 rows and 128 keys, 64 and 64
-at hd 256), for f32 with FMAs (64-row tiles); see the note at the top of
-the source.
+at hd 192 and 256), for f32 with FMAs (64-row tiles); see the note at the
+top of the source.
 
 Dispatch is by where the tensors lie, never by a fallback: CUDA tensors
 launch the kernel (and anything the kernel does not take raises), CPU
@@ -29,7 +29,7 @@ import torch
 from . import build, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 128, 192, 256)
 BLOCK = 128                     # the JAX kernel's default block_q = block_k
 _MAX_GRID = 65_535              # B (and, for f32, H) ride the grid's y and z
 
@@ -69,9 +69,9 @@ def launch_geometry(B: int, Sq: int, H: int, hd: int,
                     dtype: torch.dtype) -> dict:
     """The grid and block the kernel for ``dtype`` and ``hd`` launches
     with: bf16 (tensor cores) a block of 288 threads per (head, 128-row
-    q-tile, batch) walking 128-key tiles, at hd 256 160 threads per 64-row
-    q-tile walking 64-key tiles; f32 (SIMT) 128 threads per (64-row q-tile,
-    head, batch)."""
+    q-tile, batch) walking 128-key tiles, at hd 192 and 256 160 threads per
+    64-row q-tile walking 64-key tiles; f32 (SIMT) 128 threads per (64-row
+    q-tile, head, batch)."""
     if dtype == torch.bfloat16:
         rows = 64 if hd > 128 else 128
         return {"grid": (H, -(-Sq // rows), B), "block": 2 * rows + 32,
@@ -105,8 +105,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: int = 0) -> torch.Tensor:
     """q: (B, Sq, H, hd); k, v: (B, Sk, KV, hd) -> (B, Sq, H, hd) in q's
     dtype.  The kernel takes f32 or bf16 (all three of one dtype) and hd 32,
-    64, 128 or 256; the plain version on the CPU takes any float dtype and
-    hd (the JAX kernel takes any)."""
+    64, 128, 192 or 256; the plain version on the CPU takes any float dtype
+    and hd (the JAX kernel takes any)."""
     _check_shapes(q, k, v)
     if window < 0:
         raise ValueError(f"window={window} must be >= 0 (0 = none)")

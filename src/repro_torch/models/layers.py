@@ -20,10 +20,33 @@ import torch
 import torch.nn.functional as F
 
 
+# The most values a leaf draws in f32 at once (a multiple of 16); a larger
+# leaf is drawn in chunks of whole rows, straight into its destination.
+DRAW_CHUNK = 1 << 28
+
+
 def _dense_init(gen: torch.Generator, shape, in_axis_size: int, dtype,
-                device) -> torch.Tensor:
+                device, out: torch.Tensor | None = None) -> torch.Tensor:
+    """N(0, 1 / in_axis_size) values from ``gen``, cast into ``out`` (a new
+    ``dtype`` tensor when None) in chunks of whole rows of the first axis,
+    each of a multiple of 16 rows and about DRAW_CHUNK values (the last up
+    to twice that), so no more than one chunk exists in f32.  On the CPU the
+    chunks draw the bits one ``torch.randn`` of the whole shape would: its
+    normal fill turns each 16 uniforms of one stream into 16 values, so
+    chunks of a multiple of 16 values continue that stream.  On CUDA a leaf
+    drawn in more than one chunk gets other numbers than one draw gives."""
     scale = 1.0 / math.sqrt(max(1, in_axis_size))
-    return (torch.randn(shape, generator=gen, device=device) * scale).to(dtype)
+    if out is None:
+        out = torch.empty(shape, dtype=dtype, device=device)
+    rows = out.shape[0]
+    step = max(16, DRAW_CHUNK // max(1, out[0].numel()) // 16 * 16)
+    r0 = 0
+    while r0 < rows:
+        r1 = rows if rows - r0 < 2 * step else r0 + step
+        out[r0:r1].copy_(torch.randn(out[r0:r1].shape, generator=gen,
+                                     device=out.device).mul_(scale))
+        r0 = r1
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -90,14 +113,15 @@ def apply_mlp(p: dict, x: torch.Tensor, act: str = "swiglu") -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 def init_embed(gen, vocab: int, d_model: int, dtype, device,
-               tie: bool = True) -> dict:
+               tie: bool = True, out: dict | None = None) -> dict:
     """The (vocab, d_model) embedding, and when untied the (d_model, vocab)
-    ``unembed``."""
+    ``unembed``: drawn straight into ``out``'s leaves when given."""
+    out = out or {}
     p = {"embedding": _dense_init(gen, (vocab, d_model), d_model, dtype,
-                                  device)}
+                                  device, out.get("embedding"))}
     if not tie:
         p["unembed"] = _dense_init(gen, (d_model, vocab), d_model, dtype,
-                                   device)
+                                   device, out.get("unembed"))
     return p
 
 

@@ -120,7 +120,8 @@ def init_params(gen, cfg, dtype=torch.float32, device="cpu",
     leaves of ``out`` (a tree from :func:`empty_params`, e.g. one fleet
     member's views) or of a new tree.  At most one layer's leaves exist
     beside the result, so a model is built in its own dtype without an f32
-    copy of it.  The JAX package's ``jax.random`` init draws other numbers;
+    copy of it; the embeddings are drawn straight into ``out``.  The JAX
+    package's ``jax.random`` init draws other numbers;
     :func:`repro_torch.models.params_from_jax` carries those across
     instead."""
     if out is None:
@@ -131,9 +132,8 @@ def init_params(gen, cfg, dtype=torch.float32, device="cpu",
     if rem_pattern(cfg):
         tree.map(lambda dst, src: dst.copy_(src), out["rem"],
                  _init_unit(gen, cfg, dtype, device, rem_pattern(cfg)))
-    tree.map(lambda dst, src: dst.copy_(src), out["embed"],
-             layers.init_embed(gen, cfg.vocab_size, cfg.d_model, dtype,
-                               device, cfg.tie_embeddings))
+    layers.init_embed(gen, cfg.vocab_size, cfg.d_model, dtype, device,
+                      cfg.tie_embeddings, out=out["embed"])
     tree.map(lambda dst, src: dst.copy_(src), out["final_norm"],
              layers.init_norm(cfg, dtype, device))
     return out

@@ -45,7 +45,9 @@ LOGIT_ATOL = 2e-4
 PROMPT = 16
 
 # tests/test_kernels.py ATTN_CASES and DECODE_CASES, plus a row with no
-# valid key: with a window and Sq > Sk, rows q >= Sk + window - 1 average v.
+# valid key: with a window and Sq > Sk, rows q >= Sk + window - 1 average v;
+# then head_dim 192 at G = 12 (nemotron-4-340b's) and decodes at G > 16, the
+# kernels' row groups.
 ATTN_CASES = [
     # (B, Sq, Sk, H, KV, hd, causal, window, bq, bk)
     (1, 128, 128, 4, 4, 64, True, 0, 64, 64),
@@ -55,6 +57,10 @@ ATTN_CASES = [
     (2, 128, 128, 2, 2, 128, False, 0, 64, 64),    # bidirectional
     (1, 512, 512, 2, 1, 64, True, 128, 128, 128),  # window > block
     (1, 256, 128, 2, 1, 64, True, 64, 128, 128),   # rows with no valid key
+    # nemotron-4-340b's head_dim 192 with its G = 12 (96 over 8 heads)
+    (1, 128, 128, 12, 1, 192, True, 0, 64, 64),
+    (1, 256, 256, 24, 2, 192, True, 100, 128, 128),  # window off the tiles
+    (1, 256, 128, 12, 1, 192, True, 64, 128, 128),   # rows with no valid key
 ]
 DECODE_CASES = [
     # (B, C, J, G, hd, window, filled, pos, bk)
@@ -63,6 +69,12 @@ DECODE_CASES = [
     (2, 256, 2, 4, 128, 128, 256, 400, 64),   # ring buffer, window
     (1, 128, 4, 1, 32, 0, 128, 127, 128),     # MHA-ish
     (1, 128, 2, 2, 64, 0, 0, 5, 128),         # empty cache: every slot masked
+    # nemotron-4-340b's head_dim 192 with its G = 12, and G past 16
+    (1, 256, 2, 12, 192, 0, 256, 255, 128),   # full cache
+    (1, 512, 1, 12, 192, 300, 512, 700, 128),  # ring buffer, window
+    (1, 256, 1, 12, 192, 0, 100, 99, 128),    # kpos -1 tail
+    (1, 256, 2, 20, 64, 0, 256, 255, 128),    # G = 20: two row groups
+    (1, 256, 1, 33, 192, 0, 200, 199, 128),   # G = 33: three, the last of 1
 ]
 
 

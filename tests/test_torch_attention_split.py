@@ -4,9 +4,11 @@ and combines the splits in rank order.  ``ref.decode_attention_split_ref``
 is that arithmetic in plain PyTorch; here it is held, for 1, 2, 8 and 16
 splits, to the JAX package's Pallas kernel in interpret mode (C <= 512), to
 the JAX oracle ``decode_attention_ref`` and to the port's plain
-``decode_attention_ref``, over the JAX kernel tests' decode cases and a
+``decode_attention_ref``, over the JAX kernel tests' decode cases, a
 2048-slot cache with only its first 200 slots filled, so that whole splits
-hold no valid slot."""
+hold no valid slot, nemotron-4-340b's decode (head_dim 192, G = 12) and
+G = 20 and 33, each walked in the kernel's tiles for its head_dim
+(``decode_attention.tile_for``)."""
 
 import functools
 
@@ -21,6 +23,7 @@ from repro.kernels import ref as jref  # noqa: E402
 from repro.kernels.decode_attention import (  # noqa: E402
     decode_attention as jdecode)
 from repro_torch.kernels import ref  # noqa: E402
+from repro_torch.kernels.decode_attention import tile_for  # noqa: E402
 
 # f32: sums in another order; bf16: the JAX kernel tests' 2e-2, and at
 # C = 2048 (outputs that average hundreds of slots) chip_smoke.py's serve
@@ -39,6 +42,10 @@ CASES = [
     (1, 128, 4, 1, 32, 0, 128, 127, 128),     # MHA-ish
     (1, 128, 2, 2, 64, 0, 0, 5, 128),         # empty cache: every slot masked
     (1, 2048, 16, 1, 64, 0, 200, 199, 256),   # only the first 200 slots
+    # nemotron-4-340b's decode (hd 192, G = 12), and G past 16
+    (1, 2048, 8, 12, 192, 0, 2048, 2047, 256),
+    (1, 256, 1, 20, 64, 0, 256, 255, 128),     # G = 20
+    (2, 512, 1, 33, 192, 300, 512, 700, 128),  # G = 33, ring, window
 ]
 
 
@@ -92,7 +99,7 @@ def test_split_model_matches_jax_and_plain(case, dtype, splits):
     q, k, v = (torch.from_numpy(a).to(TDT[dtype]) for a in arrays)
     kpos = torch.from_numpy(kp)
     got = ref.decode_attention_split_ref(q, k, v, kpos, pos, window=window,
-                                         splits=splits)
+                                         splits=splits, tile=tile_for(hd))
     assert got.shape == (B, 1, J * G, hd) and got.dtype == TDT[dtype]
     tol = SERVE_TOL_BF16 if dtype == "bf16" and C >= 2048 else TOL[dtype]
     _close(got, want, tol)

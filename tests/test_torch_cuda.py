@@ -33,14 +33,16 @@ tensor-core route of ``flash_attention``, every head_dim at Sq 16, 128 and
 a bf16 call it refuses that no other kernel serves; both kernels at the
 yi-6b and minitron-4b serve paths' shapes (head_dim 128: 32 query heads
 over 4 KV heads and 24 over 8, a 1920-token prefill, a 2048-slot cache) in
-both dtypes, and refusing nemotron-4-340b's published head_dim 192 (its
-full preset with use_pallas raises on the card); for ``decode_attention``,
-clusters of 1, 2 and 8 blocks, caches whose splits hold no valid slot, and
-reruns bit-equal.  At recurrentgemma-2b's head_dim 256 (held at its serve
-shapes by ``chip_smoke.py``): the f32 flash kernel at a sequence that is not
-a multiple of the window, decode split over the most blocks a cluster takes
-in both dtypes, and both wrappers refusing a head_dim the JAX kernels take
-(96).
+both dtypes, and at nemotron-4-340b's (head_dim 192: 96 query heads over 8
+KV heads, G = 12) in both dtypes; for ``decode_attention``, clusters of 1,
+2 and 8 blocks, caches whose splits hold no valid slot, reruns bit-equal,
+and G past 16 (17 to 48 query rows a KV head at every head_dim), each row
+group bit-equal to its rows launched alone.  At recurrentgemma-2b's
+head_dim 256 (held at its serve shapes by ``chip_smoke.py``): the f32 flash
+kernel at a sequence that is not a multiple of the window, decode split
+over the most blocks a cluster takes in both dtypes, and both wrappers
+refusing head_dims the JAX kernels take (48, 96, 160, 320) before any
+launch.
 
 These need an NVIDIA GPU and skip elsewhere; the file imports neither jax
 nor the JAX package, so it runs on a machine that has only torch:
@@ -703,9 +705,6 @@ def test_attention_kernels_refuse_what_they_cannot_take():
     with pytest.raises(ValueError, match="head_dim"):
         decode_attention(z(1, 1, 2, 1, 48), z(1, 256, 2, 48),
                          z(1, 256, 2, 48), kpos, 0)
-    with pytest.raises(ValueError, match="G <= 16"):
-        decode_attention(z(1, 1, 1, 17, 64), z(1, 256, 1, 64),
-                         z(1, 256, 1, 64), kpos, 0)
     with pytest.raises(ValueError, match="does not tile"):
         decode_attention(z(1, 1, 2, 1, 64), z(1, 272, 2, 64),
                          z(1, 272, 2, 64),
@@ -735,10 +734,11 @@ def _flash_case(rng, B, Sq, Sk, H, KV, hd, causal, window):
 @pytest.mark.cuda
 @pytest.mark.parametrize("G", [1, 4])
 @pytest.mark.parametrize("Sq", [16, 128, 384])
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 128, 192, 256])
 def test_flash_attention_tensor_core_route(hd, Sq, G):
     """Every head_dim (its own TMA box and swizzle: 64 B at hd 32, 128 B at
-    64, two boxes at 128, four boxes and 64-row tiles at 256), a q-tile
+    64, two boxes at 128, three and four boxes and 64-row tiles at 192 and
+    256), a q-tile
     padded past Sq (16), one tile and three, MHA and G = 4, causal and
     not."""
     if not torch.cuda.is_available():
@@ -749,7 +749,7 @@ def test_flash_attention_tensor_core_route(hd, Sq, G):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("hd", [32, 64, 128, 256])
+@pytest.mark.parametrize("hd", [32, 64, 128, 192, 256])
 def test_flash_attention_tensor_core_window_and_keyless_rows(hd):
     """A window off the 128-key tiles, and with Sq > Sk rows that have no
     valid key, which average v over all Sk keys."""
@@ -768,8 +768,8 @@ def test_flash_attention_tensor_core_window_and_keyless_rows(hd):
 
 @pytest.mark.cuda
 def test_flash_attention_bf16_refusal_is_not_served_by_the_f32_kernel():
-    """The library's bf16 entry takes hd 32, 64, 128 and 256 only: hd 96
-    in bf16 returns an error and writes nothing (the SIMT kernel, which is
+    """The library's bf16 entry takes hd 32, 64, 128, 192 and 256 only: hd
+    96 in bf16 returns an error and writes nothing (the SIMT kernel, which is
     for f32, does not take it over); the wrapper raises before it for both
     routes."""
     if not torch.cuda.is_available():
@@ -905,8 +905,8 @@ def test_decode_attention_hd256_at_the_largest_split(dtype):
 @pytest.mark.cuda
 def test_attention_wrappers_refuse_hd_96_which_the_reference_takes():
     """The JAX kernels take any head_dim; the port's kernels take 32, 64,
-    128 and 256, and a CUDA call at hd 96 raises, naming head_dim, before
-    any launch (the plain version, the CPU route, takes it)."""
+    128, 192 and 256, and a CUDA call at hd 96 raises, naming head_dim,
+    before any launch (the plain version, the CPU route, takes it)."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
     for dtype in (torch.float32, torch.bfloat16):
@@ -963,9 +963,10 @@ def test_decode_attention_at_the_hd128_serve_shapes(B, C, J, G, dtype):
         pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
     from repro_torch.kernels import decode_attention as da_mod
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    geometry = da_mod.launch_geometry(B, J, C, 128, dtype, sms)
+    geometry = da_mod.launch_geometry(B, J, C, 128, dtype, sms, G)
     assert geometry["route"] == "simt"
-    assert geometry["grid"] == (J * da_mod.splits_for(B, J, C, sms, 128), B)
+    assert geometry["grid"] == (J * da_mod.splits_for(B, J, C, sms, 128), B,
+                                1)
     rng = np.random.default_rng(C + J)
     q = _cuda_normal(rng, (B, 1, J, G, 128), dtype)
     k = _cuda_normal(rng, (B, C, J, 128), dtype)
@@ -982,26 +983,116 @@ def test_decode_attention_at_the_hd128_serve_shapes(B, C, J, G, dtype):
         atol=atol)
 
 
+# nemotron-4-340b's serve path's shapes (chip_smoke.py FLASH_NM, DECODE_NM):
+# 96 query heads over 8 KV heads of 192 (G = 12), a 1920-token prefill and
+# a full 2048-slot cache read at its last position.  bf16 is held at the
+# serve atol, as at head_dim 128.
 @pytest.mark.cuda
-def test_attention_wrappers_refuse_nemotrons_hd_192():
-    """nemotron-4-340b's published head_dim, 18,432 / 96 = 192, is no
-    kernel's: both wrappers raise on a CUDA tensor before any launch, so
-    its full preset with use_pallas raises on the card (the port serves it
-    only reduced)."""
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernels_at_nemotrons_hd_192(dtype):
+    """Both kernels at nemotron-4-340b's published head_dim, 18,432 / 96 =
+    192: one launch each, equal to the plain version (flash on 64-row
+    tiles, bf16 on the tensor cores; decode split 8 ways, bf16 on its
+    tensor-core route), a rerun bit-equal."""
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
     from repro_torch import configs
-    assert configs.get("nemotron-4-340b").head_dim == 192
-    x = torch.zeros(1, 128, 8, 192, device="cuda", dtype=torch.bfloat16)
-    q1 = torch.zeros(1, 1, 8, 12, 192, device="cuda", dtype=torch.bfloat16)
-    kpos = torch.arange(128, device="cuda", dtype=torch.int32)
-    before = (flash_attention.launches, decode_attention.launches)
-    with pytest.raises(ValueError, match="head_dim"):
-        flash_attention(torch.zeros(1, 128, 96, 192, device="cuda",
-                                    dtype=torch.bfloat16), x, x)
-    with pytest.raises(ValueError, match="head_dim"):
-        decode_attention(q1, x, x, kpos, 127)
-    assert (flash_attention.launches, decode_attention.launches) == before
+    from repro_torch.kernels import decode_attention as da_mod
+    cfg = configs.get("nemotron-4-340b")
+    H, KV, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    assert (H, KV, hd) == (96, 8, 192)
+    S, C = 1920, 2048
+    rng = np.random.default_rng(192)
+    q = _cuda_normal(rng, (1, S, H, hd), dtype)
+    k = _cuda_normal(rng, (1, S, KV, hd), dtype)
+    v = _cuda_normal(rng, (1, S, KV, hd), dtype)
+    before = flash_attention.launches
+    got = flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    bf16 = dtype == torch.bfloat16
+    torch.testing.assert_close(
+        got, ref.attention_ref(q, k, v), rtol=tol,
+        atol=HD128_ATOL_BF16["flash"] if bf16 else tol)
+    assert torch.equal(got, flash_attention(q, k, v))
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    geometry = da_mod.launch_geometry(1, KV, C, hd, dtype, sms, H // KV)
+    assert geometry["route"] == ("tensor cores" if bf16 else "simt")
+    if sms == 132:
+        assert geometry["grid"] == (64, 1, 1) and geometry["cluster"] == 8
+    q1 = _cuda_normal(rng, (1, 1, KV, H // KV, hd), dtype)
+    kc = _cuda_normal(rng, (1, C, KV, hd), dtype)
+    vc = _cuda_normal(rng, (1, C, KV, hd), dtype)
+    kpos = torch.arange(C, device="cuda", dtype=torch.int32)
+    before = decode_attention.launches
+    got = decode_attention(q1, kc, vc, kpos, C - 1)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    torch.testing.assert_close(
+        got, ref.decode_attention_ref(q1, kc, vc, kpos, C - 1), rtol=tol,
+        atol=HD128_ATOL_BF16["decode"] if bf16 else tol)
+    assert torch.equal(got, decode_attention(q1, kc, vc, kpos, C - 1))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd", [48, 96, 160, 320])
+def test_attention_wrappers_refuse_hd_outside_the_five(hd):
+    """A head_dim outside 32, 64, 128, 192 and 256 (the JAX kernels take
+    any) raises on a CUDA tensor, naming head_dim, before any launch, in
+    both dtypes and for both wrappers; no fallback serves it."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.zeros(1, 128, 2, hd, device="cuda", dtype=dtype)
+        q1 = torch.zeros(1, 1, 2, 12, hd, device="cuda", dtype=dtype)
+        kpos = torch.arange(128, device="cuda", dtype=torch.int32)
+        before = (flash_attention.launches, decode_attention.launches)
+        with pytest.raises(ValueError, match="head_dim"):
+            flash_attention(x, x, x)
+        with pytest.raises(ValueError, match="head_dim"):
+            decode_attention(q1, x, x, kpos, 127)
+        assert (flash_attention.launches, decode_attention.launches) == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hd,G", [(64, 17), (64, 33), (128, 20), (192, 20),
+                                  (192, 48), (256, 33), (32, 40)])
+def test_decode_attention_row_groups_past_16(hd, G, dtype):
+    """G > 16 query rows a KV head: one launch of ceil(G / 16) row groups,
+    equal to the plain version on a wrapped ring with a window, each group's
+    rows bit-equal to the same rows launched alone (a group of <= 16), a
+    rerun bit-equal."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    from repro_torch.kernels import decode_attention as da_mod
+    B, C, J, pos, window = 2, 1024, 2, 1500, 700
+    rng = np.random.default_rng(hd + G)
+    q = _cuda_normal(rng, (B, 1, J, G, hd), dtype)
+    k = _cuda_normal(rng, (B, C, J, hd), dtype)
+    v = _cuda_normal(rng, (B, C, J, hd), dtype)
+    base = pos - C + 1
+    kpos = torch.from_numpy(((np.arange(C) - base % C) % C + base).astype(
+        np.int32)).cuda()
+    before = decode_attention.launches
+    got = decode_attention(q, k, v, kpos, pos, window=window)
+    torch.cuda.synchronize()
+    assert decode_attention.launches == before + 1
+    tol = ATTN_TOL[dtype]
+    torch.testing.assert_close(
+        got, ref.decode_attention_ref(q, k, v, kpos, pos, window=window),
+        rtol=tol, atol=tol)
+    assert torch.equal(got, decode_attention(q, k, v, kpos, pos,
+                                             window=window))
+    rows = got.view(B, 1, J, G, hd)
+    step = da_mod.ROW_GROUP
+    for g0 in range(0, G, step):
+        g1 = min(G, g0 + step)
+        alone = decode_attention(q[:, :, :, g0:g1], k, v, kpos, pos,
+                                 window=window)
+        assert torch.equal(rows[:, :, :, g0:g1],
+                           alone.view(B, 1, J, g1 - g0, hd)), (g0, g1)
 
 
 # The slice-15 serve path's shapes (chip_smoke.py FLASH_GR, DECODE_GR):
@@ -1037,8 +1128,9 @@ def test_decode_attention_at_granites_serve_shape(dtype):
     from repro_torch.kernels import decode_attention as da_mod
     B, C, J, G, hd = 1, 2048, 8, 3, 64
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    geometry = da_mod.launch_geometry(B, J, C, hd, dtype, sms)
-    assert geometry["grid"] == (J * da_mod.splits_for(B, J, C, sms, hd), B)
+    geometry = da_mod.launch_geometry(B, J, C, hd, dtype, sms, G)
+    assert geometry["grid"] == (J * da_mod.splits_for(B, J, C, sms, hd), B,
+                                1)
     rng = np.random.default_rng(28)
     q = _cuda_normal(rng, (B, 1, J, G, hd), dtype)
     k = _cuda_normal(rng, (B, C, J, hd), dtype)
