@@ -142,7 +142,23 @@ and then drives the main paths through the train CLI's own functions:
   cells, the checked-in manifests), which must return 0, each cell's
   launches stated (0 off the ``pallas`` gossip impl); then the
   ``examples/personalized_fleet.py`` twin at its own size on Dirichlet(0.1)
-  token streams, its assertions holding (0 launches).
+  token streams, its assertions holding (0 launches);
+* slice 20, ``launch/`` on one H100: (b) last of the card's phases, three
+  qwen1.5-0.5b steps at full width and depth, cut in batch only:
+  train_4k (MC-DSGT R=2 in f32 through ``gossip_mix``, 2 launches a step,
+  on 4 nodes if the dry run's peak is under 72 GB, else 2), prefill_32k (1
+  x 32,768 tokens in bf16, 24 ``flash_attention`` launches) and decode_32k
+  (8 sequences against a full 32,768-slot cache, 24 ``decode_attention``
+  launches), each timed, run once more under ``FlopCounterMode`` and held
+  to the dry run traced at the same cut: FLOPs equal, kernel calls equal
+  to the launch counters' change, peak within 10% of
+  ``max_memory_allocated``, the largest roofline term at most 1.05 of the
+  measured step; each kernel held to its plain version on the step's first
+  inputs (both attention kernels are timed at those steps' shapes among
+  the kernel timings, first); then (a), after every timed phase, the dry
+  run of every registered config at the reference's four input shapes on
+  16 nodes (40 rows, each of which must trace, in up to 8 processes on
+  meta), its roofline table and the three hillclimb pairs.
 
 ``quantized_gossip_mix`` is checked on each of its three routes (the
 first design's registers at n <= 16, the ring of clusters at n 16 to 128,
@@ -187,10 +203,12 @@ observability and checkpoint legs, three for the slice-15 training legs,
 two for the slice-16 legs (``quantized_gossip_mix`` timed at the 32-node
 shape on its ring route), one for slice 17's leg (e), one for slice 18's
 leg (f) (``gossip_mix`` timed at the 32-node shape), three rows at the
-recurrentgemma shapes, then the last
+recurrentgemma shapes, then
 eight: the attention kernels at yi-6b's and minitron-4b's head_dim 128, at
 granite-moe-3b-a800m's head_dim 64 with G = 3 and at nemotron-4-340b's
-head_dim 192 with G = 12; and, under ``timed_only``, the timings at shapes
+head_dim 192 with G = 12; the last three for slice 20's steps, gossip_mix
+at the main shape and both attention kernels at the 32K shapes; and,
+under ``timed_only``, the timings at shapes
 no path launches, decode at G = 48 among them), and last
 ``{"ok": true, "device": {...}}``.
 Any failed phase exits non-zero; so does a machine without a CUDA device or
@@ -211,10 +229,6 @@ import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
-# H100 SXM published peaks (NVIDIA data sheet): HBM3 bandwidth, and float32
-# outside the tensor cores (the kernel's FMA).
-HBM_BYTES_PER_S = 3.35e12
-FP32_FLOPS_PER_S = 67e12
 MAIN = dict(n=4, R=2, D=463_987_712)   # qwen1.5-0.5b flat state, 4 nodes
 STEPS = 3
 MAIN_ARGV = ["--arch", "qwen1.5-0.5b", "--preset", "full", "--nodes", "4",
@@ -333,6 +347,28 @@ NEMOTRON_LAYERS = 2
 NEMOTRON_PARAMS = 16_345_294_848         # per member at NEMOTRON_LAYERS
 FLASH_NM = (1, 1920, 96, 8, 192)         # (B, S, H, KV, hd) of one prefill
 DECODE_NM = (1, 2048, 8, 12, 192)        # (B, C, J, G, hd) of one decode
+# Slice 20: launch/ (src/repro_torch/launch/{mesh,dryrun,roofline,
+# hillclimb}.py).  Three qwen1.5-0.5b steps at the reference's input shapes
+# (configs/base.py INPUT_SHAPES; Qwen1.5 publishes a 32K context), each cut
+# in batch only: train_4k with 1 sequence of 4,096 a node and round (the
+# reference's b = 256 // (n·R)) on 4 nodes if the dry run's peak is under
+# LAUNCH_TRAIN_PEAK (else 2); prefill_32k with 1 of its 32 sequences (a
+# 3.2 GB cache, 9.96 GB of bf16 logits); decode_32k with 8 of its 128 (a
+# 25.8 GB cache).  The dry run's peak must be within LAUNCH_PEAK_GAP of
+# max_memory_allocated, and its largest roofline term at most LAUNCH_SHARE
+# of the measured step.
+LAUNCH_ARCH = "qwen1.5-0.5b"
+LAUNCH_TRAIN_NODES = (4, 2)
+LAUNCH_TRAIN_PEAK = 72e9
+LAUNCH_STEPS = 3
+LAUNCH_PREFILLS = 3
+LAUNCH_DECODES = 16
+LAUNCH_DECODE_BATCH = 8
+LAUNCH_ROWS = 2048                       # query rows a plain-version block
+LAUNCH_PEAK_GAP = 0.10
+LAUNCH_SHARE = 1.05
+FLASH_32K = (1, 32768, 16, 16, 64)       # (B, S, H, KV, hd), prefill_32k
+DECODE_32K = (8, 32768, 16, 1, 64)       # (B, C, J, G, hd), decode_32k
 # decode_attention past 16 query rows a KV head, timed only (no shipped
 # config has G > 16): nemotron's 96 query heads over 2 KV heads, G = 48,
 # three row groups
@@ -514,11 +550,10 @@ QCHECK_COLS = GROUP * 4096
 # warm start's f32 mean adds ~2 S once.  So the node means may drift by
 # TRACKER_ROUNDINGS · 2^-24 · S per step, per column.
 TRACKER_ROUNDINGS = 32
-# H100 SXM dense bf16 tensor-core peak and L2 size (NVIDIA data sheet): the
-# attention kernels' operations are bf16 products on the main path, and
-# their inputs (8-16 MB) would stay in L2 from one timed call to the next,
-# where the serve path finds them cold.
-BF16_FLOPS_PER_S = 989e12
+# H100 SXM L2 size (NVIDIA data sheet): the attention kernels' inputs (8-16
+# MB) would stay in L2 from one timed call to the next, where the serve
+# path finds them cold.  (Each kernel's work, and the card's peaks that
+# every bound divides it by, are in src/repro_torch/kernels/cost.py.)
 L2_BYTES = 50e6
 # flash_attention and decode_attention against their plain versions: f32
 # sums in another order; bf16 as the JAX kernel tests allow (the plain
@@ -673,14 +708,12 @@ def time_kernel(torch, gossip_matmul, ref, gossip, n=MAIN["n"], D=MAIN["D"],
             lambda: torch.linalg.multi_dot([*wl.flip(0), x]), 3))
     del x, out
     torch.cuda.empty_cache()
-    # W once, X read, out written
-    nbytes = R * n * n * 4 + 2 * n * D * dtype.itemsize
-    flops = 2 * n * n * D + 2 * (R - 1) * n ** 3
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    from repro_torch.kernels import cost
+    bound_ms, bound_by = cost.bound_ms(cost.gossip_mix(n, D, R,
+                                                       dtype.itemsize))
     geo = gossip_matmul.launch_geometry(n, D, R, dtype.itemsize)
     res = {k: min(v) for k, v in rounds.items()}
-    res.update(max_abs_err=max_err, bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
+    res.update(max_abs_err=max_err, bound_ms=bound_ms, bound_by=bound_by,
                shape=f"ws ({R},{n},{n}) f32, x ({n},{D}) {dname}",
                geometry=geo, resources=gossip_matmul.resources(geo, dtype))
     print(f"gossip_mix at {res['shape']}: == plain out of place and in place "
@@ -1008,17 +1041,13 @@ def time_qkernel(torch, quantized_gossip, ref, gossip, n=MAIN["n"],
             lambda: ref.quantized_gossip_mix_ref(ws, x, res, **kw), 3))
     del x, res
     torch.cuda.empty_cache()
-    # x and res each read once and written once in their dtypes, W once;
-    # per column and round 2n^2 flops of mixing and ~8n of quantization
-    # (add, abs, reduce, divide, round, clip, multiply, subtract)
-    nbytes = R * n * n * 4 + 2 * n * D * (ex + er)
-    flops = 2 * R * n * n * D + 8 * R * n * D
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS_PER_S
+    from repro_torch.kernels import cost
+    bound_ms, bound_by = cost.bound_ms(cost.quantized_gossip_mix(n, D, R, ex,
+                                                                 er))
     res_ = {k: min(v) for k, v in rounds.items()}
     names = {"float32": "f32", "bfloat16": "bf16"}
     res_.update(max_abs_err=err, flipped=bad, library_ms=None,
-                bound_ms=max(t_bytes, t_ops) * 1e3,
-                bound_by="bytes" if t_bytes >= t_ops else "operations",
+                bound_ms=bound_ms, bound_by=bound_by,
                 shape=f"ws ({R},{n},{n}) f32, x ({n},{D}) {names[dtypes[0]]}"
                       f", res {names[dtypes[1]]}, int8, group {group}, EF on",
                 route=geo["route"],
@@ -1306,6 +1335,7 @@ def time_skernel(torch, sparse_gossip, ref, driver, plan, x, rounds) -> dict:
     (PERF.md §7); a fresh process has lost none.  The bound counts this
     round's data: the distinct rows of x read, delta written, the edge
     arrays; and 3·E·D f32 operations."""
+    from repro_torch.kernels import cost
     tensors = driver.stage_plan(plan, device="cuda")
     n, D = x.shape
     sms = torch.cuda.get_device_properties(0).multi_processor_count
@@ -1326,9 +1356,10 @@ def time_skernel(torch, sparse_gossip, ref, driver, plan, x, rounds) -> dict:
         err_lib = max(err_lib,
                       float((torch.sparse.mm(A, x) - want).abs().max()))
         E = src.numel()
-        nbytes = U * D * 4 + S * D * 4 + E * (8 + 8 + 4) + (S + 1) * 8
-        tb, to = nbytes / HBM_BYTES_PER_S, 3 * E * D / FP32_FLOPS_PER_S
-        bound.append(max(tb, to) * 1e3)
+        work = cost.sparse_segment_mix(U, S, E, D, x.element_size())
+        tb = work.bytes / cost.HBM_BW
+        to = work.flops / cost.PEAK_FLOPS[work.dtype]
+        bound.append(cost.bound_ms(work)[0])
         t_b, t_o = t_b + tb, t_o + to
         edges.append(E)
         urows.append(U)
@@ -1599,14 +1630,11 @@ def time_lkernel(torch, linear_recurrence, ref, shape=LINREC_MAIN,
             lambda: ref.linear_recurrence_ref(a, b), 3))
     del a, b
     torch.cuda.empty_cache()
-    # a and b read once, h_all and h_last written once; a multiply and an
-    # add per element
-    nbytes = 3 * B * S * C * 4 + B * C * 4
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, 2 * B * S * C / FP32_FLOPS_PER_S
+    from repro_torch.kernels import cost
+    bound_ms, bound_by = cost.bound_ms(cost.linear_recurrence(B, S, C, 4))
     res = {k: min(v) for k, v in rounds.items()}
     res.update(max_abs_err=err, library_ms=None,
-               bound_ms=max(t_bytes, t_ops) * 1e3,
-               bound_by="bytes" if t_bytes >= t_ops else "operations",
+               bound_ms=bound_ms, bound_by=bound_by,
                shape=f"a, b ({B},{S},{C}) f32 -> h_all f32, h_last ({B},{C})",
                variant=geometry["route"], geometry=geometry,
                resources=resources)
@@ -1891,33 +1919,52 @@ def device_ms_cold(torch, fn, tensors: tuple, reps: int) -> float:
     return device_ms(torch, lambda: fn(*next(inputs)), reps)
 
 
-def attention_bound(nbytes: int, flops: int) -> dict:
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+def attention_bound(work) -> dict:
+    """The bound of an attention kernel's ``kernels.cost.Work``."""
+    from repro_torch.kernels import cost
+    return dict(zip(("bound_ms", "bound_by"), cost.bound_ms(work)))
 
 
-def window_pairs(S: int, window: int) -> int:
-    """Unmasked (query, key) pairs of one head of causal attention over S
-    positions, within ``window`` keys when it is set: sum of min(i + 1, w)."""
-    if not window or window >= S:
-        return S * (S + 1) // 2
-    return window * (window + 1) // 2 + (S - window) * window
+def attention_rows_ref(torch, ref, q, k, v, window: int, rows: int):
+    """The plain version of causal attention, ``ref.attention_ref``'s
+    arithmetic, computed ``rows`` query rows at a time against the keys
+    those rows can see (whole, a 32,768-token prefill's f32 scores would
+    take 68 GB)."""
+    B, S, H, hd = q.shape
+    KV = k.shape[2]
+    out = torch.empty_like(q)
+    for a in range(0, S, rows):
+        b = min(S, a + rows)
+        qg = q[:, a:b].reshape(B, b - a, KV, H // KV, hd)
+        s = torch.einsum("bqjgh,bkjh->bjgqk", qg, k[:, :b]).to(
+            torch.float32) / math.sqrt(hd)
+        q_pos = torch.arange(a, b, device=q.device)[:, None]
+        k_pos = torch.arange(b, device=q.device)[None, :]
+        mask = k_pos <= q_pos
+        if window:
+            mask &= k_pos > q_pos - window
+        out[:, a:b] = ref.masked_softmax_pv(s, mask, v[:, :b]).reshape(
+            B, b - a, H, hd)
+        del s
+    return out
 
 
 def time_fkernel(torch, flash_attention, ref, shape=FLASH_MAIN,
                  window: int = 0,
-                 what: str = "one qwen prefill layer") -> dict:
+                 what: str = "one qwen prefill layer", rows: int = 0
+                 ) -> dict:
     """flash_attention at ``shape`` (B, S, H, KV, hd) bf16, causal (qwen's
     (1, 1920, 16, 16, 64), yi-6b's (1, 1920, 32, 4, 128), minitron-4b's (1,
     1920, 24, 8, 128), nemotron-4-340b's (1, 1920, 96, 8, 192), or
     recurrentgemma's (1, 3968, 10, 1, 256) with a
-    2048-key window): held to its plain version, then timed (device time,
+    2048-key window), or qwen's launch-phase prefill (1, 32768, 16, 16,
+    64), whose plain version runs ``rows`` query rows at a time
+    (``attention_rows_ref``): held to its plain version, then timed (device time,
     inputs cold in L2 as on the serve path) beside its bound, the plain
     version and torch's scaled_dot_product_attention (causal, or with the
     window's boolean mask, on (B, H, S, hd) copies made outside the timed
     region; a yardstick only, never on the path).  The bound counts the
-    unmasked (query, key) pairs a head needs (``window_pairs``), 2 products
+    unmasked (query, key) pairs a head needs (``kernels.cost.attention_pairs``), 2 products
     of 2·hd flops each at the bf16 tensor-core rate, and q, k, v read and o
     written once."""
     import torch.nn.functional as F
@@ -1927,7 +1974,12 @@ def time_fkernel(torch, flash_attention, ref, shape=FLASH_MAIN,
     k, v = (torch.randn(B, S, KV, hd, device="cuda", generator=gen
                         ).bfloat16() for _ in range(2))
     kw = dict(window=window)
-    want = ref.attention_ref(q, k, v, **kw)
+
+    def plain(q_, k_, v_):
+        if rows:
+            return attention_rows_ref(torch, ref, q_, k_, v_, window, rows)
+        return ref.attention_ref(q_, k_, v_, **kw)
+    want = plain(q, k, v)
     err = acompare(torch, f"flash_attention at {what}'s shape",
                    flash_attention.flash_attention(q, k, v, **kw), want,
                    serve="flash_attention")
@@ -1947,9 +1999,6 @@ def time_fkernel(torch, flash_attention, ref, shape=FLASH_MAIN,
 
     def kernel(q_, k_, v_):
         return flash_attention.flash_attention(q_, k_, v_, **kw)
-
-    def plain(q_, k_, v_):
-        return ref.attention_ref(q_, k_, v_, **kw)
     rounds = {"ms": [], "plain_ms": [], "library_ms": [], "warm_ms": []}
     for _ in range(2):   # alternate, so a drift in clocks hits all of them
         rounds["ms"].append(device_ms_cold(torch, kernel, (q, k, v), 20))
@@ -1962,11 +2011,14 @@ def time_fkernel(torch, flash_attention, ref, shape=FLASH_MAIN,
     del q, k, v, qkv_t, want, small, mask
     torch.cuda.empty_cache()
     res = {k_: min(v_) for k_, v_ in rounds.items()}
-    res.update(attention_bound(2 * B * S * (H + KV) * hd * 2,
-                               4 * B * H * hd * window_pairs(S, window)))
+    from repro_torch.kernels import cost
+    res.update(attention_bound(cost.flash_attention(
+        B, S, S, H, KV, hd, 2, "bfloat16", True, window)))
     res.update(max_abs_err=err, wrapper_host_us=host,
                shape=f"q ({B},{S},{H},{hd}), k, v ({B},{S},{KV},{hd}) bf16, "
-                     f"causal" + (f", window {window}" if window else ""))
+                     f"causal" + (f", window {window}" if window else "")
+                     + (f"; plain in blocks of {rows} query rows"
+                        if rows else ""))
     print(f"flash_attention at {res['shape']}: == plain (rtol "
           f"{ATOL['bfloat16']}, atol "
           f"{SERVE_ATOL_BF16['flash_attention']}), max_abs_err {err:.3e}; "
@@ -2042,8 +2094,9 @@ def time_dkernel(torch, decode_attention, ref, shape=DECODE_MAIN,
     del q, k, v, kv_t, want
     torch.cuda.empty_cache()
     res = {k_: min(v_) for k_, v_ in rounds.items()}
-    res.update(attention_bound(2 * B * C * J * hd * 2 + 2 * B * J * G * hd * 2
-                               + C * 4, 4 * B * J * G * C * hd))
+    from repro_torch.kernels import cost
+    res.update(attention_bound(cost.decode_attention(B, C, J, G, hd, 2,
+                                                     "bfloat16")))
     res.update(max_abs_err=err, wrapper_host_us=host,
                shape=f"q ({B},1,{J},{G},{hd}), k, v ({B},{C},{J},{hd}) bf16, "
                      + (f"ring wrapped at pos {pos}, window {window}, "
@@ -3932,6 +3985,348 @@ def softcap_leg(torch, models, configs, tree, counters) -> dict:
     return {"max_abs_err": err, "launches": launches}
 
 
+# ---------------------------------------------------------------------------
+# Slice 20: launch/ on one H100.  (a) the dry run on meta for every
+# registered config x the reference's four input shapes at 16 nodes, the
+# roofline and the hillclimb, after the last timed phase (host work on
+# meta tensors, which would slow the host-bound phases beside it);
+# (b) three qwen1.5-0.5b steps at their published widths and full depth,
+# measured on the card and held to the dry run traced at the same cut.
+# ---------------------------------------------------------------------------
+
+def launch_sweep() -> dict:
+    """Part (a), run after the last timed phase: ``dryrun --all`` (every
+    registered config at the reference's four input shapes on 16 nodes;
+    a row that fails to trace is named and fails the phase), the roofline
+    table of its 40 records, then the three hillclimb pairs, each traced on
+    meta in as many processes as the host has cores (up to 8)."""
+    import os
+    import shutil
+    from repro_torch import configs
+    from repro_torch.launch import dryrun, hillclimb, roofline
+    # the arch train phase's cut configs (cut_depth) leave the registry, so
+    # that --all is the shipped ten again
+    for arch, L in TRAIN_LAYERS.items():
+        configs._REGISTRY.pop(f"{arch}-{L}l", None)
+    out_dir = ROOT / "build" / "launch"
+    shutil.rmtree(out_dir, ignore_errors=True)
+    jobs = str(min(8, len(os.sched_getaffinity(0))))
+    t0 = time.perf_counter()
+    try:
+        dryrun.main(["--all", "--jobs", jobs, "--out",
+                     str(out_dir / "dryrun")])
+    except SystemExit as e:
+        fail(f"launch (a): {e}")
+    print(f"launch (a): 40 rows traced in {time.perf_counter() - t0:.1f} s "
+          f"({jobs} processes)", flush=True)
+    rows = roofline.main(["--dir", str(out_dir / "dryrun"),
+                          "--out", str(out_dir / "roofline.json")])
+    if len(rows) != 40:
+        fail(f"launch (a): the dry run wrote {len(rows)} records, not 40")
+    hill = hillclimb.main(["--jobs", jobs,
+                           "--out", str(out_dir / "hillclimb.json")])
+    print(f"launch (a) wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"rows": rows, "hillclimb": hill}
+
+
+def launch_gates(torch, label: str, rec: dict, secs: list, peak: int,
+                 flops_card: int, launches: dict, smi: str) -> dict:
+    """Print a measured step beside the dry run's record of it and fail
+    unless: the dry run's FlopCounterMode-counted FLOPs equal the card's
+    count, its kernel calls equal the launch counters' change over one
+    step, its peak is within LAUNCH_PEAK_GAP of max_memory_allocated, and
+    max(terms) / the median step is at most LAUNCH_SHARE."""
+    from repro_torch.launch import roofline
+    a = roofline.analyse(rec)
+    terms = {k: a[f"t_{k}_s"] for k in ("compute", "memory", "mix")}
+    med = statistics.median(secs)
+    share = max(terms.values()) / med
+    pred = rec["memory"]["peak_bytes"]
+    gap = (pred - peak) / peak
+    print(f"launch {label} ({smi}): s/step median {med:.4f} (min "
+          f"{min(secs):.4f}, max {max(secs):.4f}, {len(secs)} steps {secs}); "
+          f"max_memory_allocated {peak / 1e9:.3f} GB; launches a step "
+          f"{launches}; FlopCounterMode on the card {flops_card:.6e}", flush=True)
+    print(f"launch {label}: dry run FLOPs {rec['flops']:.6e} (counted "
+          f"{rec['flops_counted']:.6e}, by dtype {rec['flops_by_dtype']}), "
+          f"bytes {rec['bytes_accessed']:.6e}, mix bytes "
+          f"{rec['mix']['total_bytes']:.6e}, peak {pred / 1e9:.3f} GB (gap "
+          f"{gap:+.2%}), kernel calls {rec['kernel_calls']}, terms (s) "
+          f"compute {terms['compute']:.6f} memory {terms['memory']:.6f} mix "
+          f"{terms['mix']:.6f} ({a['dominant']}), share {share:.3f}, "
+          f"trace {rec['trace_seconds']} s", flush=True)
+    if flops_card != rec["flops_counted"]:
+        fail(f"launch {label}: the card counted {flops_card} FLOPs, the dry "
+             f"run {rec['flops_counted']}")
+    if launches != rec["kernel_calls"]:
+        fail(f"launch {label}: a step launched {launches}, the dry run "
+             f"traced {rec['kernel_calls']}")
+    if abs(gap) > LAUNCH_PEAK_GAP:
+        fail(f"launch {label}: predicted peak {pred} B is {gap:+.2%} off "
+             f"max_memory_allocated {peak} B")
+    if share > LAUNCH_SHARE:
+        fail(f"launch {label}: the roofline reads {share:.3f} of the "
+             "measured step: the count is wrong")
+    return {"secs": secs, "median_s": med, "peak_bytes": peak,
+            "flops_card": flops_card, "launches": launches, "terms": terms,
+            "dominant": a["dominant"], "share": share, "record": rec,
+            "peak_gap": gap}
+
+
+def launch_counted_step(torch, counters, fn, patch: tuple):
+    """One more step under FlopCounterMode, with the counts from 0 and the
+    kernel wrapper ``patch`` = (module, name, wrapper) swapped in to capture
+    the first launch's inputs: (its FLOPs, launches by kernel)."""
+    from torch.utils.flop_counter import FlopCounterMode
+    module, name, wrapper = patch
+    real = getattr(module, name)
+    for c in counters.values():
+        c.launches = 0
+    setattr(module, name, wrapper)
+    try:
+        with FlopCounterMode(display=False) as fc:
+            fn()
+        torch.cuda.synchronize()
+    finally:
+        setattr(module, name, real)
+    return fc.get_total_flops(), {k: c.launches for k, c in counters.items()
+                                  if c.launches}
+
+
+def launch_train(torch, configs, models, dsteps, gossip, ops, gossip_matmul,
+                 ref, counters, smi) -> dict:
+    """train_4k: MC-DSGT R = 2 in f32 through gossip_mix, 1 sequence of
+    4,096 tokens a node and round, on LAUNCH_TRAIN_NODES[0] nodes if the dry
+    run predicts a peak under LAUNCH_TRAIN_PEAK, else on the next; a warm
+    start, LAUNCH_STEPS timed steps, then one under FlopCounterMode whose
+    first gossip_mix inputs are held to the plain version."""
+    from repro_torch.launch import dryrun
+    R, tkw = 2, {"gossip_impl": "pallas"}
+    for n in LAUNCH_TRAIN_NODES:
+        rec = dryrun.lower_one(LAUNCH_ARCH, "train_4k", nodes=n, R=R,
+                               batch=n * R, train_kwargs=tkw, verbose=False)
+        if rec["memory"]["peak_bytes"] < LAUNCH_TRAIN_PEAK:
+            break
+    print(f"launch train_4k: n = {n} (the dry run predicts "
+          f"{rec['memory']['peak_bytes'] / 1e9:.3f} GB, under "
+          f"{LAUNCH_TRAIN_PEAK / 1e9:.0f} GB; {rec['reduced']})", flush=True)
+    cfg = configs.get(LAUNCH_ARCH)
+    model = models.build(cfg)
+    init_state, warm_start, step = dsteps.make_train_step(
+        model, cfg, algo="mc_dsgt", gamma=1e-3, R=R, **tkw)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    params = model.init(gen, torch.float32, "cuda")
+    flat = models.model.materialize_batch(cfg, n * R, 4096, gen,
+                                          torch.float32)
+    batch = {k: v.reshape((n, R, 1) + tuple(v.shape[1:]))
+             for k, v in flat.items()}
+    del flat
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ws = torch.from_numpy(gossip.theorem3_weight_schedule(
+        n, 0.75 if n == 4 else 1 - 1 / n).stacked(0, 2 * R)).cuda()
+    state = warm_start(init_state(params, n), batch)
+    del params
+    for c in counters.values():
+        c.launches = 0
+    secs, losses = [], []
+    for _ in range(LAUNCH_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, out = step(state, batch, ws)
+        losses.append(float(out["loss"]))
+        secs.append(time.perf_counter() - t)
+    peak = torch.cuda.max_memory_allocated() - base
+    if gossip_matmul.gossip_mix.launches != 2 * LAUNCH_STEPS:
+        fail(f"launch train_4k: {gossip_matmul.gossip_mix.launches} "
+             f"gossip_mix launches in {LAUNCH_STEPS} steps")
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"launch train_4k: losses {losses}")
+    captured = {}
+
+    def capture(ws_, x, out=None):
+        if "mix" not in captured:   # a copy: the mix runs in place
+            captured["mix"] = (ws_.clone(), x.clone())
+        return gossip_matmul.gossip_mix(ws_, x, out=out)
+
+    def one():
+        nonlocal state
+        state, _ = step(state, batch, ws)
+    flops, launches = launch_counted_step(torch, counters, one,
+                                          (ops, "_gossip", capture))
+    del state, batch
+    gc.collect()
+    ws_c, x_c = captured.pop("mix")
+    err = check_rows(torch, gossip_matmul.gossip_mix(ws_c, x_c),
+                     ref.gossip_mix_ref(ws_c, x_c),
+                     "launch train_4k: gossip_mix on the step's first mix "
+                     "inputs")
+    del ws_c, x_c
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"launch train_4k: losses {losses}; gossip_mix == plain on the "
+          f"first mix's inputs (rtol=atol={TOL['float32']}), max_abs_err "
+          f"{err:.3e}", flush=True)
+    res = launch_gates(torch, "train_4k", rec, secs, peak, flops, launches,
+                       smi)
+    res.update(nodes=n, max_abs_err=err)
+    return res
+
+
+def launch_serve_model(torch, configs, models):
+    """qwen1.5-0.5b with use_pallas, its bf16 parameters drawn on the card
+    (before the measurement starts) and the memory allocated before them."""
+    cfg = dataclasses.replace(configs.get(LAUNCH_ARCH), use_pallas=True)
+    model = models.build(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    return cfg, model, model.init(gen, torch.bfloat16, "cuda"), gen, base
+
+
+def launch_prefill(torch, configs, models, dsteps, ops, flash_attention,
+                   ref, counters, smi) -> dict:
+    """prefill_32k: 1 sequence of 32,768 tokens in bf16 through
+    flash_attention into a fresh 32,768-slot cache, LAUNCH_PREFILLS timed,
+    then one under FlopCounterMode whose first flash_attention inputs are
+    held to the plain version (in blocks of query rows)."""
+    from repro_torch.launch import dryrun
+    S = configs.INPUT_SHAPES["prefill_32k"].seq_len
+    rec = dryrun.lower_one(LAUNCH_ARCH, "prefill_32k", batch=1,
+                           cfg_transform=lambda c: dataclasses.replace(
+                               c, use_pallas=True), verbose=False)
+    cfg, model, params, gen, base = launch_serve_model(torch, configs,
+                                                       models)
+    batch = models.model.materialize_batch(cfg, 1, S, gen, torch.bfloat16)
+    cache = model.init_cache(1, S, torch.bfloat16, "cuda")
+    step = dsteps.make_prefill_step(model, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(LAUNCH_PREFILLS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = step(params, batch, cache)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        if not bool(torch.isfinite(logits).all()) or \
+                logits.shape != (1, 1, cfg.vocab_size):
+            fail(f"launch prefill_32k: logits {tuple(logits.shape)} not "
+                 "finite of (1, 1, V)")
+        del logits
+    peak = torch.cuda.max_memory_allocated() - base
+    captured = {}
+
+    def capture(q, k, v, **kw):
+        captured.setdefault("flash", (q, k, v, kw))
+        return flash_attention.flash_attention(q, k, v, **kw)
+    flops, launches = launch_counted_step(
+        torch, counters, lambda: step(params, batch, cache),
+        (ops, "attention", capture))
+    del params, batch, cache
+    gc.collect()
+    q, k, v, kw = captured.pop("flash")
+    err = acompare(torch, "launch prefill_32k: flash_attention on the first "
+                   "layer's inputs", flash_attention.flash_attention(
+                       q, k, v, **kw),
+                   attention_rows_ref(torch, ref, q, k, v,
+                                      kw.get("window", 0), LAUNCH_ROWS),
+                   serve="flash_attention")
+    del q, k, v
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = launch_gates(torch, "prefill_32k", rec, secs, peak, flops,
+                       launches, smi)
+    res.update(max_abs_err=err)
+    return res
+
+
+def launch_decode(torch, configs, models, dsteps, ops, decode_attention,
+                  ref, counters, smi) -> dict:
+    """decode_32k: 8 sequences in bf16 against a full 32,768-slot cache
+    (random keys and values, every slot valid) through decode_attention at
+    the context's last position, LAUNCH_DECODES timed, then one under
+    FlopCounterMode whose first decode_attention inputs are held to the
+    plain version."""
+    from repro_torch.launch import dryrun
+    B, C = LAUNCH_DECODE_BATCH, configs.INPUT_SHAPES["decode_32k"].seq_len
+    rec = dryrun.lower_one(LAUNCH_ARCH, "decode_32k", batch=B,
+                           cfg_transform=lambda c: dataclasses.replace(
+                               c, use_pallas=True), verbose=False)
+    cfg, model, params, gen, base = launch_serve_model(torch, configs,
+                                                       models)
+    cache = model.init_cache(B, C, torch.bfloat16, "cuda")
+    layer = cache["units"]["0_attn"]
+    for u in range(cfg.num_layers):
+        layer["k"][u].normal_(generator=gen)
+        layer["v"][u].normal_(generator=gen)
+    layer["kpos"].copy_(torch.arange(C, dtype=torch.int32, device="cuda"))
+    token = torch.randint(0, cfg.vocab_size, (B, 1), generator=gen,
+                          device="cuda")
+    step = dsteps.make_serve_step(model, cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    secs = []
+    for _ in range(LAUNCH_DECODES):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, cache = step(params, token, cache, C - 1)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t)
+        if not bool(torch.isfinite(logits).all()):
+            fail("launch decode_32k: logits not finite")
+        del logits
+    peak = torch.cuda.max_memory_allocated() - base
+    captured = {}
+
+    def capture(q, k, v, kpos, pos, **kw):
+        if "decode" not in captured:
+            captured["decode"] = (q, k.clone(), v.clone(), kpos.clone(), pos,
+                                  kw)
+        return decode_attention.decode_attention(q, k, v, kpos, pos, **kw)
+    flops, launches = launch_counted_step(
+        torch, counters, lambda: step(params, token, cache, C - 1),
+        (ops, "decode_attention", capture))
+    del params, cache
+    gc.collect()
+    q, k, v, kpos, pos, kw = captured.pop("decode")
+    err = acompare(torch, "launch decode_32k: decode_attention on the first "
+                   "layer's inputs", decode_attention.decode_attention(
+                       q, k, v, kpos, pos, **kw),
+                   ref.decode_attention_ref(q, k, v, kpos, pos, **kw),
+                   serve="decode_attention")
+    del q, k, v, kpos
+    gc.collect()
+    torch.cuda.empty_cache()
+    res = launch_gates(torch, "decode_32k", rec, secs, peak, flops, launches,
+                       smi)
+    res.update(max_abs_err=err)
+    return res
+
+
+def launch_phase(torch, configs, models, dsteps, gossip, ops, gossip_matmul,
+                 flash_attention, decode_attention, ref, counters,
+                 smi) -> dict:
+    """Slice 20's part (b): the three measured steps (each kernel's count
+    from 0 just before its step's counted run); the card as
+    ``launch.mesh.card`` reads it."""
+    from repro_torch.launch import mesh
+    print(f"launch phase: card {mesh.card()}", flush=True)
+    out = {
+        "train_4k": launch_train(torch, configs, models, dsteps, gossip, ops,
+                                 gossip_matmul, ref, counters, smi),
+        "prefill_32k": launch_prefill(torch, configs, models, dsteps, ops,
+                                      flash_attention, ref, counters, smi),
+        "decode_32k": launch_decode(torch, configs, models, dsteps, ops,
+                                    decode_attention, ref, counters, smi),
+    }
+    return out
+
+
 def main_path(torch, train, argv, counter, name: str) -> dict:
     """Drive one main path through the train CLI with ``counter`` (a
     kernel wrapper's launch count) set to 0 just before it and read just
@@ -4075,6 +4470,12 @@ def main():
                             "one nemotron-4-340b decode layer")
     dkern_g48 = time_dkernel(torch, decode_attention, ref, DECODE_G48, 0,
                              "a G = 48 decode layer")
+    # slice 20's serve steps' shapes (timed here: late in the process the
+    # profiler may record none of a session's launches, PERF.md §7)
+    fkern_32k = time_fkernel(torch, flash_attention, ref, FLASH_32K, 0,
+                             "one qwen prefill_32k layer", LAUNCH_ROWS)
+    dkern_32k = time_dkernel(torch, decode_attention, ref, DECODE_32K, 0,
+                             "one qwen decode_32k layer")
     print(f"device_ms: launches the profiler did not record in the kernel "
           f"timings above: {device_ms.lost_total}; sessions that recorded "
           f"none and were run again: {device_ms.empty_sessions}", flush=True)
@@ -4189,6 +4590,12 @@ def main():
     torch.cuda.empty_cache()
     lap("obs and checkpoints")
     spec_smoke_phase(torch, exp, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    lap("spec smoke")
+    launched = launch_phase(torch, configs, models, steps, gossip, ops,
+                            gossip_matmul, flash_attention, decode_attention,
+                            ref, counters, smi)
 
     rows = [
         {"name": "gossip_mix", "route": "cuda",
@@ -4427,7 +4834,32 @@ def main():
                            "max_abs_err", "ms", "plain_ms", "bound_ms",
                            "bound_by", "library_ms", "shape",
                            "wrapper_host_us")}})
-    lap("spec smoke")
+    # slice 20: the kernels on the launch phase's three measured steps
+    base = rows[0]
+    n_ = launched["train_4k"]["launches"]["gossip_mix"]
+    rows.append({**{k: base[k] for k in (
+        "name", "route", "source", "replaces", "max_abs_err", "ms",
+        "plain_ms", "bound_ms", "bound_by", "library_ms", "shape")},
+        "path": f"launch train_4k: {LAUNCH_ARCH}, "
+        f"{launched['train_4k']['nodes']} nodes x 1 x 4096 tokens a round",
+        "launches": n_, "launches_per_step": n_})
+    for step_name, kname, kern in (
+            ("prefill_32k", "flash_attention", fkern_32k),
+            ("decode_32k", "decode_attention", dkern_32k)):
+        base = next(r for r in rows if r["name"] == kname)
+        n_ = launched[step_name]["launches"][kname]
+        rows.append({**{k: base[k] for k in ("name", "route", "source",
+                                             "replaces")},
+                     **{k: kern[k] for k in (
+                         "max_abs_err", "ms", "plain_ms", "bound_ms",
+                         "bound_by", "library_ms", "shape",
+                         "wrapper_host_us")},
+                     "timed": base["timed"],
+                     "path": f"launch {step_name}: {LAUNCH_ARCH}",
+                     "launches": n_, "launches_per_step": n_})
+    lap("launch (slice 20)")
+    launch_sweep()
+    lap("launch (a): the dry run's sweep")
     print(f"chip_smoke phase walls (s): {walls}", flush=True)
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s "
           "(kernels' build included)", flush=True)

@@ -51,6 +51,10 @@ launches nothing in between (see :class:`repro_torch.core.engine.
 UpdateRule`).  Both default to the synchronous path, which builds no
 wrapper.
 
+:func:`make_prefill_step` and :func:`make_serve_step` are the serve steps
+the dry run (:mod:`repro_torch.launch.dryrun`) traces, thin wrappers over
+``Model.prefill`` and ``Model.decode_step``.
+
 ``obs`` names the engine's in-step scalars (:data:`repro_torch.core.
 engine.OBS_METRICS`): the step's output dict then gains ``"obs"``, f32
 device scalars.  The step carries the checkpoint pair of its state,
@@ -367,3 +371,29 @@ def _restored(state: TrainState, leaves: list, layout) -> TrainState:
     if isinstance(opt, dict):
         opt = {**opt, "t": int(leaves[4 * per + 1])}
     return state._replace(step=step, opt=opt)
+
+
+# ---------------------------------------------------------------------------
+# Serve steps
+# ---------------------------------------------------------------------------
+
+def make_prefill_step(model, cfg):
+    """(params, batch, cache) -> (last-position logits, filled cache); the
+    cache is filled in place."""
+    del cfg
+
+    def step(params, batch, cache):
+        return model.prefill(params, batch, cache)
+
+    return step
+
+
+def make_serve_step(model, cfg):
+    """(params, token, cache, pos) -> (logits, cache) for one decode step;
+    ``pos`` a host int, the cache updated in place."""
+    del cfg
+
+    def step(params, token, cache, pos):
+        return model.decode_step(params, token, cache, pos)
+
+    return step

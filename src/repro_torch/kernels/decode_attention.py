@@ -17,7 +17,10 @@ launched in a group alone.
 Dispatch is by where the tensors lie, never by a fallback: CUDA tensors
 launch the kernel (and anything the kernel does not take raises), CPU
 tensors take the plain version
-:func:`repro_torch.kernels.ref.decode_attention_ref`.  Both routes refuse
+:func:`repro_torch.kernels.ref.decode_attention_ref`, meta tensors the
+shape-only route (the launch's checks, copies and output, the work charged
+to :class:`repro_torch.kernels.cost.Recorder`; no launch), anything else
+raises.  Every route refuses
 the cache lengths the JAX package's kernel asserts on
 (``decode_attention.py:78``): C must be a multiple of its block, min(256,
 C).  ``decode_attention.launches`` counts kernel launches, and only those.
@@ -31,7 +34,7 @@ import math
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 192, 256)
@@ -158,8 +161,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"window={window} must be >= 0 (0 = none)")
     if q.device.type == "cpu":
         return ref.decode_attention_ref(q, k, v, kpos, pos, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"decode_attention takes CPU or CUDA tensors, not "
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"decode_attention takes CPU, CUDA or meta tensors, not "
                          f"{q.device.type}")
     return _launch(q, k, v, kpos, int(pos), window)
 
@@ -188,6 +191,10 @@ def _launch(q, k, v, kpos, pos, window):
                          f"{ROW_GROUP} <= {_MAX_GRID}, got {B}, {G}")
     q, k, v, kpos = (_aligned(t) for t in (q, k, v, kpos))
     o = torch.empty((B, 1, J * G, hd), dtype=q.dtype, device=q.device)
+    if q.device.type == "meta":
+        cost.charge("decode_attention", cost.decode_attention(
+            B, C, J, G, hd, q.element_size(), cost.dtype_name(q.dtype)))
+        return o
     lib = _lib()
     splits = splits_for(B, J, C, _sm_count(q.device.index), hd)
     with torch.cuda.device(q.device):

@@ -11,8 +11,10 @@ top of the source.
 
 Dispatch is by where the tensors lie, never by a fallback: CUDA tensors
 launch the kernel (and anything the kernel does not take raises), CPU
-tensors take the plain version :func:`repro_torch.kernels.ref.attention_ref`.
-Both routes refuse the shapes the JAX package's kernel asserts on
+tensors take the plain version :func:`repro_torch.kernels.ref.attention_ref`,
+meta tensors the shape-only route (the launch's checks, copies and output,
+the work charged to :class:`repro_torch.kernels.cost.Recorder`; no launch),
+anything else raises.  Every route refuses the shapes the JAX package's kernel asserts on
 (``flash_attention.py:83``): Sq and Sk must each be a multiple of their
 block, min(128, S).  ``flash_attention.launches`` counts kernel launches,
 and only those.
@@ -26,7 +28,7 @@ import math
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (32, 64, 128, 192, 256)
@@ -112,8 +114,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"window={window} must be >= 0 (0 = none)")
     if q.device.type == "cpu":
         return ref.attention_ref(q, k, v, causal=causal, window=window)
-    if q.device.type != "cuda":
-        raise ValueError(f"flash_attention takes CPU or CUDA tensors, not "
+    if q.device.type not in ("cuda", "meta"):
+        raise ValueError(f"flash_attention takes CPU, CUDA or meta tensors, not "
                          f"{q.device.type}")
     return _launch(q, k, v, causal, window)
 
@@ -139,6 +141,11 @@ def _launch(q, k, v, causal, window):
                          f"got {B}, {H}")
     q, k, v = (_aligned(t) for t in (q, k, v))
     o = torch.empty_like(q)
+    if q.device.type == "meta":
+        cost.charge("flash_attention", cost.flash_attention(
+            B, Sq, Sk, H, KV, hd, q.element_size(), cost.dtype_name(q.dtype),
+            bool(causal), int(window)))
+        return o
     lib = _lib()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream

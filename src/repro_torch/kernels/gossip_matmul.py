@@ -13,8 +13,11 @@ from the shapes alone.  See the note at the top of the source.
 
 Dispatch is by where the tensor lies, never by a fallback: a CUDA tensor
 launches the kernel (and anything the kernel does not take raises), a CPU
-tensor takes the plain version :func:`repro_torch.kernels.ref.gossip_mix_ref`.
-``gossip_mix.launches`` counts kernel launches, and only those.
+tensor takes the plain version :func:`repro_torch.kernels.ref.gossip_mix_ref`,
+a meta tensor the shape-only route (the launch's checks and allocations,
+its scratch included, and its work charged to
+:class:`repro_torch.kernels.cost.Recorder`; no launch), anything else
+raises.  ``gossip_mix.launches`` counts kernel launches, and only those.
 """
 
 from __future__ import annotations
@@ -26,7 +29,7 @@ from typing import Optional
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
 
 MAX_SHARED_BYTES = 232_448     # 227 KB: the most one block may use on Hopper
 SM_SHARED_BYTES = 233_472      # 228 KB of an SM, 1 KB of it kept per block
@@ -206,8 +209,8 @@ def gossip_mix(ws: torch.Tensor, x: torch.Tensor, *,
     if x.device.type == "cpu":
         res = ref.gossip_mix_ref(ws, x)
         return res if out is None else out.copy_(res)
-    if x.device.type != "cuda":
-        raise ValueError(f"gossip_mix takes CPU or CUDA tensors, not "
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"gossip_mix takes CPU, CUDA or meta tensors, not "
                          f"{x.device.type}")
     return _launch(ws, x, out)
 
@@ -245,6 +248,9 @@ def _launch(ws, x, out):
     w = ws.to(device=x.device, dtype=torch.float32).contiguous()
     # the collapsed W^T, written by the launch's first kernel
     wt = torch.empty(n, geo["rows_pad"], device=x.device)
+    if x.device.type == "meta":
+        cost.charge("gossip_mix", cost.gossip_mix(n, D, R, e))
+        return out
     px, po = x.data_ptr(), out.data_ptr()
     tma = (_aligned((px,), 16) and D * e % 16 == 0 and D < 2**32
            and geo["tc"] * e % 16 == 0)

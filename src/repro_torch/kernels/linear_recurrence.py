@@ -16,7 +16,10 @@ See the note at the top of the source.
 Dispatch is by where the tensors lie, never by a fallback: CUDA tensors
 launch the kernel (and anything the kernel does not take raises), CPU
 tensors take the plain version
-:func:`repro_torch.kernels.ref.linear_recurrence_ref`.
+:func:`repro_torch.kernels.ref.linear_recurrence_ref`, meta tensors the
+shape-only route (the launch's checks and outputs, the work charged to
+:class:`repro_torch.kernels.cost.Recorder`; no launch), anything else
+raises.
 ``linear_recurrence.launches`` counts kernel launches, and only those.
 """
 
@@ -27,7 +30,7 @@ import functools
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _ROUTES = {"loop": 0, "tma": 1, "cp.async": 2}
@@ -139,9 +142,9 @@ def linear_recurrence(a: torch.Tensor, b: torch.Tensor):
         raise ValueError(f"a on {a.device} and b on {b.device}")
     if a.device.type == "cpu":
         return ref.linear_recurrence_ref(a, b)
-    if a.device.type != "cuda":
-        raise ValueError(f"linear_recurrence takes CPU or CUDA tensors, not "
-                         f"{a.device.type}")
+    if a.device.type not in ("cuda", "meta"):
+        raise ValueError(f"linear_recurrence takes CPU, CUDA or meta "
+                         f"tensors, not {a.device.type}")
     return _launch(a, b)
 
 
@@ -168,6 +171,10 @@ def _launch(a, b):
         return h_all, h_last
     if S == 0:
         return h_all, h_last.zero_()
+    if a.device.type == "meta":
+        cost.charge("linear_recurrence",
+                    cost.linear_recurrence(B, S, C, a.element_size()))
+        return h_all, h_last
     geo = geometry_for(a, b)
     lib = _lib()
     with torch.cuda.device(a.device):

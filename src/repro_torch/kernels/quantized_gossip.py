@@ -22,7 +22,11 @@ group through device memory); see the note at the top of the source.
 Dispatch is by where the tensors lie, never by a fallback: CUDA tensors
 launch the kernel (and anything the kernel does not take raises), CPU
 tensors take the plain version
-:func:`repro_torch.kernels.ref.quantized_gossip_mix_ref`.
+:func:`repro_torch.kernels.ref.quantized_gossip_mix_ref`, meta tensors the
+shape-only route (the launch's checks and allocations, W^T and the stream
+route's scratch included, and its work charged to
+:class:`repro_torch.kernels.cost.Recorder`; no launch), anything else
+raises.
 ``quantized_gossip_mix.launches`` counts kernel launches, and only those.
 """
 
@@ -34,7 +38,7 @@ from typing import Optional
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
 
 REGS_NODES = 16                # the regs route: x and res of every node in
 REGS_GROUP = 256               # registers, a group inside one 256-thread block
@@ -274,9 +278,9 @@ def quantized_gossip_mix(ws: torch.Tensor, x: torch.Tensor, res: torch.Tensor,
                                             error_feedback=error_feedback)
         return (o if out is None else out.copy_(o),
                 r if res_out is None else res_out.copy_(r))
-    if x.device.type != "cuda":
-        raise ValueError(f"quantized_gossip_mix takes CPU or CUDA tensors, "
-                         f"not {x.device.type}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"quantized_gossip_mix takes CPU, CUDA or meta "
+                         f"tensors, not {x.device.type}")
     return _launch(ws, x, res, scheme, group, error_feedback, out, res_out,
                    None)
 
@@ -382,9 +386,15 @@ def _launch(ws, x, res, scheme, group, error_feedback, out, res_out, route):
         if (ex == 2 or er == 2) and R > 1:
             # a round's state between rounds in f32: a scratch slot for
             # each block that can be resident (512 threads: 4 an SM)
-            sms = torch.cuda.get_device_properties(x.device)
-            slots = min(D // group, 4 * sms.multi_processor_count)
+            sms = (cost.SMS if x.device.type == "meta" else
+                   torch.cuda.get_device_properties(x.device)
+                   .multi_processor_count)
+            slots = min(D // group, 4 * sms)
             tmp = torch.empty(slots * 2 * n * group, device=x.device)
+    if x.device.type == "meta":
+        cost.charge("quantized_gossip_mix",
+                    cost.quantized_gossip_mix(n, D, R, ex, er))
+        return out, res_out
     # with EF off res passes through: skip its store when it is in place
     write_res = int(error_feedback or pro != pr)
     lib = _lib()

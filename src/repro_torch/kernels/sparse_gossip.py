@@ -20,7 +20,10 @@ Dispatch is by where the tensor lies, never by a fallback: a CUDA tensor
 launches one of the two variants (and anything the kernel does not take
 raises), a CPU tensor takes the plain version
 :func:`repro_torch.kernels.ref.sparse_gossip_mix_ref` on the rows the staged
-variant reads (:func:`repro_torch.kernels.ref.staged_rows_ref`).
+variant reads (:func:`repro_torch.kernels.ref.staged_rows_ref`), a meta
+tensor the shape-only route (the launch's checks and its output, the work
+charged to :class:`repro_torch.kernels.cost.Recorder`; no launch), anything
+else raises.
 ``sparse_segment_mix.launches`` counts kernel launches, and only those;
 ``sparse_segment_mix.variants`` counts them by variant.
 """
@@ -33,7 +36,7 @@ from typing import NamedTuple
 
 import torch
 
-from . import build, ref
+from . import build, cost, ref
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _VARIANTS = {"staged": 0, "gather": 1}
@@ -229,9 +232,9 @@ def sparse_segment_mix(x: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
         seg = torch.repeat_interleave(torch.arange(S), offsets.diff())
         xs, xd = ref.staged_rows_ref(x, rows, lsrc[lo:hi], ldst[lo:hi])
         return ref.sparse_gossip_mix_ref(seg, w[lo:hi], xs, xd, S)
-    if x.device.type != "cuda":
-        raise ValueError(f"sparse_segment_mix takes CPU or CUDA tensors, not "
-                         f"{x.device.type}")
+    if x.device.type not in ("cuda", "meta"):
+        raise ValueError(f"sparse_segment_mix takes CPU, CUDA or meta "
+                         f"tensors, not {x.device.type}")
     return _launch(x, src, dst, w, offsets, rows, lsrc, ldst)
 
 
@@ -262,6 +265,10 @@ def _launch(x, src, dst, w, offsets, rows, lsrc, ldst):
     S, D = offsets.shape[0] - 1, x.shape[1]
     delta = torch.empty((S, D), dtype=torch.float32, device=x.device)
     if S == 0 or D == 0:
+        return delta
+    if x.device.type == "meta":
+        cost.charge("sparse_segment_mix", cost.sparse_segment_mix(
+            rows.shape[0], S, src.shape[0], D, x.element_size()))
         return delta
     geo = launch_geometry(rows.shape[0], D, S, x.dtype,
                           _sm_count(x.device.index))

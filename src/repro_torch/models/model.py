@@ -87,6 +87,63 @@ def build(cfg) -> Model:
     )
 
 
+# ---------------------------------------------------------------------------
+# Input templates (tensors without values on the meta device by default)
+# ---------------------------------------------------------------------------
+
+def train_batch_template(cfg, batch: int, seq: int, dtype=torch.bfloat16,
+                         device="meta") -> dict:
+    """Per-node training batch as empty tensors on ``device``.  For vlm and
+    audio, part of the sequence budget is the stub frontend's embedding:
+    a VLM's ``prefix_embeds`` take ``frontend_tokens`` of the ``seq``
+    positions; an encoder-decoder's ``frames`` come beside ``seq`` tokens.
+    Tokens are int64, the port's index dtype (the reference's are
+    int32)."""
+    def empty(shape, dt):
+        return torch.empty(shape, dtype=dt, device=device)
+
+    if cfg.arch_type == "vlm":
+        P = cfg.frontend_tokens
+        return {"tokens": empty((batch, seq - P), torch.int64),
+                "prefix_embeds": empty((batch, P, cfg.d_model), dtype)}
+    if cfg.arch_type == "audio":
+        return {"tokens": empty((batch, seq), torch.int64),
+                "frames": empty((batch, cfg.encoder_seq, cfg.d_model),
+                                dtype)}
+    return {"tokens": empty((batch, seq), torch.int64)}
+
+
+def decode_templates(cfg, batch: int, seq: int, dtype=torch.bfloat16,
+                     device="meta"):
+    """(token, cache, pos) for a serve step with a ``seq``-long context:
+    the (batch, 1) token, the cache :meth:`Model.init_cache` builds for
+    ``seq`` positions on ``device`` (built without the model, whose
+    parameter shapes would take a parameter tree of meta tensors), and ``pos`` = seq − 1, a host int (the
+    port's decode step takes its position from the host), the context's
+    last slot."""
+    token = torch.empty((batch, 1), dtype=torch.int64, device=device)
+    init_cache = (encdec.init_cache if cfg.arch_type == "audio"
+                  else transformer.init_cache)
+    return token, init_cache(cfg, batch, seq, dtype, device), seq - 1
+
+
+def materialize_batch(cfg, batch: int, seq: int, gen: torch.Generator,
+                      dtype=torch.bfloat16) -> dict:
+    """A random training batch matching :func:`train_batch_template`, drawn
+    from ``gen`` on its device: tokens uniform over the vocabulary, float
+    fields N(0, 0.02²)."""
+    tmpl = train_batch_template(cfg, batch, seq, dtype)
+    out = {}
+    for name, t in tmpl.items():
+        if t.dtype == torch.int64:
+            out[name] = torch.randint(0, cfg.vocab_size, t.shape,
+                                      generator=gen, device=gen.device)
+        else:
+            out[name] = torch.randn(t.shape, generator=gen,
+                                    device=gen.device, dtype=t.dtype) * 0.02
+    return out
+
+
 def params_from_jax(params) -> dict:
     """The JAX package's parameter tree or serve cache (nested dicts of
     arrays, e.g. after ``jax.device_get``) as the port's: the same tree,

@@ -270,10 +270,13 @@ def test_wrapper_refuses_what_it_cannot_take():
     with pytest.raises(ValueError):
         quantized_gossip.quantized_gossip_mix(tws, tx, tres[:3], scheme="sign",
                                               group=8)
-    with pytest.raises(ValueError):
-        quantized_gossip.quantized_gossip_mix(
-            tws.to("meta"), tx.to("meta"), tres.to("meta"), scheme="sign",
-            group=8)
+    # a meta tensor takes the shape-only route: no launch, no values
+    got, got_res = quantized_gossip.quantized_gossip_mix(
+        tws.to("meta"), tx.to("meta"), tres.to("meta"), scheme="sign",
+        group=8)
+    assert (got.device.type, got.shape, got_res.shape) == (
+        "meta", tx.shape, tres.shape)
+    assert quantized_gossip.quantized_gossip_mix.launches == 0
 
 
 # ---------------------------------------------------------------------------

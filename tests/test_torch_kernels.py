@@ -89,9 +89,11 @@ def test_wrapper_rejects_what_it_cannot_mix():
     with pytest.raises(ValueError):
         gossip_matmul.gossip_mix(torch.from_numpy(ws), torch.from_numpy(x),
                                  out=torch.zeros(4, 8))
-    with pytest.raises(ValueError):
-        gossip_matmul.gossip_mix(torch.from_numpy(ws).to("meta"),
-                                 torch.from_numpy(x).to("meta"))
+    # a meta tensor takes the shape-only route: no launch, no values
+    got = gossip_matmul.gossip_mix(torch.from_numpy(ws).to("meta"),
+                                   torch.from_numpy(x).to("meta"))
+    assert (got.device.type, got.shape) == ("meta", x.shape)
+    assert gossip_matmul.gossip_mix.launches == 0
 
 
 def _imports(path: Path):
@@ -186,7 +188,11 @@ def test_linear_recurrence_wrapper_rejects_what_it_cannot_take():
         linear_recurrence.linear_recurrence(a, b[:, :4])
     with pytest.raises(ValueError, match="one shape"):
         linear_recurrence.linear_recurrence(a[0], b[0])
-    with pytest.raises(ValueError, match="CPU or CUDA"):
-        linear_recurrence.linear_recurrence(a.to("meta"), b.to("meta"))
+    # a meta tensor takes the shape-only route: no launch, no values
+    h_all, h_last = linear_recurrence.linear_recurrence(a.to("meta"),
+                                                        b.to("meta"))
+    assert (h_all.device.type, h_all.shape, h_last.shape) == (
+        "meta", a.shape, (a.shape[0], a.shape[2]))
+    assert linear_recurrence.linear_recurrence.launches == 0
     with pytest.raises(ValueError, match="meta"):
         linear_recurrence.linear_recurrence(a, b.to("meta"))
