@@ -118,7 +118,9 @@ and then drives the main paths through the train CLI's own functions:
   nodes, on the realized waypoint-mobility schedule with 20% link drop,
   through the train CLI: MC-DSGT with a stale window of 1 through
   ``gossip_mix`` (6 launches in 3 steps; the tracker mean h̄ = ḡ⁻ held
-  after every step; the final state equal to the dense mixer's), the same
+  after every step; the final state equal to the dense mixer's; profiled:
+  every step's h window on the side stream, not the oracle's, and issued
+  before the oracle's last kernel), the same
   with int8 gossip through ``quantized_gossip_mix`` (6 launches, each held
   to its plain version on the stale payload) and DSGD int8 through it
   against the dense compressed mixer, ``--comm-interval 2`` (4 launches in
@@ -470,7 +472,18 @@ PREDICTED = {"yi-6b": {"peak_gb": (15, 17.5), "wall_s": (15, 40)},
              # and 1920 x 256,000 bf16 logits (~1 GB), four 2048-slot
              # caches; the draw, 254 decode steps of 4 slots at ~7 ms of
              # weights a slot, the re-serve and the profile
-             "nemotron-4-340b": {"peak_gb": (66.5, 70), "wall_s": (20, 50)}}
+             "nemotron-4-340b": {"peak_gb": (66.5, 70), "wall_s": (20, 50)},
+             # slice 21, written before the stale window's first run on a
+             # side stream (PERF.md §6): each window is issued before the
+             # oracle, so its (n, D) copy, 7.42 GB, lives across the oracle
+             # (the dense mixer's products too), over PR 32's 46.467,
+             # 59.458, 59.727, 31.631, 59.516 and 44.611 GB
+             "wireless (a)": {"peak_gb": (51.0, 53.9)},
+             "wireless (a dense)": {"peak_gb": (59.4, 67.2)},
+             "wireless (b)": {"peak_gb": (66.0, 67.2)},
+             "wireless (b dsgd)": {"peak_gb": (38.0, 39.1)},
+             "wireless (b dsgd dense)": {"peak_gb": (59.4, 60.0)},
+             "wireless (c)": {"peak_gb": (51.0, 52.1)}}
 # The serve CLI path: the port's launch/serve.py trains a qwen1.5-0.5b fleet
 # at full width (2 MC-DSGT steps through gossip_mix) and serves it.
 SERVE_CLI_STEPS = 2
@@ -3006,8 +3019,8 @@ def node_sums_close(torch, what, x, res, kept_x, kept_res, tol=1e-5):
 
 
 def wireless_phase(torch, train, exp, ops, ref, sim_telemetry, counters,
-                   smi: str) -> dict:
-    """ROADMAP Queue 1 items 5 and 7 on the card, each leg through the
+                   smi: str, main_secs) -> dict:
+    """ROADMAP Queue 1 items 4, 5 and 7 on the card, each leg through the
     train CLI at full width on the realized waypoint-mobility schedule
     with 20% link drop:
 
@@ -3016,7 +3029,12 @@ def wireless_phase(torch, train, exp, ops, ref, sim_telemetry, counters,
         within TRACKER_ROUNDINGS · steps · 2^-24 of each column's scale; the
         final x, h, g⁻ equal the same run through --gossip-impl dense (the
         plain mixer, from the same init and batches) at rtol 1e-4 / atol
-        1e-5;
+        1e-5; with --profile-dir over all 3 steps, every step's h window
+        ran on a stream other than the oracle's and was issued before the
+        oracle's last kernel ended (side_stream_gate), with each window's
+        device ms and its ms beside other streams' kernels and inside the
+        oracle's span; s/step beside the main path's synchronous MC-DSGT
+        (the host clock, on another schedule);
     (b) the same with --compress int8 through quantized_gossip_mix (6
         launches): each launch, on the stale payload, held to the plain
         version on three column windows by qcompare (the int8 step bound,
@@ -3031,7 +3049,12 @@ def wireless_phase(torch, train, exp, ops, ref, sim_telemetry, counters,
         gossip_mix: 2 launches on steps 0 and 2, none on 1 and 3;
     (d) the twins of examples/wireless_mobility.py and
         examples/compressed_gossip.py at their default budgets on the host
-        runtime, 0 launches, their own assertions holding."""
+        runtime, 0 launches, their own assertions holding.
+
+    Each leg's peak device memory is printed against its PREDICTED
+    range."""
+    import tempfile
+
     t_phase = time.perf_counter()
     out = {}
     recorder = sim_telemetry.TelemetryRecorder
@@ -3048,15 +3071,33 @@ def wireless_phase(torch, train, exp, ops, ref, sim_telemetry, counters,
             fail(f"wireless (a) step {k}: node means of h and g_prev differ "
                  f"by {gap:.3e}, {ratio:.2f} times the rounding bound")
 
-    a = cli_run(torch, train, exp, DELAYED_ARGV + ["--gossip-impl",
-                                                        "pallas"],
-                     counters, "wireless (a) delayed mc_dsgt via pallas", smi,
-                     on_step=(recorder, tracker_mean),
-                     keep=("x", "h", "g_prev"))
+    scratch = ROOT / "build"
+    scratch.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch,
+                                     prefix="wireless_prof_") as prof:
+        # --profile-dir alone turns on the in-step scalars, whose
+        # mix_residual takes a pre-mix copy of x (7.42 GB): --obs-names ''
+        # keeps the step (a) ran before its profile
+        t0 = time.perf_counter()
+        a = cli_run(torch, train, exp, DELAYED_ARGV + [
+            "--gossip-impl", "pallas", "--profile-dir", prof,
+            "--profile-steps", str(STEPS), "--obs-names", ""], counters,
+            "wireless (a) delayed mc_dsgt via pallas", smi,
+            on_step=(recorder, tracker_mean), keep=("x", "h", "g_prev"))
+        run_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        split = profile_split(str(Path(prof) / "trace.json"))
+        parse_s = time.perf_counter() - t0
     if a["launches"]["gossip_mix"] != 2 * STEPS or \
             sum(a["launches"].values()) != 2 * STEPS:
         fail(f"wireless (a): launches {a['launches']}; {STEPS} delayed "
              "MC-DSGT steps need 2 gossip_mix each")
+    side_stream_gate(split, "wireless (a)")
+    print(f"wireless (a): s/step {a['secs']} against the main path's "
+          f"synchronous MC-DSGT {main_secs} (same process; host clock, "
+          f"different schedules: waypoint mobility with link drop against "
+          f"sun); run {run_s:.3f} s with {STEPS} profiled steps, the "
+          f"profile read in {parse_s:.3f} s; {smi}", flush=True)
     stale = [t.get("stale_gap") for t in a["telemetry"]]
     kept = a.pop("kept")
     del a["state"], scale[:]
@@ -3082,7 +3123,8 @@ def wireless_phase(torch, train, exp, ops, ref, sim_telemetry, counters,
           f"/ atol 1e-5 (max |diff| {errs}); losses {a['losses']} vs "
           f"{d['losses']}", flush=True)
     out["a"] = {k: a[k] for k in ("launches", "secs", "peak_gb")}
-    out["a"]["stale_gap"] = stale
+    out["a"].update(stale_gap=stale, profile=split, run_s=run_s,
+                    parse_s=parse_s)
     out["a_dense"] = {k: d[k] for k in ("secs", "peak_gb")}
 
     # (b) compressed and delayed through quantized_gossip_mix
@@ -3153,6 +3195,13 @@ def wireless_phase(torch, train, exp, ops, ref, sim_telemetry, counters,
     print(f"wireless (c): gossip_mix launches after each step {per_step} "
           "(none on the skipped steps 1 and 3)", flush=True)
     out["c"] = {k: c[k] for k in ("launches", "secs", "peak_gb")}
+    peaks = {"a": a, "a dense": d, "b": b, "b dsgd": bp, "b dsgd dense": bd,
+             "c": c}
+    print("wireless: peak device memory (GB) of each leg, the stale window "
+          "issued before the oracle: " + "; ".join(
+              f"({leg}) " + predicted(f"wireless ({leg})", "peak_gb",
+                                      run["peak_gb"])
+              for leg, run in peaks.items()) + f"; {smi}", flush=True)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3193,13 +3242,25 @@ def profile_split(path: str) -> dict:
     obs norms, the pre-mix copy), counting only launches inside an
     ``obs:step`` span (the warm start's grad is outside every one).  Also
     the ``obs:step`` spans' host ms.  Sums of kernel, memcpy and memset
-    durations in ms."""
+    durations in ms.
+
+    ``per_step`` holds, for each step in order, the oracle's streams and
+    the ms from its first kernel's start to its last kernel's end
+    (``oracle_ms``), and for each
+    ``obs_mix`` range the step entered (its windows, in the order the host
+    issued them): the streams its kernels ran on, their device ms, when
+    the host launched its first kernel and when its kernels ran (ms from
+    the oracle's first kernel start), the ms during which one of its
+    kernels ran while a kernel of another stream was in flight
+    (``beside_ms``), and the ms of it between the oracle's first and last
+    kernel (``in_oracle_ms``)."""
     with open(path) as f:
         events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
 
     def spans(name):
-        return [(e["ts"], e["ts"] + e["dur"]) for e in events
-                if e.get("cat") == "user_annotation" and e["name"] == name]
+        return sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                      if e.get("cat") == "user_annotation"
+                      and e["name"] == name)
 
     step, grad, mix = spans("obs:step"), spans("obs_grad"), spans("obs_mix")
     launched = {e["args"]["correlation"]: e["ts"] for e in events
@@ -3212,6 +3273,7 @@ def profile_split(path: str) -> dict:
     out = {"steps": len(step), "grad_ms": 0.0, "mix_ms": 0.0,
            "other_ms": 0.0, "kernels": 0, "unmatched": 0,
            "step_host_ms": sum(b - a for a, b in step) / 1e3}
+    device = []      # (launch ts, start, end, stream) of every device op
     for e in events:
         if e.get("cat") not in ("kernel", "gpu_memcpy", "gpu_memset"):
             continue
@@ -3219,13 +3281,97 @@ def profile_split(path: str) -> dict:
         if ts is None:
             out["unmatched"] += 1
             continue
+        device.append((ts, e["ts"], e["ts"] + e["dur"],
+                       e["args"].get("stream", e.get("tid"))))
         if not inside(ts, step):
             continue
         key = ("grad_ms" if inside(ts, grad) else
                "mix_ms" if inside(ts, mix) else "other_ms")
         out[key] += e["dur"] / 1e3
         out["kernels"] += 1
+
+    def overlap(a, b, intervals):
+        """µs of [a, b] covered by the union of ``intervals``."""
+        cover, end = 0.0, a
+        for lo, hi in sorted(intervals):
+            lo, hi = max(lo, end), min(hi, b)
+            if hi > lo:
+                cover += hi - lo
+                end = hi
+        return cover
+
+    out["per_step"] = []
+    for a, b in step:
+        ops = [d for d in device if a <= d[0] <= b]
+        oracle = [d for d in ops if inside(d[0], grad)]
+        if not oracle:
+            continue
+        o0, o1 = min(d[1] for d in oracle), max(d[2] for d in oracle)
+        rec = {"oracle_streams": sorted({d[3] for d in oracle}),
+               "oracle_ms": (o1 - o0) / 1e3, "windows": []}
+        for m0, m1 in (r for r in mix if a <= r[0] <= b):
+            win = [d for d in ops if m0 <= d[0] <= m1]
+            if not win:
+                continue
+            own = {d[3] for d in win}
+            w0, w1 = min(d[1] for d in win), max(d[2] for d in win)
+            others = [(d[1], d[2]) for d in device
+                      if d[3] not in own and d[2] >= w0 and d[1] <= w1]
+            rec["windows"].append({
+                "streams": sorted({d[3] for d in win}),
+                "ms": sum(d[2] - d[1] for d in win) / 1e3,
+                "issued_ms": (min(d[0] for d in win) - o0) / 1e3,
+                "start_ms": (w0 - o0) / 1e3,
+                "end_ms": (w1 - o0) / 1e3,
+                "beside_ms": sum(overlap(d[1], d[2], others)
+                                 for d in win) / 1e3,
+                "in_oracle_ms": sum(max(0.0, min(d[2], o1) - max(d[1], o0))
+                                    for d in win) / 1e3})
+        out["per_step"].append(rec)
     return out
+
+
+def side_stream_gate(split: dict, what: str) -> None:
+    """The stale window's overlap, read structurally from a profile of
+    ``STEPS`` delayed MC-DSGT steps (:func:`profile_split`): in every step
+    the h window (the second ``obs_mix`` range: the engine issues x's
+    window, then h's, before the oracle) ran on a stream other than the
+    oracle's, and the host issued it before the oracle's last kernel
+    ended.  Not a timing gate: how much of a window the card ran beside the
+    oracle is printed, not held.  Prints each step's windows."""
+    steps = split["per_step"]
+    if len(steps) != STEPS:
+        fail(f"{what}: the profile holds {len(steps)} steps with an "
+             f"oracle, not {STEPS}: {split}")
+    for k, rec in enumerate(steps):
+        wins = rec["windows"]
+        if len(wins) != 2:
+            fail(f"{what} step {k}: {len(wins)} windows with device work, "
+                 f"not 2 (x, h): {rec}")
+        h = wins[1]
+        if set(h["streams"]) & set(rec["oracle_streams"]):
+            fail(f"{what} step {k}: the h window ran on the oracle's "
+                 f"stream: {rec}")
+        if not h["issued_ms"] < rec["oracle_ms"]:
+            fail(f"{what} step {k}: the h window was issued "
+                 f"{h['issued_ms']:.3f} ms after the oracle's first kernel, "
+                 f"past its last ({rec['oracle_ms']:.3f} ms): {rec}")
+        print(f"{what} step {k}: oracle on streams {rec['oracle_streams']}, "
+              f"its kernels over {rec['oracle_ms']:.3f} ms; windows (x, h): "
+              + "; ".join(
+                  f"streams {w['streams']}, device {w['ms']:.3f} ms, issued "
+                  f"at {w['issued_ms']:.3f} ms, ran {w['start_ms']:.3f} to "
+                  f"{w['end_ms']:.3f} ms (from the oracle's first kernel), "
+                  f"beside another stream's kernels {w['beside_ms']:.3f} ms, "
+                  f"inside the oracle's span {w['in_oracle_ms']:.3f} ms"
+                  for w in wins), flush=True)
+    hs = [rec["windows"][1] for rec in steps]
+    print(f"{what}: the h window ran on a stream other than the oracle's and "
+          f"was issued before the oracle's last kernel in all {STEPS} steps; "
+          f"its device ms {[round(w['ms'], 3) for w in hs]}, beside another "
+          f"stream's kernels {[round(w['beside_ms'], 3) for w in hs]}, "
+          f"inside the oracle's span "
+          f"{[round(w['in_oracle_ms'], 3) for w in hs]}", flush=True)
 
 
 class Stopwatch:
@@ -4581,7 +4727,7 @@ def main():
     torch.cuda.empty_cache()
     lap("planning")
     wireless = wireless_phase(torch, train, exp, ops, ref, sim_telemetry,
-                              counters, smi)
+                              counters, smi, plain["secs"])
     gc.collect()
     torch.cuda.empty_cache()
     lap("wireless/async")

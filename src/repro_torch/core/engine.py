@@ -28,7 +28,13 @@ identity and launch nothing); with ``delay`` d > 0 each window mixes the
 payload of d steps ago and only the correction lands on the fresh payload,
 ``out = (payload + Mix(stale)) − stale`` (``EngineState.buf``).  The
 wrappers nest as the reference's: compression innermost, then the gate,
-then the delay.
+then the delay.  A delayed step issues all its windows first, before the
+oracle, since they read only state from before the step; on CUDA tensors
+they run on a side stream of the device, and each correction waits for its
+own window only, so the mix may run beside the step's other work (the
+overlap the reference leaves to XLA's scheduler;
+:func:`repro_torch.obs.trace.overlap_report` proves per step that the mix
+reads nothing of the step's gradient).
 
 State tensors are node-stacked flat matrices, (n, D) each.  Unlike the JAX
 engine, which is pure, :func:`step` updates ``x`` and ``h`` in place and
@@ -96,17 +102,39 @@ def _node_mean(g: torch.Tensor) -> torch.Tensor:
     return out
 
 
+# The open taint analysis of :func:`repro_torch.obs.trace.overlap_report`,
+# which every annotated call hands its tensors to; None outside one.
+_analysis = None
+
+
 def _annotated(fn, name: str):
     """``fn`` inside ``torch.profiler.record_function(name)``, so a profile
     splits a step into its grad and mix device time (the reference's
-    ``jax.named_scope`` tags); None stays None."""
+    ``jax.named_scope`` tags); None stays None.  Under an overlap analysis
+    the call's arguments and results go to it: a kernel the analysis
+    cannot see still reads and writes them."""
     if fn is None:
         return None
 
     def call(*args, **kwargs):
         with torch.profiler.record_function(name):
-            return fn(*args, **kwargs)
+            out = fn(*args, **kwargs)
+            if _analysis is not None:
+                _analysis.call(name, args, out)
+            return out
     return call
+
+
+_SIDE = {}
+
+
+def _side_stream(device: torch.device):
+    """The one side stream of a CUDA ``device`` that a delayed step's
+    windows run on, made at its first use."""
+    side = _SIDE.get(device)
+    if side is None:
+        side = _SIDE[device] = torch.cuda.Stream(device)
+    return side
 
 
 class EngineState(NamedTuple):
@@ -431,18 +459,57 @@ def step(rule: UpdateRule, state: EngineState, ops: EngineOps,
                                     state.k >= comp.warmup)
         return mat
 
+    issued = {}
+
+    def issue(*windows):
+        """Under ``delay``: launch every window of the step, (stream,
+        offset, rounds) each, now, on a copy of its stream's oldest slot
+        (the slot is needed for the correction).  They read only state that
+        existed before the step, so they go before the oracle; on CUDA
+        tensors onto the device's side stream, which first waits for all
+        work queued so far: the copies (taken on the current stream, all
+        before the wait), the last step's slot writes, the staged weights.
+        The caching allocator is told of every tensor used across the two
+        streams: each copy is recorded on the side stream (a window that
+        returns a new tensor drops its copy while the side stream may still
+        read it), and a window's new result on the current stream, which
+        frees it."""
+        copies = [buf[stream][0].clone() for stream, _, _ in windows]
+        side = None
+        if state.x.is_cuda and not state.k % rule.comm_interval:
+            main = torch.cuda.current_stream(state.x.device)
+            side = _side_stream(state.x.device)
+            side.wait_stream(main)
+        for stream, off, r in windows:
+            mat = copies.pop(0)
+            if side is None:
+                issued[stream] = (window(stream, off, r, mat), None)
+                continue
+            with torch.cuda.stream(side):
+                out = window(stream, off, r, mat)
+                done = torch.cuda.Event()
+                done.record(side)
+            mat.record_stream(side)
+            if out is not mat:
+                out.record_stream(main)
+            issued[stream] = (out, done)
+
     def mix(stream, off, r, mat):
-        """The window, or under ``delay`` the window of the oldest stale
-        slot (a copy: the slot is needed for the correction) with the
-        correction folded into ``mat``: the payload is copied into the slot
-        it consumed (cast to the slot's dtype, the tracker storage cast),
-        that slot becomes the newest, and the output is written into
-        ``mat``'s storage, so the state keeps its tensors."""
+        """The window, or under ``delay`` the window :func:`issue` launched
+        for ``stream`` (with these ``off`` and ``r``) on the oldest stale
+        slot (waited for here, on the current stream)
+        with the correction folded into ``mat``: the payload is copied into
+        the slot it consumed (cast to the slot's dtype, the tracker storage
+        cast), that slot becomes the newest, and the output is written
+        into ``mat``'s storage, so the state keeps its tensors."""
         if buf is None:
             return window(stream, off, r, mat)
+        mixed, done = issued.pop(stream)
+        if done is not None:
+            torch.cuda.current_stream(mat.device).wait_event(done)
         q = buf[stream]
         stale = q[0]
-        out = _correct(mat, window(stream, off, r, stale.clone()), stale)
+        out = _correct(mat, mixed, stale)
         stale.copy_(mat)
         buf[stream] = q[1:] + [stale]
         return mat.copy_(out)
@@ -458,6 +525,10 @@ def step(rule: UpdateRule, state: EngineState, ops: EngineOps,
         scal["mix_residual"] = _norm(out, lambda c: out[:, c].float()
                                      - pre[:, c])
         return out
+
+    h_off = 0 if rule.shared_round else R
+    if buf is not None:
+        issue(*((0, 0, R), (1, h_off, R))[:1 + rule.uses_tracker])
 
     if rule.kind == "sgd":
         if rule.personalized:
@@ -510,7 +581,6 @@ def step(rule: UpdateRule, state: EngineState, ops: EngineOps,
         x = x_window(lambda m: mix(0, 0, R, m),
                      state.x.add_(d, alpha=-gamma))
     del d
-    h_off = 0 if rule.shared_round else R
     h = state.h if rule.correction_in_mix else mix(1, h_off, R, state.h)
     g_mean = None
     if state.g_prev.dtype == x.dtype:

@@ -46,10 +46,12 @@ stores h and g_prev, and the residuals, in that dtype.
 ``delay`` d > 0 mixes each window on the payload of d steps ago (the
 state's ``buf``: d stale slots per gossiped stream, the tracker's in
 ``aux_dtype``) and adds only the correction Mix(stale) − stale to the
-fresh payload; ``comm_interval`` k > 1 mixes on every k-th step only and
-launches nothing in between (see :class:`repro_torch.core.engine.
-UpdateRule`).  Both default to the synchronous path, which builds no
-wrapper.
+fresh payload.  The engine issues those windows at the start of the step,
+before the oracle, on a side CUDA stream (on the card), so the gossip
+kernels run beside the step's other work; ``comm_interval`` k > 1 mixes on
+every k-th step only and launches nothing in between (see
+:class:`repro_torch.core.engine.UpdateRule`).  Both default to the
+synchronous path, which builds no wrapper.
 
 :func:`make_prefill_step` and :func:`make_serve_step` are the serve steps
 the dry run (:mod:`repro_torch.launch.dryrun`) traces, thin wrappers over

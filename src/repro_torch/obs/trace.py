@@ -11,17 +11,183 @@ tags the runtime's grad and mix with ``record_function("obs_grad")`` and
 ``("obs_mix")``, so a profile (:class:`Profiler`, ``--profile-dir``) splits
 a step's device time between them.
 
-The reference's ``mix_depends_on_grad`` and ``overlap_report`` are taint
-analyses of a jaxpr; a PyTorch step has no jaxpr, so they are not here
-(ROADMAP.md lists them).
+The reference's :func:`mix_depends_on_grad` and :func:`overlap_report` read
+those same tags out of a step's jaxpr to prove (or refute) that the mix may
+overlap the grad.  A PyTorch step has no jaxpr: here they run the step under
+a ``TorchDispatchMode`` that follows the data from every ``obs_grad`` op to
+the ``obs_mix`` ranges (see :func:`mix_depends_on_grad`).  Under stale-window
+gossip (``UpdateRule.delay > 0``) no mix consumes the step's gradient, and
+the engine issues the windows before the oracle, on a second CUDA stream on
+the card (:mod:`repro_torch.core.engine`).
 """
 
 from __future__ import annotations
 
 import os
 import time
+import weakref
+
+import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 PHASES = ("data", "step", "telemetry", "checkpoint")
+MIX, GRAD = "obs_mix", "obs_grad"
+_ENTER = torch.ops.profiler._record_function_enter_new.default
+_EXIT = torch.ops.profiler._record_function_exit._RecordFunction
+
+
+# ---------------------------------------------------------------------------
+# Overlap verification: data dependence between the obs_grad / obs_mix ranges
+# ---------------------------------------------------------------------------
+
+def _tensors(tree) -> list:
+    """The tensors in ``tree`` (nested lists, tuples and dicts)."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if isinstance(tree, dict):
+        tree = list(tree.values())
+    if isinstance(tree, (list, tuple)):
+        return [t for sub in tree for t in _tensors(sub)]
+    return []
+
+
+class _Taint(TorchDispatchMode):
+    """The taint propagation of :func:`mix_depends_on_grad` over the ops a
+    step dispatches.  Taint is kept per storage (a view shares its base's),
+    keyed as :mod:`repro_torch.launch.dryrun` keys live storages: by the
+    storage object, dropped by a weakref when the storage dies.
+
+    * an op inside an ``obs_grad`` range taints what it writes: its new
+      outputs and the arguments it mutates;
+    * any other op reading a tainted storage taints what it writes, and
+      inside an ``obs_mix`` range it makes the answer True; an op that
+      reads nothing tainted clears the taint of its new outputs (a freed
+      storage's memory may come back);
+    * the current ranges come from the ``record_function`` enter and exit
+      ops, which dispatch through the mode: an enter pushes its name, an
+      exit pops the innermost (the exit's handle is a new Python object,
+      so it cannot be matched to its enter by identity; the ranges are
+      context managers and nest).
+
+    A kernel launched through ctypes, or a wrapper's meta route, reads its
+    input through no aten op, so the engine also hands every annotated call
+    to :meth:`call` (``engine._annotated``), which treats the range
+    atomically, as the reference treats an equation."""
+
+    def __init__(self):
+        super().__init__()
+        self.tainted = {}
+        self.open = []               # the open ranges' names, innermost last
+        self.ranges = {MIX: 0, GRAD: 0}
+        self.depends = False
+
+    def _hot(self, t: torch.Tensor) -> bool:
+        return id(t.untyped_storage()) in self.tainted
+
+    def _taint(self, t: torch.Tensor) -> None:
+        st = t.untyped_storage()
+        key = id(st)
+        if key not in self.tainted:
+            self.tainted[key] = weakref.ref(
+                st, lambda _, k=key: self.tainted.pop(k, None))
+
+    def _clear(self, t: torch.Tensor) -> None:
+        self.tainted.pop(id(t.untyped_storage()), None)
+
+    def call(self, name: str, args, result) -> None:
+        """An annotated call of the engine, whole: a mix whose arguments
+        are tainted depends on the grad and taints its results; a grad
+        taints its results."""
+        if name == MIX and any(self._hot(t) for t in _tensors(args)):
+            self.depends = True
+        elif name != GRAD:
+            return
+        for t in _tensors(result):
+            self._taint(t)
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        kwargs = kwargs or {}
+        out = func(*args, **kwargs)
+        if func is _ENTER:
+            self.open.append(args[0])
+            if args[0] in self.ranges:
+                self.ranges[args[0]] += 1
+            return out
+        if func is _EXIT:
+            self.open.pop()
+            return out
+        schema = func._schema
+        reads, writes = [], []
+        for i, a in enumerate(schema.arguments):
+            v = args[i] if i < len(args) else kwargs.get(a.name)
+            ts = _tensors(v)
+            if a.alias_info is not None and a.alias_info.is_write:
+                writes += ts
+            if not a.is_out:
+                reads += ts
+        hot = any(self._hot(t) for t in reads)
+        if hot and MIX in self.open:
+            self.depends = True
+        taint = hot or GRAD in self.open
+        if taint:
+            for t in writes:
+                self._taint(t)
+        outs = _tensors(out)
+        for t, r in zip(outs, schema.returns):
+            if r.alias_info is not None:
+                continue                   # a view, or a mutated argument
+            if taint:
+                self._taint(t)
+            else:
+                self._clear(t)
+        return out
+
+
+def mix_depends_on_grad(fn, *args, **kwargs) -> bool:
+    """Whether any ``obs_mix`` range of ``fn(*args, **kwargs)`` (a step of
+    either runtime) consumes a value produced under ``obs_grad``.
+
+    The reference's taint propagation over a jaxpr's equations, here over
+    the ops the step dispatches, in the order it runs them (see
+    :class:`_Taint`): a value written under ``obs_grad`` is tainted, every
+    op reading a tainted value taints what it writes, and an ``obs_mix``
+    range reading one answers True.  Each engine range is also treated
+    whole at its boundary, so a kernel the mode cannot see (a ctypes
+    launch, a meta route) still counts.  False means the mix is data
+    independent of the step's gradient (the ``delay > 0`` contract); True
+    means it serializes after the grad (every synchronous rule whose mix
+    payload holds the fresh update).  ``fn`` runs for real: on CPU
+    tensors, or on meta tensors, where nothing executes and the verdict is
+    the same."""
+    return not overlap_report(fn, *args, **kwargs)["overlapped"]
+
+
+def overlap_report(fn, *args, **kwargs) -> dict:
+    """Run ``fn(*args, **kwargs)`` under the taint analysis and report
+    whether its gossip mix is overlap-eligible:
+
+    * ``overlapped`` — True when no ``obs_mix`` range depends on an
+      ``obs_grad`` output (the stale-window contract);
+    * ``mix_eqns`` / ``grad_eqns`` — the ``obs_mix`` / ``obs_grad`` ranges
+      the step entered (the reference counts tagged equations; 0 for both
+      means the function was not engine-annotated and the verdict is
+      vacuous).
+
+    ``fn`` consumes its arguments as a step does (the engine updates its
+    state in place)."""
+    from ..core import engine
+
+    if engine._analysis is not None:
+        raise RuntimeError("overlap_report does not nest")
+    mode = _Taint()
+    engine._analysis = mode
+    try:
+        with mode:
+            fn(*args, **kwargs)
+    finally:
+        engine._analysis = None
+    return {"overlapped": not mode.depends, "mix_eqns": mode.ranges[MIX],
+            "grad_eqns": mode.ranges[GRAD]}
 
 
 class Tracer:
@@ -82,7 +248,6 @@ class _Span:
 
     def __enter__(self):
         if self.tracer.annotate:
-            import torch
             self.ann = torch.profiler.record_function(f"obs:{self.phase}")
             self.ann.__enter__()
         self.t0 = time.perf_counter()
@@ -121,7 +286,6 @@ class Profiler:
 
     def start(self):
         if not self._active:
-            import torch
             self.prof = torch.profiler.profile(
                 activities=sorted(torch.profiler.supported_activities(),
                                   key=str))

@@ -3,7 +3,10 @@ cover.  Its kernel check holds ``gossip_mix`` to its plain version at n 4
 to 300, R 1/2/4 and both dtypes; here are n = 4 to 300 at R up to 8 on
 both walks (n = 300 with W^T in chunks and its rows in two TMA boxes),
 each fill (TMA, element copies), in place, the inputs it refuses, and the
-engine's stale window (``delay``) mixing its slots through the kernel.  For ``quantized_gossip_mix`` (held to
+engine's stale window (``delay``) mixing its slots through the kernel,
+issued on the device's side stream: bit-equal to the same steps in order
+(through either gossip kernel), every window on the one cached side
+stream, and no side stream at delay 0.  For ``quantized_gossip_mix`` (held to
 its plain version by ``chip_smoke.py`` at n 4/16 on its regs route and at n
 17 to 200 on its ring and stream routes, both schemes, EF on and off): its
 largest n and W stack on the regs route, the one-column path that rows
@@ -144,6 +147,103 @@ def test_delayed_window_through_gossip_mix(delay):
     assert len(pairs) == 2 + 2 * delay
     for a, b in pairs:
         torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+def _delayed_steps(mixer, delay=1, steps=4, streams=None):
+    """``steps`` delayed MC-DSGT steps on the card (n = 4, R = 2, D =
+    4,096, a quadratic oracle) whose windows go through ``gossip_mix``
+    (``mixer`` "gossip_mix", in place), with int8 (groups of 256) through
+    ``quantized_gossip_mix`` ("int8", in place), or through the plain
+    matrix products ("matmul", a new tensor each round); the stream each
+    window was launched on is appended to ``streams``."""
+    from repro_torch.core import algorithms as alg, compress, engine
+    from repro_torch.dist import collectives as coll
+
+    n, R, D = 4, 2, 4_096
+    rng = np.random.default_rng(7)
+    x0, target = (rng.standard_normal((n, D)).astype(np.float32)
+                  for _ in range(2))
+    cfg = compress.CompressionConfig(scheme="int8", group=256) \
+        if mixer == "int8" else None
+    mc = alg.multi_consensus if mixer == "matmul" \
+        else coll.fused_multi_consensus
+    rule = engine.make_rule("mc_dsgt", 0.1, R, compression=cfg, delay=delay)
+    c = torch.from_numpy(target).cuda()
+    W = torch.from_numpy(gossip.theorem3_weight_schedule(n, 0.75).stacked(
+        0, steps * 2 * R)).cuda()
+    state = engine.init_state(rule, torch.from_numpy(x0).cuda())
+
+    def seen(fn):
+        def call(*args):
+            if streams is not None:
+                streams.append(torch.cuda.current_stream())
+            return fn(*args)
+        return call
+
+    for k in range(-1, steps):
+        win = lambda off, r: W[k * 2 * R + off:k * 2 * R + off + r]  # noqa: E731
+        ops = engine.EngineOps(
+            mix=seen(lambda off, r, mat: mc(win(off, r), mat)),
+            cmix=seen(lambda off, r, mat, res, on:
+                      coll.fused_quantized_consensus(win(off, r), mat, res,
+                                                     cfg, on)),
+            grad=lambda x, out=None: (None, torch.sub(x, c, out=out)))
+        state = (engine.warm_start(rule, state, ops) if k < 0
+                 else engine.step(rule, state, ops)[0])
+    torch.cuda.synchronize()
+    return state
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mixer", ["gossip_mix", "int8", "matmul"])
+def test_side_stream_windows_are_bit_equal_to_in_order(mixer, monkeypatch):
+    """The delayed step issues its windows before the oracle on the side
+    stream; with the side stream patched out (the helper returning the
+    current stream, so every window runs in order on it) the same 4 steps
+    give the same bits: x, h, g⁻, the stale slots and the residuals.  The
+    plain products return a new tensor each round, so the window's copy is
+    dropped while the side stream may still read it and the result is
+    freed on the other stream (the allocator's stream records)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    from repro_torch.core import engine
+
+    kernel = {"gossip_mix": gossip_matmul.gossip_mix,
+              "int8": quantized_gossip.quantized_gossip_mix}.get(mixer)
+    before = kernel.launches if kernel else 0
+    side = _delayed_steps(mixer)
+    if kernel:
+        assert kernel.launches == before + 2 * 4
+    monkeypatch.setattr(engine, "_side_stream",
+                        lambda device: torch.cuda.current_stream(device))
+    in_order = _delayed_steps(mixer)
+    tensors = lambda s: [s.x, s.h, s.g_prev, *s.buf[0], *s.buf[1],  # noqa: E731
+                         *(s.res or ())]
+    for a, b in zip(tensors(side), tensors(in_order), strict=True):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_windows_run_on_the_cached_side_stream(monkeypatch):
+    """Every window of a delayed step is launched on the device's side
+    stream, not the current one; the stream is made once and kept across
+    steps; delay 0 makes none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the Hopper kernel has no CPU mode")
+    from repro_torch.core import engine
+
+    monkeypatch.setattr(engine, "_SIDE", {})
+    streams = []
+    _delayed_steps("gossip_mix", delay=0, streams=streams)
+    assert engine._SIDE == {}
+    main = torch.cuda.current_stream()
+    assert streams and all(s == main for s in streams)
+    streams.clear()
+    _delayed_steps("gossip_mix", streams=streams)
+    side = engine._SIDE[torch.device("cuda", torch.cuda.current_device())]
+    assert len(streams) == 2 * 4
+    assert all(s == side and s != main for s in streams)
+    assert len(engine._SIDE) == 1
 
 
 @pytest.mark.cuda

@@ -261,6 +261,28 @@ def test_bf16_state_and_the_peak(monkeypatch):
     assert state.x.dtype == torch.float32
 
 
+def test_delayed_step_peak_charges_the_issued_window(monkeypatch):
+    """A delayed MC-DSGT step (delay 1, gossip_mix's meta route) issues
+    both windows before its oracle, so the h window's copy of its stale
+    slot lives across the oracle: the peak is the synchronous step's plus
+    exactly three (n, D) slots, the state's two stale slots and that copy.
+    (A reduced qwen at 1,024 tokens, whose activations outweigh a slot, so
+    the oracle holds both peaks.)"""
+    _small_shapes(monkeypatch, seq=1024, batch=8)
+    cfg = _reduced("qwen1.5-0.5b", units=1)
+    n = 4
+    D = dsteps.flat_layout(build(cfg)).size
+    slot = -(-n * D * 4 // dryrun.ALLOC_ROUND) * dryrun.ALLOC_ROUND
+    peak = {}
+    for delay in (0, 1):
+        peak[delay] = dryrun.lower_one(
+            "qwen1.5-0.5b", "train_4k", nodes=n, probe=False,
+            cfg_transform=lambda c: cfg, verbose=False,
+            train_kwargs={"delay": delay, "gossip_impl": "pallas"}
+        )["memory"]["peak_bytes"]
+    assert peak[1] - peak[0] == 3 * slot
+
+
 def test_meta_flops_equal_flop_counter_on_cpu_tensors(monkeypatch):
     """The card's gate rehearsed on the CPU: FlopCounterMode over one MC-DSGT
     step of a reduced qwen on real CPU tensors counts the FLOPs the dry run
